@@ -46,7 +46,10 @@ class Builder:
         self.request_attribute(name)
         return name
 
-    def add_counter(self, name, n_cell, dtype, fill=0):
+    def add_counter(self, name, n_cell, dtype=None, fill=0):
+        """a per-cell counter; ``dtype=None`` takes the backend's float
+        dtype (as ``pysdm_tpu/builder.py:50`` does)"""
+        dtype = dtype or self.particulator.dtype
         self._counters[name] = torch.full(
             (n_cell,), fill, dtype=dtype, device=self.particulator.device
         )
@@ -123,6 +126,8 @@ class Builder:
             ),
             "counters": dict(self._counters),
             "flags": dict(self._flags),
+            # host-side scalars of the environment (the parcel's clock)
+            "host": getattr(self.environment, "init_host_state", dict)(),
         }
 
         # insertion order is semantically significant (reference
@@ -132,6 +137,10 @@ class Builder:
             for dynamic in particulator.dynamics.values()
             if hasattr(dynamic, "make_step")
         ]
+        # the environment's predicted -> current commit runs last (the
+        # reference's swap-on-notify observer order, particulator.py:58-61)
+        if hasattr(self.environment, "make_commit_step"):
+            step_fns.append(self.environment.make_commit_step(particulator))
 
         def full_step(sim):
             for fn in step_fns:

@@ -1,3 +1,4 @@
-"""environments (parity: reference PySDM/environments/); the box slice ports
-``Box``, the parcel comes with slice 2 and the kinematic grids with slice 3"""
+"""environments (parity: reference PySDM/environments/): ``Box`` (slice 1)
+and ``Parcel`` (slice 2); the kinematic grids come with slice 3"""
 from .box import Box
+from .parcel import Parcel

@@ -1,8 +1,15 @@
 """Derived-attribute computation (port of ``pysdm_tpu/impl/attributes.py``)
-for the names the box slice reads: multiplicity, signed water mass, water
-mass, volume and radius. Stored extensive rows resolve by name. Derived
-attributes of later slices raise ``KeyError``.
+for the names the box and parcel slices read: multiplicity, signed water
+mass, water mass, volume, radius, dry radius, kappa, dry volume organic
+fraction, Reynolds number and critical volume. Stored extensive rows
+resolve by name. Derived attributes of later slices raise ``KeyError``.
+
+Names that depend on the ambient state (critical volume) read the cell's
+env row at each drop by a gather, ``env_row[cell_id]`` (the JAX package
+rides a one-hot matmul there because TPU gathers are slow).
 """
+
+import torch
 
 # attribute names stored as extensive rows (conserved sums under coalescence)
 EXTENSIVE_NAMES = (
@@ -42,13 +49,18 @@ def canonical_ext_name(name):
     return "signed water mass" if name == "water mass" else name
 
 
+def _env_at_drops(env_row, cell_id):
+    """a per-cell env row at each drop"""
+    return env_row[cell_id.long()]
+
+
 class AttributeResolver:
     """computes a requested attribute from a ParticleState + Formulae"""
 
     def __init__(self, formulae):
         self.formulae = formulae
 
-    def get(self, state, name):
+    def get(self, state, name, env=None):
         f = self.formulae
         if name in ("multiplicity", "n"):
             return state.multiplicity
@@ -64,4 +76,39 @@ class AttributeResolver:
             )
         if name == "radius":
             return f.trivia.radius(self.get(state, "volume"))
+        if name == "dry radius":
+            return f.trivia.radius(state.ext("dry volume"))
+        if name == "kappa":
+            return state.ext("kappa times dry volume") / state.ext("dry volume")
+        if name == "dry volume organic fraction":
+            if state.has_ext("dry volume organic"):
+                return state.ext("dry volume organic") / state.ext("dry volume")
+            return torch.zeros_like(state.ext("signed water mass"))
+        if name == "Reynolds number":
+            # the reference registers zeros when ventilation is Neglect (the
+            # coefficient is then 1 whatever Re is); Formulae admits no other
+            # ventilation variant yet
+            if f.ventilation.variant != "Neglect":
+                raise NotImplementedError(
+                    "the Reynolds number needs the terminal velocity: it"
+                    " comes with slice 3"
+                )
+            return torch.zeros_like(state.ext("signed water mass"))
+        if name == "critical volume":
+            # kappa-Koehler critical wet volume at the ambient cell
+            # temperature (reference ``attributes/physics/critical_volume.py``)
+            if env is None:
+                raise KeyError("critical volume requires the env (cell T)")
+            T = _env_at_drops(env["T"], state.cell_id)
+            v_dry = state.ext("dry volume")
+            sgm = f.surface_tension.sigma(
+                T,
+                self.get(state, "volume"),
+                v_dry,
+                self.get(state, "dry volume organic fraction"),
+            )
+            r_cr = f.hygroscopicity.r_cr(
+                self.get(state, "kappa"), v_dry / f.constants.PI_4_3, T, sgm
+            )
+            return f.trivia.volume(r_cr)
         raise KeyError(f"attribute {name!r} is not resolved by the port yet")

@@ -34,6 +34,12 @@ class ParticleState:
     def has_ext(self, name):
         return name in self.ext_names
 
+    def set_ext(self, name, value):
+        """a copy with extensive row ``name`` replaced by ``value``"""
+        extensive = self.extensive.clone()
+        extensive[self.ext_names.index(name)] = value
+        return self.replace(extensive=extensive)
+
     def replace(self, **changes):
         return dataclasses.replace(self, **changes)
 
@@ -70,3 +76,43 @@ class ParticleState:
             "ext_names": self.ext_names,
             "cell_id": self.cell_id.cpu().numpy(),
         }
+
+
+def sim_state_from_numpy(sim, particulator):
+    """the port's sim-state from the JAX package's whole ``sim_state`` as
+    host arrays (e.g. ``jax.device_get(jax_particulator.sim_state)``):
+    particles, env, counters and flags, on the particulator's device, with
+    its float dtype for particles and env and each counter in the dtype the
+    port registered it with (the JAX package's dtype for a counter the port
+    has not registered); the environment's host-side scalars are read from
+    the env."""
+    dtype, device = particulator.dtype, particulator.device
+    counters = particulator.sim_state["counters"]
+    particles = sim["particles"]
+    state = {
+        "particles": ParticleState.from_numpy(
+            multiplicity=particles.multiplicity,
+            extensive=particles.extensive,
+            ext_names=particles.ext_names,
+            cell_id=particles.cell_id,
+            dtype=dtype,
+            mult_dtype=particulator.mult_dtype,
+            device=device,
+        ),
+        "env": {
+            name: torch.as_tensor(np.array(value), dtype=dtype, device=device)
+            for name, value in sim["env"].items()
+        },
+        "counters": {
+            name: torch.as_tensor(
+                np.array(value),
+                dtype=counters[name].dtype if name in counters else None,
+                device=device,
+            )
+            for name, value in sim["counters"].items()
+        },
+        "flags": {name: bool(value) for name, value in sim["flags"].items()},
+    }
+    init_host_state = getattr(particulator.environment, "init_host_state", None)
+    state["host"] = init_host_state(sim["env"]) if init_host_state else {}
+    return state

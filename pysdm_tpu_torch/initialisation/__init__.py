@@ -2,3 +2,4 @@
 
 from . import spectra
 from .discretise_multiplicities import discretise_multiplicities
+from .equilibrate_wet_radii import equilibrate_wet_radii

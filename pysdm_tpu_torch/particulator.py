@@ -6,6 +6,7 @@ one Python function over the simulation-state dict; ``run(steps)`` is a
 Python loop over it. PyTorch runs eagerly, so no compilation step exists.
 """
 
+import numpy as np
 import torch
 
 from .impl.attributes import AttributeResolver
@@ -41,7 +42,7 @@ class Particulator:
         self.dt = None
         self.dynamics = {}
         self.n_steps = 0
-        # {'particles', 'env', 'counters', 'flags'}
+        # {'particles', 'env', 'counters', 'flags', 'host'}
         self.sim_state = None
         # host-side generator of the per-substep draws, seeded by Builder
         self.rng = None
@@ -65,10 +66,17 @@ class Particulator:
         return self.sim_state["particles"]
 
     def get_attribute(self, name):
-        return self._resolver.get(self.sim_state["particles"], name)
+        return self._resolver.get(
+            self.sim_state["particles"], name, env=self.sim_state["env"]
+        )
 
     def get_counter(self, name):
         return self.sim_state["counters"][name].cpu().numpy()
+
+    def get_env(self, key):
+        if key in self.sim_state["env"]:
+            return self.sim_state["env"][key].cpu().numpy()
+        return np.asarray(self.environment[key])
 
     def reset_counter(self, name):
         self.sim_state["counters"][name].zero_()

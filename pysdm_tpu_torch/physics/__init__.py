@@ -1,5 +1,5 @@
 """Physics layer: unit helpers, constants catalogue and the Formulae
-binding engine (the families the box slice reads)."""
+binding engine (the families the box and parcel slices read)."""
 
 from .si import si, in_unit, convert_to
 from .constants import make_constants, DEFAULTS as constant_defaults

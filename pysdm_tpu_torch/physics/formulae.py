@@ -1,42 +1,77 @@
 """Formulae engine (API parity with ``pysdm_tpu/physics/formulae.py``): one
 variant per physics family, bound to a frozen constants namespace.
 
-The box slice reads two families, ``trivia`` and
-``particle_shape_and_density`` (``LiquidSpheres``). Choosing a variant of any
-other family of the JAX package raises ``NotImplementedError`` naming the
-slice of the port that brings it.
+The port binds the families the box and parcel slices read, with the JAX
+package's defaults (``pysdm_tpu/physics/formulae.py:86-118``). Choosing a
+variant the port does not have yet raises ``NotImplementedError`` naming
+the ROADMAP item or slice that brings it; so does choosing any variant of a
+family the port does not bind yet.
 """
 
 import os
 import time
 from types import SimpleNamespace
 
+from . import (
+    diffusion_kinetics,
+    diffusion_thermics,
+    drop_growth,
+    hygroscopicity,
+    latent_heat,
+    misc_families,
+    saturation_vapour_pressure,
+    state_variable_triplet,
+)
 from .constants import make_constants
 from .particle_shape_and_density import VARIANTS as SHAPE_VARIANTS
 from .trivia import Trivia
 
-_FAMILIES = {
-    "trivia": ({"Trivia": Trivia}, "Trivia"),
-    "particle_shape_and_density": (SHAPE_VARIANTS, "LiquidSpheres"),
-}
-
-_SLICE_2 = "slice 2 (adiabatic parcel)"
 _SLICE_3 = "slice 3 (multi-cell column and 2D warm rain)"
 _SLICE_4 = "slice 4 (breakup)"
 _SLICE_5 = "slice 5 (ice, chemistry, isotopes, optics)"
+_PHYSICS = "ROADMAP queue 1 item 3 (the rest of physics/)"
+
+# family -> (ported variants, default, where the other variants come from)
+_FAMILIES = {
+    "trivia": ({"Trivia": Trivia}, "Trivia", None),
+    "particle_shape_and_density": (SHAPE_VARIANTS, "LiquidSpheres", _SLICE_5),
+    "diffusion_coordinate": (
+        misc_families.DIFFUSION_COORDINATE_VARIANTS, "WaterMassLogarithm",
+        _PHYSICS,
+    ),
+    "saturation_vapour_pressure": (
+        saturation_vapour_pressure.VARIANTS, "FlatauWalkoCotton", _PHYSICS,
+    ),
+    "latent_heat_vapourisation": (
+        latent_heat.VAPOURISATION_VARIANTS, "Kirchhoff", _PHYSICS,
+    ),
+    "hygroscopicity": (
+        hygroscopicity.VARIANTS, "KappaKoehlerLeadingTerms", _PHYSICS,
+    ),
+    "drop_growth": (drop_growth.VARIANTS, "Mason1971", _PHYSICS),
+    "surface_tension": (
+        misc_families.SURFACE_TENSION_VARIANTS, "Constant", _PHYSICS,
+    ),
+    "diffusion_kinetics": (diffusion_kinetics.VARIANTS, "FuchsSutugin", _PHYSICS),
+    "diffusion_thermics": (diffusion_thermics.VARIANTS, "Neglect", _PHYSICS),
+    # the other ventilation variants need the Reynolds number, hence the
+    # terminal velocity
+    "ventilation": (misc_families.VENTILATION_VARIANTS, "Neglect", _SLICE_3),
+    "state_variable_triplet": (
+        state_variable_triplet.VARIANTS, "LibcloudphPlusPlus", _PHYSICS,
+    ),
+    "hydrostatics": (
+        misc_families.HYDROSTATICS_VARIANTS,
+        "ConstantGVapourMixingRatioAndThetaStd", _PHYSICS,
+    ),
+    "air_dynamic_viscosity": (
+        misc_families.AIR_DYNAMIC_VISCOSITY_VARIANTS, "ZografosEtAl1987",
+        _PHYSICS,
+    ),
+}
 
 # families of the JAX package that the port does not bind yet
 _LATER_FAMILIES = {
-    **{
-        name: _SLICE_2
-        for name in (
-            "diffusion_coordinate", "saturation_vapour_pressure",
-            "latent_heat_vapourisation", "hygroscopicity", "drop_growth",
-            "surface_tension", "diffusion_kinetics", "diffusion_thermics",
-            "ventilation", "state_variable_triplet", "hydrostatics",
-            "air_dynamic_viscosity",
-        )
-    },
     "particle_advection": _SLICE_3,
     "terminal_velocity": _SLICE_3,
     "fragmentation_function": _SLICE_4,
@@ -111,12 +146,12 @@ class Formulae:
         self.fastmath = fastmath
         self.handle_all_breakups = handle_all_breakups
         self._variant_names = {}
-        for family, (variants, default) in _FAMILIES.items():
+        for family, (variants, default, later) in _FAMILIES.items():
             name = variant_choices.get(family, default)
             if name not in variants:
                 raise NotImplementedError(
                     f"variant {name!r} of {family!r} is not ported yet: it"
-                    f" comes with {_SLICE_5}; ported: {sorted(variants)}"
+                    f" comes with {later}; ported: {sorted(variants)}"
                 )
             self._variant_names[family] = name
             setattr(self, family, _bind(variants[name], self.constants, name))

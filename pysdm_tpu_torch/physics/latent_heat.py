@@ -1,0 +1,12 @@
+"""Latent heat of vapourisation: the ``Kirchhoff`` variant of
+``pysdm_tpu/physics/latent_heat.py``. The other variants come with ROADMAP
+queue 1 item 3."""
+
+
+class Kirchhoff:
+    @staticmethod
+    def lv(const, T):
+        return const.l_tri + (const.c_pv - const.c_pw) * (T - const.T_tri)
+
+
+VAPOURISATION_VARIANTS = {"Kirchhoff": Kirchhoff}

@@ -1,11 +1,13 @@
 """Shared helper formulae ("trivia"), the part of
-``pysdm_tpu/physics/trivia.py`` that the box slice reads.
+``pysdm_tpu/physics/trivia.py`` that the box and parcel slices read.
 
-Each body is plain arithmetic on its arguments, so the same function serves
-Python floats, NumPy arrays (set-up) and torch tensors (the step). All
-methods take the constants namespace as first argument (bound by
-``Formulae``).
+Each body is arithmetic on its arguments or goes through ``_xp``, so the
+same function serves Python floats, NumPy arrays (set-up) and torch tensors
+(the step). All methods take the constants namespace as first argument
+(bound by ``Formulae``).
 """
+
+from . import _xp
 
 
 class Trivia:
@@ -40,3 +42,23 @@ class Trivia:
     @staticmethod
     def C2K(const, TC):
         return TC + const.T0
+
+    @staticmethod
+    def within_tolerance(const, error_estimate, value, rtol):
+        return error_estimate < rtol * abs(value)
+
+    @staticmethod
+    def p_d(const, p, water_vapour_mixing_ratio):
+        return p * (1 - 1 / (1 + const.eps / water_vapour_mixing_ratio))
+
+    @staticmethod
+    def th_std(const, p, T):
+        return T * _xp.power(const.p1000 / p, const.Rd_over_c_pd)
+
+    @staticmethod
+    def air_schmidt_number(const, dynamic_viscosity, diffusivity, density):
+        return dynamic_viscosity / diffusivity / density
+
+    @staticmethod
+    def sqrt_re_times_cbrt_sc(const, Re, Sc):
+        return _xp.power(Re, const.ONE_HALF) * _xp.power(Sc, const.ONE_THIRD)

@@ -21,7 +21,10 @@ def test_import_leaves_jax_out():
     code = (
         "import sys, pysdm_tpu_torch, pysdm_tpu_torch.dynamics,"
         " pysdm_tpu_torch.environments, pysdm_tpu_torch.initialisation"
-        ".sampling.spectral_sampling, pysdm_tpu_torch.ops.cuda.collision;"
+        ".sampling.spectral_sampling, pysdm_tpu_torch.ops.cuda.collision,"
+        " pysdm_tpu_torch.ops.cuda.condensation, pysdm_tpu_torch.ops"
+        ".condensation, pysdm_tpu_torch.environments.parcel,"
+        " pysdm_tpu_torch.dynamics.condensation, pysdm_tpu_torch.impl.state;"
         " bad = [m for m in sys.modules if m.split('.')[0] in"
         " ('jax', 'flax', 'pysdm_tpu')]; print(bad); assert not bad"
     )
@@ -68,7 +71,9 @@ def test_formula_matches_jax_package(family, name, args):
 
 
 def test_unported_formula_family_names_its_slice():
-    with pytest.raises(NotImplementedError, match="slice 2"):
+    with pytest.raises(NotImplementedError, match="slice 3"):
+        pysdm_tpu_torch.Formulae(terminal_velocity="RogersYau")
+    with pytest.raises(NotImplementedError, match="queue 1 item 3"):
         pysdm_tpu_torch.Formulae(saturation_vapour_pressure="AugustRocheMagnus")
     with pytest.raises(NotImplementedError, match="slice 5"):
         pysdm_tpu_torch.Formulae(particle_shape_and_density="MixedPhaseSpheres")
