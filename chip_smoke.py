@@ -154,6 +154,37 @@ def _kernel_vs_twin(torch, kern, device, gpu):
     return max_abs_err, kernel_ms, twin_ms
 
 
+def k2_state(n, n_cell, n_ext, ext_dtype, seed):
+    """K2's inputs over a cell-sorted state, as numpy rows: n slots in
+    n_cell cells of random sizes, 5% dead slots in the trailing bucket,
+    multiplicities up to 2^40 with 5% of the pairs tied, kernel-times-norm
+    values spread so that the pairs see gamma = 0, gamma capped by
+    xi_j / xi_k and exhaustion splits. Returns (mult, ext, kernnorm, rand,
+    is_first, cell)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    n_dead = n // 20
+    cell = np.concatenate([
+        np.sort(rng.integers(0, n_cell, n - n_dead)), np.full(n_dead, n_cell)
+    ])
+    start = np.searchsorted(cell, np.arange(n_cell + 1))
+    offset = np.arange(n) - start[cell]
+    same_as_next = np.append(cell[1:] == cell[:-1], False)
+    is_first = same_as_next & (offset % 2 == 0) & (cell < n_cell)
+    mult = rng.integers(1, 2**40, size=n).astype(np.int64)
+    mult[n - n_dead:] = 0
+    leaders = np.flatnonzero(is_first)
+    tied = leaders[rng.uniform(size=leaders.size) < 0.05]
+    mult[tied + 1] = mult[tied]
+    ext = rng.uniform(1e-12, 1e-9, size=(n_ext, n)).astype(ext_dtype)
+    kernnorm = (
+        rng.lognormal(0.0, 2.0, n) / np.median(mult[: n - n_dead])
+    ).astype(np.float32)
+    rand = rng.uniform(size=n).astype(np.float32)
+    return mult, ext, kernnorm, rand, is_first, cell
+
+
 def build_box(n_sd, dt, adaptive):
     """``bench.py``'s box (Golovin b = 1.5e3, dv = 1e6 m^3, exponential
     spectrum) on the port's ``GPU`` backend"""
@@ -416,13 +447,14 @@ def compare_k3(rows, kernel, twin, rtol_x):
 
 
 def _k3_vs_twin(torch, k3, device, gpu):
-    """phase 5; returns (max_abs_err, {n: (kernel_ms, twin_ms)})"""
+    """phase 5; returns (max_abs_err, {n: (kernel_ms, twin_ms)}, the minfun
+    evaluations the N_PARCEL rows need)"""
     from pysdm_tpu_torch import Formulae
     from pysdm_tpu_torch.ops.condensation import DropSolveSettings
 
     formulae = Formulae(seed=44)
     settings = DropSolveSettings(*K3_SETTINGS)
-    max_abs_err, times = 0.0, {}
+    max_abs_err, times, evaluations = 0.0, {}, 0
     for n in (N_PARCEL, N_MAIN):
         rows = settle_haze(formulae, k3_rows(n, seed=n), device)
         before = k3.masses_new.launches
@@ -437,6 +469,10 @@ def _k3_vs_twin(torch, k3, device, gpu):
         abs_err, rel_err = compare_k3(rows, kernel, twin, settings.rtol_x)
         max_abs_err = max(max_abs_err, abs_err)
         args = [torch.from_numpy(rows[k]).to(device) for k in K3_ARGS]
+        if n == N_PARCEL:
+            stats = {}
+            k3.masses_new_reference(formulae, settings, *args, stats=stats)
+            evaluations = stats["minfun_evaluations"]
         times[n] = (
             _time_ms(torch, lambda: k3.masses_new(formulae, settings, *args), 50),
             _time_ms(
@@ -447,7 +483,9 @@ def _k3_vs_twin(torch, k3, device, gpu):
         print(f"phase 5: K3 n={n}: success equal, mass max abs diff"
               f" {abs_err!r} kg, max rel diff {rel_err!r}; kernel"
               f" {times[n][0]!r} ms, plain twin {times[n][1]!r} ms [{gpu}]")
-    return max_abs_err, times
+    print(f"phase 5: the {N_PARCEL} drops need {evaluations} minfun"
+          " evaluations")
+    return max_abs_err, times, evaluations
 
 
 def build_parcel(n_sd, backend, adaptive, qv0=0.0158):
@@ -589,6 +627,341 @@ def _parcel_gpu_vs_cpu(k3):
               f" {on_cpu.get_env('qv')[0]!r}")
 
 
+
+# the card's published rates (NVIDIA H100 SXM data sheet, at 700 W): device
+# memory bytes/s and dense float32 operations/s outside the tensor cores
+HBM_BYTES_PER_S = 3.35e12
+F32_OPS_PER_S = 67e12
+# float32 operations of one minfun evaluation in K3, counted from its
+# formulas (exp, cube root, the Koehler and Fick terms, the log-coordinate
+# derivative: ~20 multiply-adds, ~8 divisions, 4 transcendental calls,
+# each counted as one operation)
+K3_OPS_PER_MINFUN = 60
+WARM_RAIN_GRID = (25, 25)
+WARM_RAIN_SD_PER_CELL = 2**12
+WARM_RAIN_STEPS = 30
+
+
+def bound_ms(n_bytes, n_ops=0.0):
+    """(least time on the card in ms, what sets it): the larger of the
+    bytes over the memory rate and the operations over the float32 rate"""
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = n_ops / F32_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def _k4_vs_twin(torch, scan, device, gpu):
+    """phase 8: K4 against torch.cumsum and float64; returns
+    (max_abs_err, kernel_ms, twin_ms) for float32 at 2.56 M"""
+    import numpy as np
+
+    n_main = WARM_RAIN_GRID[0] * WARM_RAIN_GRID[1] * WARM_RAIN_SD_PER_CELL
+    max_abs_err = 0.0
+    for n in (2**20, n_main, n_main + 12345):
+        rng = np.random.default_rng(n)
+        for dtype in (torch.int32, torch.int64):
+            x = torch.from_numpy(rng.integers(-1000, 1000, n)).to(dtype).to(device)
+            got = scan.cumsum(x)
+            if not torch.equal(got, scan.cumsum_reference(x)):
+                raise AssertionError(f"K4 {dtype} n={n}: not exact")
+        x_np = rng.uniform(size=n).astype(np.float32)
+        x = torch.from_numpy(x_np).to(device)
+        before = scan.cumsum.launches
+        got = scan.cumsum(x)
+        again = scan.cumsum(x)
+        torch.cuda.synchronize()
+        if scan.cumsum.launches != before + 2:
+            raise AssertionError("K4's counter did not count the launches")
+        if not torch.equal(got, again):
+            raise AssertionError("K4: two runs differ")
+        exact = np.cumsum(x_np.astype(np.float64))
+        err = np.abs(got.cpu().numpy() - exact)
+        twin_err = np.abs(scan.cumsum_reference(x).cpu().numpy() - exact)
+        # a chain of at most ~40 roundings of 2^-24 of the prefix each
+        if not (err <= 1e-5 * exact).all():
+            raise AssertionError(f"K4 f32 n={n}: rel err {np.max(err / exact)!r}")
+        if n == n_main:
+            max_abs_err = float(err.max())
+        print(f"phase 8: K4 n={n}: int32 and int64 exact, float32 max rel"
+              f" err {float(np.max(err / exact))!r} (torch.cumsum"
+              f" {float(np.max(twin_err / exact))!r}), two runs bit-equal")
+    x = torch.from_numpy(
+        np.random.default_rng(0).uniform(size=n_main).astype(np.float32)
+    ).to(device)
+    kernel_ms = _time_ms(torch, lambda: scan.cumsum(x), 200)
+    twin_ms = _time_ms(torch, lambda: scan.cumsum_reference(x), 200)
+    print(f"phase 8: K4 n={n_main} float32: kernel {kernel_ms!r} ms,"
+          f" torch.cumsum {twin_ms!r} ms [{gpu}]")
+    return max_abs_err, kernel_ms, twin_ms, n_main
+
+
+def _k2_vs_twin(torch, kern, device, gpu):
+    """phase 9: K2 against its twin at the warm rain's size, three float32
+    rows; returns (max_abs_err, kernel_ms, twin_ms, bytes)"""
+    import numpy as np
+
+    n = WARM_RAIN_GRID[0] * WARM_RAIN_GRID[1] * WARM_RAIN_SD_PER_CELL
+    state = k2_state(n, WARM_RAIN_GRID[0] * WARM_RAIN_GRID[1], 3, np.float32, 9)
+    args = [torch.from_numpy(a).to(device) for a in state[:5]]
+    before = kern.coalesce_adjacent.launches
+    got = kern.coalesce_adjacent(*args)
+    torch.cuda.synchronize()
+    if kern.coalesce_adjacent.launches != before + 1:
+        raise AssertionError("K2's counter did not count the launch")
+    want = kern.coalesce_adjacent_reference(*args)
+    got = [x.cpu().numpy() for x in got]
+    want = [x.cpu().numpy() for x in want]
+    np.testing.assert_array_equal(got[0], want[0])
+    changed = float((got[0] != state[0]).mean())
+    if not 0.05 < changed < 0.95:
+        raise AssertionError(f"K2 touched {changed} of the slots")
+    np.testing.assert_allclose(got[1], want[1], rtol=1e-6)
+    for g, w in zip(got[2:4], want[2:4]):
+        np.testing.assert_allclose(g, w, rtol=1e-6)
+    err = float(np.abs(got[1].astype(np.float64) - want[1]).max())
+    kernel_ms = _time_ms(torch, lambda: kern.coalesce_adjacent(*args), 200)
+    twin_ms = _time_ms(torch, lambda: kern.coalesce_adjacent_reference(*args), 20)
+    # each input read once, each output written once: mult 8, three rows
+    # 12, kernnorm 4, rand 4, is_first 1 in; mult 8, rows 12, rate and
+    # deficit 8 out
+    n_bytes = n * (8 + 12 + 4 + 4 + 1 + 8 + 12 + 8)
+    print(f"phase 9: K2 n={n} R=3: xi equal ({changed!r} of the slots"
+          f" changed), ext max abs err {err!r}; kernel {kernel_ms!r} ms,"
+          f" plain twin {twin_ms!r} ms [{gpu}]")
+    return err, kernel_ms, twin_ms, n_bytes
+
+
+def warm_rain(backend, grid, n_sd_per_gridbox, seed=44, spin_up_time=0.0):
+    """config #5, the Arabas et al. 2015 2D warm rain, through the port's
+    entry point; ``backend`` None takes make_simulation's default (the
+    card)"""
+    from pysdm_tpu_torch import Formulae
+    from pysdm_tpu_torch.models import arabas_et_al_2015 as model
+
+    settings = model.Settings(
+        Formulae(seed=seed), grid=grid, size=(1500.0, 1500.0),
+        n_sd_per_gridbox=n_sd_per_gridbox, spin_up_time=spin_up_time,
+    )
+    kwargs = {} if backend is None else {"backend_class": backend}
+    particulator, spin_up = model.make_simulation(settings, **kwargs)
+    return settings, particulator, spin_up
+
+
+def total_water(p):
+    """vapour, liquid and this step's precipitation, kg (float64), after
+    checking multiplicities and masses"""
+    import numpy as np
+
+    mult = p.attributes["multiplicity"]
+    mass = p.attributes["water mass"]
+    if (mult < 0).any():
+        raise AssertionError("negative multiplicity")
+    if not np.isfinite(mass).all():
+        raise AssertionError("non-finite water mass")
+    vapour = float(np.sum(
+        p.get_env("rhod").astype(float) * p.get_env("qv") * p.mesh.dv
+    ))
+    liquid = float(np.sum(mult.astype(float) * mass))
+    return vapour + liquid + float(np.sum(p.get_counter("precipitated_mass")))
+
+
+def _host_reads(p):
+    return (
+        p.dynamics["Collision"].host_reads
+        + p.dynamics["Displacement"].host_reads
+        + p.dynamics["Condensation"].solver.host_reads
+    )
+
+
+def _warm_rain_main_path(kern, k3, scan, gpu):
+    """phase 10: the full-width warm rain on the card; returns (launches
+    per kernel, the particulator, ms/step)"""
+    import numpy as np
+
+    _, p, spin_up = warm_rain(None, WARM_RAIN_GRID, WARM_RAIN_SD_PER_CELL)
+    if p.device.type != "cuda":
+        raise AssertionError(f"make_simulation built on {p.device}")
+    spin_up.finish()
+    p.run(1)
+    p.block_until_ready()
+    water0 = total_water(p)
+    collision = p.dynamics["Collision"]
+    substeps0, reads0 = collision.substeps_run, _host_reads(p)
+    solves0 = p.dynamics["Condensation"].solver.substep_solves
+    kern.coalesce_adjacent.launches = 0
+    k3.masses_new.launches = 0
+    scan.cumsum.launches = 0
+    t0 = time.perf_counter()
+    p.run(WARM_RAIN_STEPS)
+    p.block_until_ready()
+    elapsed = time.perf_counter() - t0
+    launches = {
+        "coalesce_adjacent": kern.coalesce_adjacent.launches,
+        "masses_new": k3.masses_new.launches,
+        "cumsum": scan.cumsum.launches,
+    }
+    substeps = collision.substeps_run - substeps0
+    solves = p.dynamics["Condensation"].solver.substep_solves - solves0
+    if launches["coalesce_adjacent"] != substeps or substeps < WARM_RAIN_STEPS:
+        raise AssertionError(f"{launches} for {substeps} collision substeps")
+    if launches["masses_new"] != solves or launches["cumsum"] == 0:
+        raise AssertionError(f"{launches} for {solves} condensation solves")
+    if not p.get_counter("condensation_success").all():
+        raise AssertionError("warm rain: condensation failed")
+    drift = (total_water(p) - water0) / water0
+    if not abs(drift) < 1e-3:
+        raise AssertionError(f"warm rain: total water drifted by {drift}")
+    ms_step = elapsed / WARM_RAIN_STEPS * 1e3
+    n_cell = p.mesh.n_cell
+    per_step = {k: v / WARM_RAIN_STEPS for k, v in launches.items()}
+    print(f"phase 10: warm rain {WARM_RAIN_GRID} x {WARM_RAIN_SD_PER_CELL}"
+          f" ({p.n_sd} super-droplets), {WARM_RAIN_STEPS} steps after one:"
+          f" {ms_step!r} ms/step, {n_cell * WARM_RAIN_STEPS / elapsed!r} grid"
+          f" points/s, {p.n_sd / 2 * substeps / elapsed!r} pair-updates/s;"
+          f" launches per step {per_step}, collision substeps"
+          f" {substeps / WARM_RAIN_STEPS!r}/step, condensation solves"
+          f" {solves / WARM_RAIN_STEPS!r}/step, host reads"
+          f" {(_host_reads(p) - reads0) / WARM_RAIN_STEPS!r}/step; total"
+          f" water drift {drift!r}; coalescence rate"
+          f" {float(p.get_counter('coalescence_rate').sum())!r} [{gpu}]")
+    return launches, p, ms_step
+
+
+def _percell_sums_vs_float64(p):
+    """K4 per-cell sums of the main path's liquid water (the condensation
+    coupling's ml) against float64 sums of the same float32 values"""
+    import numpy as np
+    import torch
+
+    from pysdm_tpu_torch.ops import segments
+
+    particles = p.particles
+    n_cell = p.mesh.n_cell
+    cell_start = segments.cell_start_of_sorted(particles.cell_id, n_cell)
+    mass = particles.ext("signed water mass")
+    values = torch.where(
+        mass > 0, particles.multiplicity.to(mass.dtype) * mass, 0.0
+    )
+    sums = segments.sorted_segment_sum(values, cell_start, n_cell).cpu().numpy()
+    exact = np.bincount(
+        particles.cell_id.cpu().numpy(),
+        weights=values.cpu().numpy().astype(np.float64), minlength=n_cell,
+    )
+    rel = np.abs(sums - exact) / exact
+    prefix = np.cumsum(exact)
+    print(f"phase 10: K4 per-cell liquid sums against float64: max rel err"
+          f" {float(rel.max())!r} of the cell's sum, median"
+          f" {float(np.median(rel))!r}; max {float(np.max(np.abs(sums - exact) / prefix))!r}"
+          f" of the prefix")
+
+
+def _warm_rain_scenario_on_card(gpu):
+    """phase 11: ``tests/smoke/test_kinematic_2d.py`` on the card, then the
+    float32 card spin-up against the CPU float64 one"""
+    import numpy as np
+    import torch
+
+    from pysdm_tpu_torch.backends import CPU
+
+    settings, p, spin_up = warm_rain(None, (8, 8), 16, seed=13,
+                                     spin_up_time=300.0)
+    w0 = total_water(p)
+    lwc0 = float(np.sum(p.attributes["multiplicity"] * p.attributes["water mass"]))
+    p.run(settings.n_spin_up)
+    rh = p.get_env("RH").reshape(settings.grid)
+    lwc1 = float(np.sum(p.attributes["multiplicity"] * p.attributes["water mass"]))
+    spin_drift = (total_water(p) - w0) / w0
+    if not (p.get_counter("condensation_success").all()
+            and np.isfinite(rh).all() and rh.max() < 1.10
+            and rh[:, -3:].max() > 0.99 and rh[:, :2].max() < 0.95
+            and lwc1 > 5 * lwc0 and abs(spin_drift) < 1e-3):
+        raise AssertionError(
+            f"spin-up: RH max {rh.max()}, top {rh[:, -3:].max()}, bottom"
+            f" {rh[:, :2].max()}, lwc {lwc0} -> {lwc1}, drift {spin_drift}"
+        )
+    spin_up.finish()
+    w1 = total_water(p)
+    p.run(120)
+    rain_drift = (total_water(p) - w1) / w1
+    alive = p.attributes["multiplicity"] > 0
+    r_max = float(p.attributes["radius"][alive].max())
+    coal = float(p.get_counter("coalescence_rate").sum())
+    if not (p.get_counter("condensation_success").all() and coal > 0
+            and abs(rain_drift) < 1e-3 and r_max > 1e-6):
+        raise AssertionError(
+            f"rain: coalescence {coal}, drift {rain_drift}, r_max {r_max}"
+        )
+    print(f"phase 11: 8x8 x 16 on the card: after the 5 min spin-up RH max"
+          f" {float(rh.max())!r}, liquid x{lwc1 / lwc0!r}, water drift"
+          f" {spin_drift!r}; after 10 min of rain coalescence rate {coal!r},"
+          f" largest radius {r_max!r} m, water drift {rain_drift!r} [{gpu}]")
+
+    # the card (float32, K3) against the CPU float64 backend over 20 spin-up
+    # steps, with a CPU float32 run as the yardstick: through activation
+    # (RH up to ~1.2 in the top cells) float32 alone moves single drops by
+    # up to ~12% (the Richardson floor 16 eps picks other substep counts),
+    # so the card must stay as close to float64 as float32 on the CPU does
+    from pysdm_tpu_torch.backends import TorchBackend
+
+    class CPU32(TorchBackend):
+        def __init__(self, formulae=None):
+            super().__init__(formulae, torch.float32, "cpu")
+
+    runs = [warm_rain(b, (8, 8), 16, spin_up_time=3600.0)[1]
+            for b in (None, CPU32, CPU)]
+    for q in runs:
+        q.run(20)
+    on_card, cpu32, cpu64 = runs
+    np.testing.assert_array_equal(
+        on_card.attributes["cell id"], cpu64.attributes["cell id"]
+    )
+
+    def gaps(q):
+        mass = np.abs(q.attributes["water mass"] / cpu64.attributes["water mass"] - 1)
+        return (float(np.max(np.abs(q.get_env("qv") / cpu64.get_env("qv") - 1))),
+                float(mass.max()), float(np.median(mass)))
+
+    (qv_err, mass_err, mass_median), yardstick = gaps(on_card), gaps(cpu32)
+    if not (qv_err < 1e-4 and mass_err < 1.5 * yardstick[1] + 2e-3
+            and mass_median < 2e-3):
+        raise AssertionError(
+            f"card f32 vs CPU f64: qv {qv_err}, mass {mass_err} (median"
+            f" {mass_median}); CPU f32 vs f64: {yardstick}"
+        )
+    print(f"phase 11: 20 spin-up steps against CPU float64: card float32 qv"
+          f" max rel diff {qv_err!r}, water mass max rel diff {mass_err!r}"
+          f" (median {mass_median!r}); CPU float32 {yardstick[0]!r},"
+          f" {yardstick[1]!r} (median {yardstick[2]!r})")
+
+
+def _warm_rain_with_twins(p, gpu):
+    """phase 12 (timing only): the main path's step with K2's and K4's
+    twins in their places"""
+    from pysdm_tpu_torch.dynamics.collisions import collision
+    from pysdm_tpu_torch.ops import segments
+    from pysdm_tpu_torch.ops.cuda.collision import coalesce_adjacent_reference
+    from pysdm_tpu_torch.ops.cuda.scan import cumsum_reference
+
+    steps = 5
+    times = []
+    for twins in (False, True):
+        contexts = (
+            [_replaced(collision, "coalesce_adjacent", coalesce_adjacent_reference),
+             _replaced(segments, "cumsum", cumsum_reference)]
+            if twins else []
+        )
+        with contextlib.ExitStack() as stack:
+            for c in contexts:
+                stack.enter_context(c)
+            t0 = time.perf_counter()
+            p.run(steps)
+            p.block_until_ready()
+            times.append((time.perf_counter() - t0) / steps * 1e3)
+    print(f"phase 12: warm rain, {steps} more steps: {times[0]!r} ms/step"
+          f" through K2 and K4, {times[1]!r} ms/step with their twins in"
+          f" their places [{gpu}]")
+
+
 def main():
     import torch
 
@@ -598,6 +971,7 @@ def main():
     from pysdm_tpu_torch.ops.cuda import _build
     from pysdm_tpu_torch.ops.cuda import collision as kern
     from pysdm_tpu_torch.ops.cuda import condensation as k3
+    from pysdm_tpu_torch.ops.cuda import scan
 
     gpu = gpu_line()
     print(gpu)
@@ -613,22 +987,40 @@ def main():
         print(f"triton does not import: {err}")
 
     # every kernel is built anew from its source, all nvcc runs at once
-    for name in ("collision_mirror", "condensation"):
+    sources = ("collision_mirror", "condensation", "scan", "collision_adjacent")
+    for name in sources:
         _build.library_path(name)[1].unlink(missing_ok=True)
     t0 = time.perf_counter()
     with concurrent.futures.ThreadPoolExecutor() as pool:
-        for future in [pool.submit(m.library) for m in (kern, k3)]:
+        loaders = (kern.library, k3.library, scan.library, kern.library_adjacent)
+        for future in [pool.submit(load) for load in loaders]:
             future.result()
-    print(f"phase 1: built collision_mirror and condensation in"
+    print(f"phase 1: built {', '.join(sources)} in"
           f" {time.perf_counter() - t0!r} s")
 
     device = torch.device("cuda")
     max_abs_err, kernel_ms, twin_ms = _kernel_vs_twin(torch, kern, device, gpu)
     launches = _main_path(torch, kern, gpu)
     _adaptive(kern, gpu)
-    k3_err, k3_times = _k3_vs_twin(torch, k3, device, gpu)
+    k3_err, k3_times, k3_evaluations = _k3_vs_twin(torch, k3, device, gpu)
     k3_launches, _ = _parcel_main_path(k3, gpu)
     _parcel_gpu_vs_cpu(k3)
+    k4_err, k4_ms, k4_twin_ms, k4_n = _k4_vs_twin(torch, scan, device, gpu)
+    k2_err, k2_ms, k2_twin_ms, k2_bytes = _k2_vs_twin(torch, kern, device, gpu)
+    warm_launches, p, _ = _warm_rain_main_path(kern, k3, scan, gpu)
+    _percell_sums_vs_float64(p)
+    _warm_rain_with_twins(p, gpu)
+    del p
+    _warm_rain_scenario_on_card(gpu)
+
+    # least times on the card, from this run's inputs: K1 at N_MAIN with two
+    # float32 rows (mult 8 + rows 8 + volume 4 in, mult 8 + rows 8 out per
+    # slot); K3 at N_PARCEL (24 B in, 5 B out per drop; its operations from
+    # the minfun evaluations these drops need); K4 float32 (4 B in, 4 out)
+    k1_bound = bound_ms(N_MAIN * 36)
+    k3_bound = bound_ms(N_PARCEL * 29, k3_evaluations * K3_OPS_PER_MINFUN)
+    k4_bound = bound_ms(k4_n * 8)
+    k2_bound = bound_ms(k2_bytes)
 
     print(json.dumps({"kernels": [{
         "name": "coalesce_mirror",
@@ -639,6 +1031,9 @@ def main():
         "max_abs_err": max_abs_err,
         "ms": kernel_ms,
         "plain_ms": twin_ms,
+        "bound_ms": k1_bound[0],
+        "bound_by": k1_bound[1],
+        "library_ms": None,
     }, {
         "name": "masses_new",
         "route": "cuda",
@@ -648,6 +1043,34 @@ def main():
         "max_abs_err": k3_err,
         "ms": k3_times[N_PARCEL][0],
         "plain_ms": k3_times[N_PARCEL][1],
+        "bound_ms": k3_bound[0],
+        "bound_by": k3_bound[1],
+        "library_ms": None,
+    }, {
+        "name": "coalesce_adjacent",
+        "route": "cuda",
+        "source": "pysdm_tpu_torch/csrc/collision_adjacent.cu",
+        "replaces": "pysdm_tpu/ops/pallas/collision.py:721",
+        "launches": warm_launches["coalesce_adjacent"],
+        "max_abs_err": k2_err,
+        "ms": k2_ms,
+        "plain_ms": k2_twin_ms,
+        "bound_ms": k2_bound[0],
+        "bound_by": k2_bound[1],
+        "library_ms": None,
+    }, {
+        "name": "cumsum",
+        "route": "cuda",
+        "source": "pysdm_tpu_torch/csrc/scan.cu",
+        "replaces": "pysdm_tpu/ops/pallas/scan.py:105",
+        "launches": warm_launches["cumsum"],
+        "max_abs_err": k4_err,
+        "ms": k4_ms,
+        "plain_ms": k4_twin_ms,
+        "bound_ms": k4_bound[0],
+        "bound_by": k4_bound[1],
+        # the twin is the library call, torch.cumsum in the input's dtype
+        "library_ms": k4_twin_ms,
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

@@ -2,11 +2,22 @@
 (API parity with ``pysdm_tpu/builder.py``), then composes the per-step
 function.
 
-Randomness: the builder gives the particulator a host-side
-``torch.Generator`` seeded with ``Formulae(seed=...)``. Each collision
-substep draws its two scalars (K, seed) from it on the host, so the kernel
-takes them by value and a non-adaptive step reads nothing back from the
-device.
+Randomness: the builder gives the particulator two ``torch.Generator``s
+seeded with ``Formulae(seed=...)``: ``rng`` on the host, from which each
+mirror-croupier substep draws its two scalars (K, seed), so the kernel
+takes them by value; and ``device_rng`` on the state's device, from which
+the sort croupier draws its per-slot shuffle bits and gamma u01 rows, so
+nothing is drawn on the host and copied over. A non-adaptive step reads
+nothing back from the device.
+
+Shared sort: Collision's sort croupier leaves the state cell-sorted,
+Displacement breaks that, Condensation needs it. The builder runs the JAX
+package's fixpoint over the dynamics' order (``pysdm_tpu/builder.py``
+``:204-265``): where the state provably enters Condensation sorted (the
+warm-rain order Condensation -> Advection -> Displacement -> Collision ends
+sorted, which is what the next step's Condensation needs), Condensation
+skips its own sort, the initial state is sorted once at build, and a
+spin-up-disabled Collision still sorts. One full-state sort per step.
 """
 
 import numpy as np
@@ -29,6 +40,8 @@ class Builder:
         self.requested_attributes = {"multiplicity", "cell id"}
         self._counters = {}
         self._flags = {}
+        self._u01_purposes = []
+        self.u01_injection = False
         self.environment = environment
         if environment is not None:
             environment.register(self)
@@ -53,6 +66,19 @@ class Builder:
         self._counters[name] = torch.full(
             (n_cell,), fill, dtype=dtype, device=self.particulator.device
         )
+
+    def enable_u01_injection(self):
+        """parity mode (as ``pysdm_tpu/builder.py:53-73``): the dynamics
+        draw their u01 streams from ``sim_state["u01"][purpose]``, which the
+        host replaces between steps with ``Particulator.inject_u01``,
+        instead of from the generators"""
+        self.u01_injection = True
+        self.particulator.u01_injection = True
+
+    def add_u01_purpose(self, name):
+        """called by dynamics in ``register`` to reserve an injected stream"""
+        if name not in self._u01_purposes:
+            self._u01_purposes.append(name)
 
     def add_flag(self, name, default: bool):
         """on/off switch of a dynamic, togglable between steps"""
@@ -80,11 +106,8 @@ class Builder:
 
             multiplicity = discretise_multiplicities(multiplicity)
         cell_id = attributes.pop("cell id", None)
-        for name in ("cell origin", "position in cell"):
-            if name in attributes:
-                raise NotImplementedError(
-                    f"{name!r}: spatial domains come with slice 3"
-                )
+        cell_origin = attributes.pop("cell origin", None)
+        position_in_cell = attributes.pop("position in cell", None)
 
         for dynamic in particulator.dynamics.values():
             dynamic.register(self)
@@ -111,12 +134,17 @@ class Builder:
         particulator.rng = torch.Generator(device="cpu").manual_seed(
             self.formulae.seed
         )
+        particulator.device_rng = torch.Generator(
+            device=particulator.device
+        ).manual_seed(self.formulae.seed)
         particulator.sim_state = {
             "particles": ParticleState.from_numpy(
                 multiplicity=multiplicity,
                 extensive=np.stack([extensive[k] for k in ext_names]),
                 ext_names=ext_names,
                 cell_id=cell_id,
+                cell_origin=cell_origin,
+                position_in_cell=position_in_cell,
                 dtype=particulator.dtype,
                 mult_dtype=particulator.mult_dtype,
                 device=particulator.device,
@@ -129,6 +157,15 @@ class Builder:
             # host-side scalars of the environment (the parcel's clock)
             "host": getattr(self.environment, "init_host_state", dict)(),
         }
+        if self.u01_injection:
+            particulator.sim_state["u01"] = {
+                name: torch.zeros(
+                    multiplicity.shape[0], dtype=particulator.dtype,
+                    device=particulator.device,
+                )
+                for name in self._u01_purposes
+            }
+        self._share_sort()
 
         # insertion order is semantically significant (reference
         # particulator.py:50-56)
@@ -149,3 +186,40 @@ class Builder:
 
         particulator._step_fn = full_step
         return particulator
+
+    def _share_sort(self):
+        """the shared-sort fixpoint (module docstring); sets each
+        consumer's ``_assume_sorted`` and each sorter's
+        ``_sort_when_disabled`` and pre-sorts the initial state"""
+        particulator = self.particulator
+        dynamics = particulator.dynamics
+        n_cell = particulator.mesh.n_cell
+
+        def fixpoint(start):
+            flags, sorted_ = {}, start
+            for name, dyn in dynamics.items():
+                if getattr(dyn, "wants_cell_sort", False):
+                    flags[name] = sorted_
+                    sorted_ = True  # it sorts if the state was not sorted
+                if getattr(dyn, "restores_cell_sort", False):
+                    sorted_ = True
+                if getattr(dyn, "breaks_cell_sort", False):
+                    sorted_ = False
+            return flags, sorted_
+
+        flags, end_sorted = fixpoint(True)
+        if not end_sorted:
+            flags, _ = fixpoint(False)
+        presort = False
+        for name, dyn in dynamics.items():
+            if getattr(dyn, "wants_cell_sort", False):
+                dyn._assume_sorted = n_cell > 1 and flags[name]
+                presort = presort or dyn._assume_sorted
+            if getattr(dyn, "restores_cell_sort", False):
+                dyn._sort_when_disabled = any(flags.values())
+        if presort:
+            from .ops.segments import sort_state_by_cell
+
+            particulator.sim_state["particles"], _, _ = sort_state_by_cell(
+                particulator.sim_state["particles"], n_cell, particulator.mesh
+            )

@@ -17,11 +17,11 @@
 // - multiplicities are native int64: gamma = min(cap, xi_j / xi_k) is an
 //   exact integer division. The TPU kernel has no 64-bit vector path and
 //   walks an f32 quotient estimate +-5 steps instead;
-// - the f32 arithmetic mirrors the TPU kernel's rounding: xi converts to f32
-//   as f32(hi) * 2^32 + f32(lo), with f32(x) = f32(x >> 1) * 2 + f32(x & 1),
-//   and every product and sum is rounded on its own (__fmul_rn/__fadd_rn;
-//   the library is also built with -fmad=false), since a fused
-//   multiply-add would change ceil(prob - u) and e_k + gamma * e_j;
+// - the f32 arithmetic mirrors the TPU kernel's rounding (sdm_pair.cuh):
+//   xi converts to f32 through halves, and every product and sum is rounded
+//   on its own (__fmul_rn/__fadd_rn; the library is also built with
+//   -fmad=false), since a fused multiply-add would change ceil(prob - u)
+//   and e_k + gamma * e_j;
 // - the rate sums are deterministic: a fixed-order shared-memory tree per
 //   block writes per-block partials, and a one-block second pass sums them
 //   in fixed order. No float atomics.
@@ -36,24 +36,19 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "sdm_pair.cuh"
+
 namespace {
 
 constexpr int THREADS = 256;
-constexpr float BIG = 2147483520.0f;  // 2^31 - 128, the TPU kernel's cap
-constexpr float TWO32 = 4294967296.0f;
 constexpr float TWO_M24 = 5.9604644775390625e-08f;  // 2^-24
 
+using sdm::BIG;
+using sdm::merge_rn;
+using sdm::u32_to_f32;
+using sdm::u64_to_f32;
+
 enum KernelId { GOLOVIN = 0, CONSTANT_K = 1, LINEAR = 2 };
-
-__device__ __forceinline__ float u32_to_f32(uint32_t x) {
-  return __fadd_rn(__fmul_rn((float)(int32_t)(x >> 1), 2.0f),
-                   (float)(int32_t)(x & 1u));
-}
-
-__device__ __forceinline__ float u64_to_f32(uint64_t x) {
-  return __fadd_rn(__fmul_rn(u32_to_f32((uint32_t)(x >> 32)), TWO32),
-                   u32_to_f32((uint32_t)x));
-}
 
 // murmur3 fmix32 applied twice to the pair identity (bit-exact with
 // pysdm_tpu/ops/pallas/collision.py:402-419)
@@ -80,14 +75,6 @@ __device__ __forceinline__ float kernel_value(int id, float p0, float p1,
     default:  // LINEAR
       return __fadd_rn(p0, __fmul_rn(p1, vsum));
   }
-}
-
-__device__ __forceinline__ float merge_rn(float ek, float g, float ej) {
-  return __fadd_rn(ek, __fmul_rn(g, ej));
-}
-
-__device__ __forceinline__ double merge_rn(double ek, float g, double ej) {
-  return __dadd_rn(ek, __dmul_rn((double)g, ej));
 }
 
 // fixed-order tree sum over the block; result valid in thread 0

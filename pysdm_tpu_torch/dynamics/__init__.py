@@ -1,5 +1,8 @@
 """dynamics (process operators): coalescence (box slice), ambient
-thermodynamics and condensation (parcel slice)"""
+thermodynamics and condensation (parcel slice), Eulerian advection and
+displacement (2D warm-rain slice)"""
 from .ambient_thermodynamics import AmbientThermodynamics
 from .collisions.collision import Collision, Coalescence
 from .condensation import Condensation
+from .displacement import Displacement
+from .eulerian_advection import EulerianAdvection

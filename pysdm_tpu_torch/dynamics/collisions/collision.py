@@ -1,20 +1,33 @@
 """Collision dynamic: SDM Monte-Carlo coalescence (port of
-``pysdm_tpu/dynamics/collisions/collision.py``), the single-cell path.
+``pysdm_tpu/dynamics/collisions/collision.py``).
 
-A substep draws (K, seed), pairs slot o with (K - o) mod N (the mirror
-croupier, ``ops/pairing.py``) and hands the whole pair update to the CUDA
-kernel of ``ops/cuda/collision.py`` (its plain twin on the CPU). The
-adaptive variant first picks the substep length with plain tensor ops
-(``ops.collisions.scale_prob_adaptive``), as the JAX package does with XLA
-ops ahead of its Pallas kernel.
+Two croupiers, chosen as the JAX package chooses them:
+- one cell (box, parcel): a substep draws (K, seed), pairs slot o with
+  (K - o) mod N (the mirror croupier, ``ops/pairing.py``) and hands the
+  whole pair update to K1 (``coalesce_mirror``);
+- many cells, u01 injection, or ``croupier="sort"``: a substep sorts the
+  whole state by (cell, random bits) (``ops/segments.py``
+  ``bucket_shuffle_state``), pairs neighbouring slots of a cell, computes
+  the collision kernel and the per-cell normalization with torch ops and
+  hands the pair update to K2 (``coalesce_adjacent``); the per-slot rates
+  are summed per cell through K4. The state stays cell-sorted afterwards.
+The adaptive variant first picks each cell's substep length with plain
+tensor ops (``ops.collisions.scale_prob_adaptive``), as the JAX package
+does with XLA ops ahead of its Pallas kernels. On CPU tensors each kernel
+wrapper runs its plain twin.
 
-Host syncs: none in the non-adaptive step, since (K, seed) come from the
-particulator's host-side ``torch.Generator`` and the probability scale stays
-on the device. The adaptive loop ``while dt_left > 0`` reads one boolean
-from the device per substep.
+Random numbers: (K, seed) come from the particulator's host-side
+``torch.Generator``; the sort croupier's per-slot shuffle bits and gamma
+draws from its generator on the state's device (``device_rng``), never
+from the host. Under u01 injection (``Builder.enable_u01_injection``) the
+``collision_shuffle`` and ``collision_gamma`` streams come from
+``sim["u01"]`` instead.
 
-Not ported yet: multi-cell domains and the sort croupier (slice 3), breakup
-(slice 4); both raise ``NotImplementedError``.
+Host syncs: none in the non-adaptive step. The adaptive loop ``while
+dt_left > 0`` reads one boolean from the device per substep
+(``host_reads`` counts them).
+
+Breakup (slice 4) raises ``NotImplementedError``.
 """
 
 from collections import namedtuple
@@ -23,8 +36,9 @@ import torch
 
 from ...impl.attributes import AttributeResolver
 from ...ops import collisions as coll_ops
-from ...ops.cuda.collision import coalesce_mirror
-from ...ops.pairing import MirrorPairing
+from ...ops import segments as seg_ops
+from ...ops.cuda.collision import coalesce_adjacent, coalesce_mirror
+from ...ops.pairing import AdjacentPairing, MirrorPairing
 from .breakup_efficiencies import ConstEb
 from .breakup_fragmentations import AlwaysN
 from .coalescence_efficiencies import ConstEc
@@ -36,9 +50,14 @@ DEFAULTS = namedtuple("_", ("dt_coal_range", "adaptive", "substeps"))(
 )
 
 _RATE_COUNTERS = ("collision_rate", "collision_rate_deficit", "coalescence_rate")
+U01_PURPOSES = ("collision_shuffle", "collision_gamma")
 
 
 class Collision:
+    # the sort croupier leaves the state cell-sorted, which a following
+    # Condensation can use (the builder's shared-sort analysis)
+    restores_cell_sort = True
+
     def __init__(
         self,
         *,
@@ -63,10 +82,6 @@ class Collision:
                 "collisional breakup is not ported yet: it comes with"
                 " slice 4 (kernel K5)"
             )
-        if croupier == "sort":
-            raise NotImplementedError(
-                "the sort croupier is not ported yet: it comes with slice 3"
-            )
         self.particulator = None
         self.enable = True
         self.collision_kernel = collision_kernel
@@ -78,32 +93,54 @@ class Collision:
         self.substeps = substeps
         self.adaptive = adaptive
         self.dt_coal_range = tuple(dt_coal_range)
+        self.u01_injection = False
+        # set by the builder when a consumer relies on the sorted state even
+        # while collisions are switched off (spin-up)
+        self._sort_when_disabled = False
+        # device values read back to steer the adaptive loop, and the
+        # substeps run (one K1 or K2 launch each on CUDA tensors)
+        self.host_reads = 0
+        self.substeps_run = 0
+
+    def _uses_mirror(self):
+        return (
+            self.particulator.mesh.n_cell == 1
+            and not self.u01_injection
+            and self.croupier != "sort"
+        )
 
     def register(self, builder):
         self.particulator = builder.particulator
         if self.particulator.n_sd < 2:
             raise ValueError("No one to collide with!")
-        if self.particulator.mesh.n_cell != 1:
+        self.u01_injection = builder.u01_injection
+        if self.u01_injection:
+            if self.adaptive or self.substeps != 1:
+                raise ValueError(
+                    "u01 injection requires adaptive=False, substeps=1"
+                    " (one injected stream per purpose per step)"
+                )
+            for purpose in U01_PURPOSES:
+                builder.add_u01_purpose(purpose)
+        if self._uses_mirror() and getattr(
+            self.collision_kernel, "kernel_id", None
+        ) is None:
             raise NotImplementedError(
-                "multi-cell collisions are not ported yet: they come with"
-                " slice 3 (kernels K4 and K2)"
-            )
-        if getattr(self.collision_kernel, "kernel_id", None) is None:
-            raise NotImplementedError(
-                f"{type(self.collision_kernel).__name__} has no CUDA kernel"
-                " id: the port's coalescence kernel evaluates Golovin,"
-                " ConstantK and Linear"
+                f"{type(self.collision_kernel).__name__} has no K1 body: the"
+                " mirror croupier's kernel evaluates Golovin, ConstantK and"
+                " Linear (croupier='sort' takes any kernel)"
             )
         if self.dt_coal_range[1] > self.particulator.dt:
             self.dt_coal_range = (self.dt_coal_range[0], self.particulator.dt)
         self.collision_kernel.register(builder)
+        n_cell = self.particulator.mesh.n_cell
         rate_dtype = self.particulator.mult_dtype
         builder.add_flag("collision_enable", self.enable)
-        builder.add_counter("collision_rate", 1, rate_dtype)
+        builder.add_counter("collision_rate", n_cell, rate_dtype)
         # running totals accumulate in f64; the per-substep sums are f32
-        builder.add_counter("collision_rate_deficit", 1, torch.float64)
-        builder.add_counter("coalescence_rate", 1, rate_dtype)
-        builder.add_counter("collision_n_substep", 1, torch.int32)
+        builder.add_counter("collision_rate_deficit", n_cell, torch.float64)
+        builder.add_counter("coalescence_rate", n_cell, rate_dtype)
+        builder.add_counter("collision_n_substep", n_cell, torch.int32)
         # precision sentinel: largest single-substep rate sum observed (sums
         # beyond 2^24 are no longer exact in float32)
         builder.add_counter("rate_step_sum_max", 1, torch.float32)
@@ -116,7 +153,29 @@ class Collision:
         seed = int(torch.randint(0, 2**32, (), generator=gen))
         return K, seed
 
+    def _read(self, tensor):
+        """a device value the host branches on (counted)"""
+        self.host_reads += 1
+        return tensor.item()
+
     def make_step(self, particulator):
+        if self._uses_mirror():
+            return self._make_mirror_step(particulator)
+        return self._make_sorted_step(particulator)
+
+    def _adaptive_loop(self, particles, counters, n_cell, substep):
+        """run ``substep(particles, counters, dt_left)`` until every cell
+        has spent its dt (one host read per substep)"""
+        particulator = self.particulator
+        dt_left = torch.full(
+            (n_cell,), particulator.dt, dtype=particulator.dtype,
+            device=particulator.device,
+        )
+        while self._read((dt_left > 0).any()):
+            particles, dt_left = substep(particles, counters, dt_left)
+        return particles
+
+    def _make_mirror_step(self, particulator):
         n_sd = particulator.n_sd
         dt = particulator.dt
         ftype = particulator.dtype
@@ -131,6 +190,7 @@ class Collision:
         fixed_scale = (norm * (1.0 / self.substeps)).to(torch.float32)
 
         def collide(particles, counters, K, seed, scale):
+            self.substeps_run += 1
             volume = resolver.get(particles, "volume").to(torch.float32)
             mult, ext, *rates = coalesce_mirror(
                 particles.multiplicity, particles.extensive, volume,
@@ -142,7 +202,8 @@ class Collision:
                 )
             return particles.replace(multiplicity=mult, extensive=ext)
 
-        def adaptive_scale(particles, counters, K, dt_left):
+        def adaptive_substep(particles, counters, dt_left):
+            K, seed = self._draw_mirror(n_sd)
             pairing = MirrorPairing(K, n_sd, particles.alive)
             volume = resolver.get(particles, "volume")
             kernel_values = kernel.pairwise(
@@ -162,28 +223,126 @@ class Collision:
                 stats_n_substep=counters["collision_n_substep"],
                 pairing=pairing,
             )
-            return (norm * (dt_todo / dt)).to(torch.float32), dt_left
+            scale = (norm * (dt_todo / dt)).to(torch.float32)
+            return collide(particles, counters, K, seed, scale), dt_left
 
         def step(sim):
             # spin-up gate (reference Arabas-2015 SpinUp flips enable)
             if not sim["flags"]["collision_enable"]:
                 return sim
             particles = sim["particles"]
-            counters = sim["counters"]
+            counters = dict(sim["counters"])
             if not self.adaptive:
                 for _ in range(self.substeps):
                     K, seed = self._draw_mirror(n_sd)
                     particles = collide(particles, counters, K, seed, fixed_scale)
             else:
-                dt_left = torch.full(
-                    (1,), dt, dtype=ftype, device=particulator.device
+                particles = self._adaptive_loop(
+                    particles, counters, 1, adaptive_substep
                 )
-                while bool((dt_left > 0).any()):
-                    K, seed = self._draw_mirror(n_sd)
-                    scale, dt_left = adaptive_scale(
-                        particles, counters, K, dt_left
+            return {**sim, "particles": particles, "counters": counters}
+
+        return step
+
+    def _make_sorted_step(self, particulator):
+        mesh = particulator.mesh
+        n_cell = mesh.n_cell
+        n_sd = particulator.n_sd
+        dt = particulator.dt
+        ftype = particulator.dtype
+        device = particulator.device
+        formulae = particulator.formulae
+        resolver = AttributeResolver(formulae)
+        kernel = self.collision_kernel
+        attr_names = sorted(kernel.required_attributes)
+        dt_range = self.dt_coal_range
+        nbits = seg_ops.rand_bits_for(n_cell)
+        prob_scale = 1.0 / self.substeps
+        sort_when_disabled = self._sort_when_disabled
+
+        def draws(sim):
+            """(shuffle bits or u01, gamma u01) for one substep"""
+            if self.u01_injection:
+                injected = sim["u01"]
+                return injected["collision_shuffle"], injected["collision_gamma"]
+            gen = particulator.device_rng
+            bits = torch.randint(
+                0, 2**nbits, (n_sd,), generator=gen, device=device,
+                dtype=torch.int64,
+            )
+            rand = torch.rand(n_sd, generator=gen, device=device, dtype=ftype)
+            return bits, rand
+
+        def substep(particles, counters, dt_left, shuffle, rand):
+            (
+                particles, sorted_cell, cell_start, is_first,
+            ) = seg_ops.bucket_shuffle_state(particles, shuffle, n_cell, mesh)
+            pairing = AdjacentPairing(is_first)
+            attrs_a = {name: resolver.get(particles, name) for name in attr_names}
+            attrs_b = {name: seg_ops.pair_roll(v) for name, v in attrs_a.items()}
+            kernel_values = kernel.pairwise(formulae, attrs_a, attrs_b).to(ftype)
+            norm = coll_ops.normalization_factor(cell_start, dt, mesh.dv, ftype)
+            if self.adaptive:
+                prob = coll_ops.collision_probability(
+                    kernel_values, particles.multiplicity, norm, pairing,
+                    sorted_cell,
+                )
+                (
+                    dt_left, counters["collision_n_substep"], dt_todo,
+                ) = coll_ops.scale_prob_adaptive(
+                    prob=prob,
+                    mult_s=particles.multiplicity,
+                    dt_left=dt_left,
+                    dt=dt,
+                    dt_range=dt_range,
+                    stats_n_substep=counters["collision_n_substep"],
+                    pairing=pairing,
+                    sorted_cell=sorted_cell,
+                    n_cell=n_cell,
+                )
+                cell_scale = norm * (dt_todo / dt)
+            else:
+                cell_scale = norm * prob_scale
+            kernnorm = kernel_values * coll_ops.at_slots(cell_scale, sorted_cell)
+            self.substeps_run += 1
+            mult, ext, rate, deficit, _ = coalesce_adjacent(
+                particles.multiplicity, particles.extensive, kernnorm, rand,
+                is_first,
+            )
+            # the coalescence rate equals the collision rate in a
+            # coalescence-only substep: one per-cell sum serves both
+            rate_c = coll_ops.per_cell_rates(rate, cell_start, n_cell)
+            deficit_c = coll_ops.per_cell_rates(deficit, cell_start, n_cell)
+            for name, total in zip(_RATE_COUNTERS, (rate_c, deficit_c, rate_c)):
+                counters[name] = coll_ops.accumulate_counter(
+                    counters[name], total, counters
+                )
+            return particles.replace(multiplicity=mult, extensive=ext), dt_left
+
+        def adaptive_substep(particles, counters, dt_left):
+            return substep(particles, counters, dt_left, *draws(None))
+
+        def step(sim):
+            if not sim["flags"]["collision_enable"]:
+                # a consumer downstream (this step's or the next step's
+                # Condensation) relies on the sorted state: sort, no physics
+                if not sort_when_disabled or n_cell == 1:
+                    return sim
+                particles, _, _ = seg_ops.sort_state_by_cell(
+                    sim["particles"], n_cell, mesh
+                )
+                return {**sim, "particles": particles}
+            particles = sim["particles"]
+            counters = dict(sim["counters"])
+            if not self.adaptive:
+                for _ in range(self.substeps):
+                    particles, _ = substep(
+                        particles, counters, None, *draws(sim)
                     )
-                    particles = collide(particles, counters, K, seed, scale)
+            else:
+                particles = self._adaptive_loop(
+                    particles, counters, n_cell, adaptive_substep
+                )
             return {**sim, "particles": particles, "counters": counters}
 
         return step

@@ -2,13 +2,15 @@
 ``PySDM/dynamics/collisions/collision_kernels/``), the volume-based ones of
 ``pysdm_tpu/dynamics/collisions/collision_kernels.py``.
 
-Each kernel has ``pairwise(formulae, attrs_a, attrs_b)`` over tensors (the
-adaptive substep choice reads it) and a ``kernel_id`` with two float
-parameters, ``cuda_params``, that the CUDA coalescence kernel evaluates in
-its body. The radius- and fall-velocity-based kernels come with slice 3.
+Each kernel has ``pairwise(formulae, attrs_a, attrs_b)`` over tensors. On
+the multi-cell path its values feed K2 as a row (``Geometric``); on the
+single-cell path the adaptive substep choice reads them, and the kernels
+with a ``kernel_id`` and two float parameters, ``cuda_params``, are
+evaluated again in K1's body.
 """
 
 import numpy as np
+import torch
 from scipy import special
 
 from ...ops.cuda.collision import CONSTANT_K, GOLOVIN, LINEAR
@@ -85,3 +87,28 @@ class Linear:
 
     def pairwise(self, formulae, attrs_a, attrs_b):
         return self.a + self.b * (attrs_a["volume"] + attrs_b["volume"])
+
+
+class Geometric:
+    """gravitational geometric-sweepout kernel
+    (reference ``collision_kernels/geometric.py``):
+    K = E_c * pi * (r + r')^2 * |v_t - v_t'|. K1 has no body for it: it
+    runs on the multi-cell path, where K2 takes its values as a row."""
+
+    required_attributes = ("radius", "relative fall velocity")
+    kernel_id = None
+
+    def __init__(self, collection_efficiency=1.0, x="volume"):
+        self.collection_efficiency = collection_efficiency
+        self.x = x
+
+    def register(self, builder):
+        builder.request_attribute("radius")
+        builder.request_attribute("relative fall velocity")
+
+    def pairwise(self, formulae, attrs_a, attrs_b):
+        r_sum = attrs_a["radius"] + attrs_b["radius"]
+        dv = torch.abs(
+            attrs_a["relative fall velocity"] - attrs_b["relative fall velocity"]
+        )
+        return np.pi * self.collection_efficiency * r_sum**2 * dv

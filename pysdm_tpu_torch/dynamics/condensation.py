@@ -1,12 +1,17 @@
 """Condensation dynamic (port of ``pysdm_tpu/dynamics/condensation.py``;
 reference ``PySDM/dynamics/condensation.py``): implicit-in-size
-condensational growth with adaptive substepping, the single-cell path.
+condensational growth with per-cell adaptive substepping.
 
 Failure handling as in the JAX package: the reference raises on any
 per-cell failure; here the success flag is AND-accumulated in the
 ``condensation_success`` counter and checked on the host with
-``Condensation.check_success()``. With one cell the drops are trivially
-sorted by cell (cell_start = [0, n_sd]), so nothing is sorted.
+``Condensation.check_success()``.
+
+The solver needs the drops sorted by cell. With one cell they trivially
+are; with many, the step sorts the state (stable, by cell) unless the
+builder's shared-sort analysis has shown that it enters the step sorted
+(``_assume_sorted``: the previous step's collision shuffle sorted it), and
+then it only finds the segment starts.
 """
 
 from collections import namedtuple
@@ -16,6 +21,7 @@ import torch
 
 from ..environments.impl.moist import recalc_thermo
 from ..ops.condensation import CondensationSolver
+from ..ops.segments import cell_start_of_sorted, sort_state_by_cell
 
 DEFAULTS = namedtuple("_", ("rtol_x", "rtol_thd", "cond_range", "schedule"))(
     rtol_x=1e-6,
@@ -32,6 +38,9 @@ _EVENT_COUNTERS = (
 
 
 class Condensation:
+    # asks the builder's shared-sort analysis for the cell-sorted state
+    wants_cell_sort = True
+
     def __init__(
         self,
         *,
@@ -62,15 +71,12 @@ class Condensation:
         self.failure_doubling_cap = failure_doubling_cap
         # the step's solver, built by make_step
         self.solver = None
+        # set by the builder when the state provably enters the step sorted
+        self._assume_sorted = False
 
     def register(self, builder):
         self.particulator = builder.particulator
         n_cell = self.particulator.mesh.n_cell
-        if n_cell != 1:
-            raise NotImplementedError(
-                "multi-cell condensation is not ported yet: it comes with"
-                " slice 3 (kernel K4 under the per-cell sums)"
-            )
         builder.request_attribute("critical volume")
         builder.request_attribute("kappa")
         builder.request_attribute("dry volume organic fraction")
@@ -108,9 +114,19 @@ class Condensation:
         )
         self.solver = solver
         update_thd = self.update_thd
+        mesh = particulator.mesh
+        n_cell = mesh.n_cell
+        assume_sorted = self._assume_sorted
 
         def step(sim):
             particles = sim["particles"]
+            cell_start = None
+            if n_cell > 1 and assume_sorted:
+                cell_start = cell_start_of_sorted(particles.cell_id, n_cell)
+            elif n_cell > 1:
+                particles, _, cell_start = sort_state_by_cell(
+                    particles, n_cell, mesh
+                )
             env = dict(sim["env"])
             counters = dict(sim["counters"])
             attrs = {
@@ -127,6 +143,7 @@ class Condensation:
                 attrs=attrs,
                 multiplicity=particles.multiplicity,
                 cell_of_drop=particles.cell_id,
+                cell_start=cell_start,
                 n_substeps=counters["condensation_n_substeps"],
                 thd=env["thd"], qv=env["qv"], rhod=env["rhod"],
                 pthd=env["pred_thd"], pqv=env["pred_qv"],

@@ -1,8 +1,10 @@
 """Derived-attribute computation (port of ``pysdm_tpu/impl/attributes.py``)
-for the names the box and parcel slices read: multiplicity, signed water
-mass, water mass, volume, radius, dry radius, kappa, dry volume organic
-fraction, Reynolds number and critical volume. Stored extensive rows
-resolve by name. Derived attributes of later slices raise ``KeyError``.
+for the names the box, parcel and 2D warm-rain slices read: multiplicity,
+cell id, cell origin, position in cell, signed water mass, water mass,
+volume, radius, dry radius, kappa, dry volume organic fraction, Reynolds
+number, critical volume and the terminal (relative fall) velocity. Stored
+extensive rows resolve by name. Derived attributes of later slices raise
+``KeyError``.
 
 Names that depend on the ambient state (critical volume) read the cell's
 env row at each drop by a gather, ``env_row[cell_id]`` (the JAX package
@@ -66,6 +68,10 @@ class AttributeResolver:
             return state.multiplicity
         if name == "cell id":
             return state.cell_id
+        if name == "cell origin":
+            return state.cell_origin
+        if name == "position in cell":
+            return state.position_in_cell
         if name == "water mass":
             return state.ext("signed water mass").abs()
         if state.has_ext(name):
@@ -90,8 +96,8 @@ class AttributeResolver:
             # ventilation variant yet
             if f.ventilation.variant != "Neglect":
                 raise NotImplementedError(
-                    "the Reynolds number needs the terminal velocity: it"
-                    " comes with slice 3"
+                    "the Reynolds number of ventilation variants other than"
+                    " Neglect is ROADMAP queue 1 item 3"
                 )
             return torch.zeros_like(state.ext("signed water mass"))
         if name == "critical volume":
@@ -111,4 +117,14 @@ class AttributeResolver:
                 self.get(state, "kappa"), v_dry / f.constants.PI_4_3, T, sgm
             )
             return f.trivia.volume(r_cr)
+        if name in ("terminal velocity", "relative fall velocity"):
+            # relative fall velocity equals terminal velocity unless the
+            # state keeps a momentum row
+            from ..dynamics.terminal_velocity import gunn_kinzer_v_term
+
+            if state.has_ext("relative fall momentum"):
+                return state.ext("relative fall momentum") / self.get(
+                    state, "water mass"
+                )
+            return gunn_kinzer_v_term(self.get(state, "radius"))
         raise KeyError(f"attribute {name!r} is not resolved by the port yet")

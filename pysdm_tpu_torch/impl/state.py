@@ -3,8 +3,9 @@
 
 There is no permutation index and no compaction: particle death is
 multiplicity 0, masked out of every reduction. The port keeps the JAX
-package's layout (extensive rows ``(n_ext, n_sd)``) so that states cross
-between the two packages as NumPy arrays (``from_numpy`` / ``to_numpy``).
+package's layout (extensive rows ``(n_ext, n_sd)``, the spatial rows
+``(n_dims, n_sd)``) so that states cross between the two packages as NumPy
+arrays (``from_numpy`` / ``to_numpy``).
 """
 
 import dataclasses
@@ -18,6 +19,8 @@ class ParticleState:
     multiplicity: torch.Tensor  # (n_sd,) int64
     extensive: torch.Tensor  # (n_ext, n_sd) float, conserved under coalescence
     cell_id: torch.Tensor  # (n_sd,) int32
+    cell_origin: torch.Tensor  # (n_dims, n_sd) int32, (0, n_sd) for 0D
+    position_in_cell: torch.Tensor  # (n_dims, n_sd) float, (0, n_sd) for 0D
     ext_names: tuple = ()
 
     @property
@@ -46,7 +49,8 @@ class ParticleState:
     @classmethod
     def from_numpy(
         cls, *, multiplicity, extensive, ext_names, cell_id=None,
-        dtype=torch.float64, mult_dtype=torch.int64, device="cpu",
+        cell_origin=None, position_in_cell=None, dtype=torch.float64,
+        mult_dtype=torch.int64, device="cpu",
     ):
         """build a state from host arrays, e.g. ``np.asarray`` of the JAX
         package's ``ParticleState`` fields"""
@@ -57,6 +61,10 @@ class ParticleState:
         extensive = np.array(extensive).reshape(len(ext_names), n_sd)
         if cell_id is None:
             cell_id = np.zeros(n_sd, np.int32)
+        if cell_origin is None:
+            cell_origin = np.zeros((0, n_sd), np.int32)
+        if position_in_cell is None:
+            position_in_cell = np.zeros((0, n_sd))
         return cls(
             multiplicity=torch.as_tensor(
                 multiplicity, dtype=mult_dtype, device=device
@@ -64,6 +72,12 @@ class ParticleState:
             extensive=torch.as_tensor(extensive, dtype=dtype, device=device),
             cell_id=torch.as_tensor(
                 np.array(cell_id), dtype=torch.int32, device=device
+            ),
+            cell_origin=torch.as_tensor(
+                np.array(cell_origin), dtype=torch.int32, device=device
+            ),
+            position_in_cell=torch.as_tensor(
+                np.array(position_in_cell), dtype=dtype, device=device
             ),
             ext_names=tuple(ext_names),
         )
@@ -75,6 +89,8 @@ class ParticleState:
             "extensive": self.extensive.cpu().numpy(),
             "ext_names": self.ext_names,
             "cell_id": self.cell_id.cpu().numpy(),
+            "cell_origin": self.cell_origin.cpu().numpy(),
+            "position_in_cell": self.position_in_cell.cpu().numpy(),
         }
 
 
@@ -85,7 +101,7 @@ def sim_state_from_numpy(sim, particulator):
     its float dtype for particles and env and each counter in the dtype the
     port registered it with (the JAX package's dtype for a counter the port
     has not registered); the environment's host-side scalars are read from
-    the env."""
+    the env, and the injected u01 rows, if any, stay the port's."""
     dtype, device = particulator.dtype, particulator.device
     counters = particulator.sim_state["counters"]
     particles = sim["particles"]
@@ -95,6 +111,8 @@ def sim_state_from_numpy(sim, particulator):
             extensive=particles.extensive,
             ext_names=particles.ext_names,
             cell_id=particles.cell_id,
+            cell_origin=particles.cell_origin,
+            position_in_cell=particles.position_in_cell,
             dtype=dtype,
             mult_dtype=particulator.mult_dtype,
             device=device,
@@ -113,6 +131,8 @@ def sim_state_from_numpy(sim, particulator):
         },
         "flags": {name: bool(value) for name, value in sim["flags"].items()},
     }
+    if "u01" in particulator.sim_state:
+        state["u01"] = particulator.sim_state["u01"]
     init_host_state = getattr(particulator.environment, "init_host_state", None)
     state["host"] = init_host_state(sim["env"]) if init_host_state else {}
     return state

@@ -2,8 +2,10 @@
 ``pysdm_tpu/ops/condensation.py``; reference
 ``PySDM/backends/impl_numba/methods/condensation_methods.py``): trapezoidal
 per-cell coupling of (thd, qv, rhod) with per-drop implicit mass solves and
-Richardson-style per-cell substep adaptation, single cell only (the parcel;
-the multi-cell path comes with slice 3).
+Richardson-style per-cell substep adaptation, for one cell (the parcel) or
+many (the kinematic grids). With many cells the drops arrive sorted by cell
+and every per-cell sum is a difference of one prefix sum
+(``ops/segments.py`` ``sorted_segment_sum``, K4 on CUDA tensors).
 
 The per-drop solve runs where the tensors are:
 - on CPU tensors, ``drop_solve`` with the JAX package's own plain
@@ -30,6 +32,7 @@ from collections import namedtuple
 import torch
 
 from .cuda import condensation as k3
+from .segments import sorted_segment_sum
 
 _FUSE = 32  # iteration cap of each adaptation loop (JAX ``fuse``)
 _MULTIPLIER = 2
@@ -68,6 +71,7 @@ def thermo(formulae, thd, qv, rhod, air_density, air_viscosity):
 def drop_solve(
     formulae, settings, *, water_mass, vdry, kappa, f_org, reynolds,
     active_drop, dt_sub, T, p, RH, lv, pvs, DTp, KTp, Sc, per_drop,
+    stats=None,
 ):
     """per-drop implicit solve over per-drop thermo rows (JAX
     ``calculate_masses_new``); returns (mass_new, success_per_drop).
@@ -80,7 +84,11 @@ def drop_solve(
     ``:218-237`` stops per 32768-drop block instead), or at a midpoint where
     minfun is exactly 0. All three land within rtol_x |x_old| of the same
     root, except where the JAX rules meet an exact zero: they take it for
-    "root above" and end at the bracket's upper end."""
+    "root above" and end at the bracket's upper end.
+
+    ``stats``: a dict that, when given, receives ``minfun_evaluations``,
+    the per-drop evaluations of minfun that the per-drop rule needs (what
+    K3 computes for these inputs; its operation count)."""
     f = formulae
     const = f.constants
     rtol_x, RH_rtol, max_iters, bisect_iters = settings
@@ -143,12 +151,15 @@ def drop_solve(
 
     b = torch.maximum(x_insane, a + dx_step)
     fb = minfun(b, *margs)
+    evaluations = [2 * need_solve.sum()] if stats is not None else []
     # double the step until the sign changes; a bracketed drop stays
     # bracketed, so the loop ends once none is left
     for i in range(max_iters):
         not_bracketed = (fa * fb >= 0) & need_solve
         if not bool(not_bracketed.any()):
             break
+        if stats is not None:
+            evaluations.append(not_bracketed.sum())
         b_try = torch.maximum(x_insane, a + dx_step * 2.0 ** (i + 1))
         fb_try = minfun(b_try, *margs)
         b = torch.where(not_bracketed, b_try, b)
@@ -167,6 +178,8 @@ def drop_solve(
             update = solving & ((hi - lo) - tol > 0)
             if not bool(update.any()):
                 break
+            if stats is not None:
+                evaluations.append(update.sum())
             mid = 0.5 * (lo + hi)
             fmid = minfun(mid, *margs)
             go_lo = flo * fmid < 0
@@ -198,15 +211,17 @@ def drop_solve(
     # reference raises instead, condensation_methods.py:670-696)
     finite = torch.isfinite(mass_new)
     mass_new = torch.where(finite, mass_new, water_mass)
+    if stats is not None:
+        stats["minfun_evaluations"] = int(sum(int(e) for e in evaluations))
     return mass_new, (success_drop & finite) | ~active
 
 
 class CondensationSolver:
     """the condensation step closed over formulae and configuration (JAX
-    ``make_condensation_solver``), for one cell. ``substep_solves`` counts
-    the per-drop solves (one per substep, fake or real; on CUDA tensors one
-    K3 launch each), ``host_reads`` the values read back from the device to
-    steer a loop."""
+    ``make_condensation_solver``), for one cell or many.
+    ``substep_solves`` counts the per-drop solves (one per substep, fake or
+    real; on CUDA tensors one K3 launch each), ``host_reads`` the values
+    read back from the device to steer a loop."""
 
     def __init__(
         self,
@@ -223,11 +238,7 @@ class CondensationSolver:
         bisect_iters=64,
         failure_doubling_cap=64,
     ):
-        if n_cell != 1:
-            raise NotImplementedError(
-                "multi-cell condensation is not ported yet: it comes with"
-                " slice 3 (kernel K4 under the per-cell sums)"
-            )
+        self.n_cell = n_cell
         self.formulae = formulae
         self.dt = dt
         self.rtol_thd = rtol_thd
@@ -241,18 +252,26 @@ class CondensationSolver:
         self.substep_solves = 0
         self.host_reads = 0
 
+    def _percell_sum(self, values, cell_start):
+        """per-cell sums over cell-sorted drops; one cell is one plain sum
+        (JAX ``_percell_sum``)"""
+        if self.n_cell == 1:
+            return values.sum()[None]
+        return sorted_segment_sum(values, cell_start, self.n_cell)
+
     def _read(self, tensor):
         """a device value the host branches on (counted)"""
         self.host_reads += 1
         return tensor.item()
 
     def substep(
-        self, *, attrs, multiplicity, cell_of_drop, cell_active, dt_sub_cell,
-        thd, qv, rhod, ml_old, dthd_dt_pred, dqv_dt_pred, drhod_dt, m_d,
-        air_density, air_viscosity, fake,
+        self, *, attrs, multiplicity, cell_of_drop, cell_start, cell_active,
+        dt_sub_cell, thd, qv, rhod, ml_old, dthd_dt_pred, dqv_dt_pred,
+        drhod_dt, m_d, air_density, air_viscosity, fake,
     ):
         """one trapezoidal substep (reference ``step_impl`` 256-356) on the
-        cells where ``cell_active``"""
+        cells where ``cell_active``; with many cells the drops are sorted by
+        cell, with segment starts ``cell_start``"""
         f = self.formulae
         act = cell_active
         dt_sub = dt_sub_cell
@@ -287,7 +306,9 @@ class CondensationSolver:
                 air_density, air_viscosity,
             )
         mult_f = multiplicity.to(water_mass.dtype)
-        ml_new = torch.where(mass_new > 0, mult_f * mass_new, 0.0).sum()[None]
+        ml_new = self._percell_sum(
+            torch.where(mass_new > 0, mult_f * mass_new, 0.0), cell_start
+        )
         dml_dt = (ml_new - ml_old) / torch.where(dt_sub > 0, dt_sub, 1.0)
         dqv_dt_corr = -dml_dt / m_d
         dthd_dt_corr = f.state_variable_triplet.dthd_dt(
@@ -298,7 +319,9 @@ class CondensationSolver:
         qv = torch.where(act, qv + dt_sub * (dqv_dt_pred / 2 + dqv_dt_corr), qv)
         rhod = torch.where(act, rhod + dt_sub * drhod_dt / 2, rhod)
 
-        fails = (~success_drop).to(torch.float32).sum()[None]
+        fails = self._percell_sum(
+            (~success_drop).to(torch.float32), cell_start
+        )
         # a non-finite thd/qv (the trapezoidal correction on a numerical
         # cliff) rolls the cell back to its substep-entry state, in full:
         # its drops keep their substep-entry masses too
@@ -325,7 +348,9 @@ class CondensationSolver:
             weight = torch.where(committed, mult_f, 0.0)
 
             def count(crossed):
-                return torch.where(crossed, weight, 0.0).sum()[None]
+                return self._percell_sum(
+                    torch.where(crossed, weight, 0.0), cell_start
+                )
 
             n_act = count((mass_new > mass_cr) & (mass_cr > water_mass))
             n_deact = count((mass_new < mass_cr) & (mass_cr < water_mass))
@@ -335,17 +360,18 @@ class CondensationSolver:
         ml_out = torch.where(act & finite_cell, ml_new, ml_old)
         return attrs_out, thd, qv, rhod, ml_out, RH, success_cell, events
 
-    @staticmethod
-    def _liquid(attrs, multiplicity):
+    def _liquid(self, attrs, multiplicity, cell_start):
         water_mass = attrs["water_mass"]
         mult_f = multiplicity.to(water_mass.dtype)
-        return torch.where(water_mass > 0, mult_f * water_mass, 0.0).sum()[None]
+        return self._percell_sum(
+            torch.where(water_mass > 0, mult_f * water_mass, 0.0), cell_start
+        )
 
     def run_substeps(self, *, attrs, multiplicity, n_substeps, thd, **kwargs):
-        """advance the cell through its n_substeps (JAX lockstep loop; the
-        trip count is read on the host)"""
+        """advance every cell through its own n_substeps (JAX lockstep loop,
+        spent cells masked; the trip count is read on the host)"""
         dt_sub_cell = self.dt / n_substeps.to(thd.dtype)
-        ml_old = self._liquid(attrs, multiplicity)
+        ml_old = self._liquid(attrs, multiplicity, kwargs["cell_start"])
         water_mass = attrs["water_mass"]
         qv, rhod = kwargs.pop("qv"), kwargs.pop("rhod")
         RH_max = torch.zeros_like(thd)
@@ -374,7 +400,8 @@ class CondensationSolver:
         _, thd_new, _, _, _, _, success, _ = self.substep(
             attrs=attrs, multiplicity=multiplicity, cell_active=cell_mask,
             dt_sub_cell=self.dt / n_substeps.to(thd.dtype), thd=thd,
-            ml_old=self._liquid(attrs, multiplicity), fake=True, **kwargs,
+            ml_old=self._liquid(attrs, multiplicity, kwargs["cell_start"]),
+            fake=True, **kwargs,
         )
         return thd_new, success
 
@@ -443,14 +470,17 @@ class CondensationSolver:
         return torch.clamp(n, max=n_max_f).to(torch.int32)
 
     def __call__(
-        self, *, attrs, multiplicity, cell_of_drop, n_substeps,
+        self, *, attrs, multiplicity, cell_of_drop, cell_start, n_substeps,
         thd, qv, rhod, pthd, pqv, prhod, m_d, air_density, air_viscosity,
     ):
         """full condensation step (reference ``solve``, 639-698); returns
-        (water_mass, pthd, pqv, n_substeps, RH_max, success, events)"""
+        (water_mass, pthd, pqv, n_substeps, RH_max, success, events).
+        ``cell_start``: the segment starts of the cell-sorted drops (None
+        for one cell)"""
         dt = self.dt
         kwargs = dict(
             multiplicity=multiplicity, cell_of_drop=cell_of_drop,
+            cell_start=cell_start,
             qv=qv, rhod=rhod,
             dthd_dt_pred=(pthd - thd) / dt, dqv_dt_pred=(pqv - qv) / dt,
             drhod_dt=(prhod - rhod) / dt, m_d=m_d,

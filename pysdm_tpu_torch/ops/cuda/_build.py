@@ -1,6 +1,7 @@
 """Build and load the port's CUDA kernels.
 
-Each ``csrc/<name>.cu`` has a plain C interface. At first use it is compiled
+Each ``csrc/<name>.cu`` has a plain C interface and may include the shared
+device headers ``csrc/*.cuh``. At first use it is compiled
 with ``nvcc`` for ``sm_90a`` into a shared library under
 ``build/pysdm_tpu_torch/`` at the root of the checkout, named by a hash of
 the source and the flags, and loaded with ``ctypes``. A missing ``nvcc`` or a
@@ -44,9 +45,12 @@ def nvcc_path():
 
 
 def library_path(name):
+    """the source and its library's path; the name hashes the source, the
+    shared headers ``csrc/*.cuh`` and the flags"""
     source = CSRC / f"{name}.cu"
+    headers = b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
     digest = hashlib.sha256(
-        source.read_bytes() + " ".join(NVCC_FLAGS).encode()
+        source.read_bytes() + headers + " ".join(NVCC_FLAGS).encode()
     ).hexdigest()[:16]
     return source, BUILD_DIR / f"lib{name}_{digest}.so"
 

@@ -1,7 +1,8 @@
-"""Single-cell mirror coalescence: the Hopper kernel
-``csrc/collision_mirror.cu``, its wrapper and its plain PyTorch twin.
+"""SDM coalescence substeps: the Hopper kernels ``csrc/collision_mirror.cu``
+(K1, one cell) and ``csrc/collision_adjacent.cu`` (K2, many cells), their
+wrappers and their plain PyTorch twins.
 
-Replaces the TPU kernel ``fused_coalesce_mirror_blocks``
+K1 replaces the TPU kernel ``fused_coalesce_mirror_blocks``
 (``pysdm_tpu/ops/pallas/collision.py:582``, body ``_mk_mirror_block_kernel``
 ``:422``). One substep under the mirror croupier: slot o pairs with
 po = (K - o) mod N; dead slots and fixed points are masked; j is the larger
@@ -22,6 +23,15 @@ floor(xi_j/xi_k) is above ~2^26 and below the cap; see ROADMAP.md, queue 3.
 
 Bound on the card: ~44 bytes of device memory per slot per substep for ~60
 flops, so the kernel is memory- and launch-bound at 2^20 slots.
+
+K2 replaces the TPU kernel ``fused_coalesce``
+(``pysdm_tpu/ops/pallas/collision.py:721``, body ``_coalesce_kernel``
+``:103-217``): the same update over the cell-sorted state of the sort
+croupier, slot p pairing with p + 1 where ``is_first[p]``; kernel value
+times normalization (``kernnorm``) and the gamma draw (``rand``) come as
+rows, read at the pair's leader; the rates come back as per-slot rows for
+the per-cell sums. gamma is exact here too. Bound on the card: bytes, ~57 B
+per slot per substep with three float32 extensive rows.
 """
 
 import ctypes
@@ -226,3 +236,136 @@ def _launch(mult, ext, volume, kernel_id, params, scale, K, seed):
         raise RuntimeError(f"collision_mirror launch failed: {msg} ({err})")
     coalesce_mirror.launches += 1
     return mult_out, ext_out, sums[0], sums[1], sums[2]
+
+
+def coalesce_adjacent_reference(mult, ext, kernnorm, rand, is_first):
+    """plain PyTorch twin of K2 (same function, same f32 rounding order).
+    Returns (mult_new, ext_new, rate, deficit, coal) with per-slot float32
+    rate rows, nonzero only at pair leaders (coal is rate)."""
+    n = mult.shape[0]
+    p = torch.arange(n, dtype=torch.int64, device=mult.device)
+    isf = is_first
+    isf_prev = torch.cat([isf.new_zeros(1), isf[:-1]])
+    in_pair = isf | isf_prev
+    partner = torch.where(isf, p + 1, p - 1).clamp(0, n - 1)
+    lead = torch.where(isf, p, p - 1).clamp(0, n - 1)
+    a = mult
+    b = mult[partner]
+    a_is_j = torch.where(isf, a >= b, a > b)
+    mj = torch.where(a_is_j, a, b)
+    mk = torch.where(a_is_j, b, a)
+
+    kn = kernnorm.to(torch.float32)[lead]
+    u = rand.to(torch.float32)[lead]
+    gamma_f = torch.ceil(_u64_to_f32(mj) * kn - u).clamp_min(0.0)
+    gamma_f = torch.where(in_pair, gamma_f, 0.0)
+    cap = gamma_f.clamp_max(_BIG).to(torch.int64)
+    g = torch.minimum(cap, mj // mk.clamp_min(1))
+    g = torch.where(in_pair, g, 0)
+    gf = _u32_to_f32(g)
+
+    nn = mj - g * mk
+    split = in_pair & (nn == 0) & (g > 0)
+    half = mk // 2
+    mj_new = torch.where(split, half, nn)
+    mk_new = torch.where(split, mk - half, mk)
+    i_am_j = in_pair & a_is_j
+    mult_new = torch.where(in_pair, torch.where(i_am_j, mj_new, mk_new), a)
+
+    e_other = ext[:, partner]
+    ej = torch.where(i_am_j, ext, e_other)
+    ek = torch.where(i_am_j, e_other, ext)
+    merged = ek + gf.to(ext.dtype) * ej
+    e_new = torch.where(i_am_j, torch.where(split, merged, ej), merged)
+    ext_new = torch.where(in_pair, e_new, ext)
+
+    mk_f = _u64_to_f32(mk)
+    rate = torch.where(isf, gf * mk_f, 0.0)
+    deficit = torch.where(isf, (gamma_f - gf) * mk_f, 0.0)
+    return mult_new, ext_new, rate, deficit, rate
+
+
+def _check_adjacent(mult, ext, kernnorm, rand, is_first):
+    n = mult.shape[0]
+    if mult.dtype != torch.int64 or mult.dim() != 1:
+        raise TypeError("mult: int64 (n,) expected")
+    if ext.dim() != 2 or ext.shape[1] != n or ext.dtype not in (
+        torch.float32, torch.float64
+    ):
+        raise TypeError("ext: float32/float64 (n_ext, n) expected")
+    if is_first.dtype != torch.bool or is_first.shape != (n,):
+        raise TypeError("is_first: bool (n,) expected")
+    for name, t in (("kernnorm", kernnorm), ("rand", rand)):
+        if t.shape != (n,) or not t.dtype.is_floating_point:
+            raise TypeError(f"{name}: float (n,) expected")
+    for name, t in (
+        ("ext", ext), ("kernnorm", kernnorm), ("rand", rand),
+        ("is_first", is_first),
+    ):
+        if t.device != mult.device:
+            raise ValueError(f"{name} is on {t.device}, mult on {mult.device}")
+
+
+def coalesce_adjacent(mult, ext, kernnorm, rand, is_first):
+    """one sort-croupier coalescence substep over the cell-sorted state.
+    CPU tensors take the plain twin; CUDA tensors launch the Hopper kernel
+    (or raise). Returns (mult_new, ext_new, rate, deficit, coal) with
+    per-slot float32 rate rows (coal is rate).
+
+    mult: int64 (n,); ext: (n_ext, n) float32/float64; kernnorm: kernel
+    value times the cell's normalization and probability scale, valid at
+    pair leaders; rand: the gamma u01 draws, read at pair leaders (both
+    cast to float32); is_first: bool (n,), slot p leads the pair (p, p+1)."""
+    _check_adjacent(mult, ext, kernnorm, rand, is_first)
+    if mult.device.type == "cpu":
+        return coalesce_adjacent_reference(mult, ext, kernnorm, rand, is_first)
+    if mult.device.type != "cuda":
+        raise ValueError(f"no kernel for device {mult.device}")
+    return _launch_adjacent(mult, ext, kernnorm, rand, is_first)
+
+
+coalesce_adjacent.launches = 0
+
+
+@functools.cache
+def library_adjacent():
+    """K2's built library with its entry point's C signature declared"""
+    lib = _build.load("collision_adjacent")
+    vp = ctypes.c_void_p
+    lib.pysdm_coalesce_adjacent.argtypes = [
+        vp, vp, ctypes.c_int, ctypes.c_int, vp, vp, vp, ctypes.c_longlong,
+        vp, vp, vp, vp, vp,
+    ]
+    lib.pysdm_coalesce_adjacent.restype = ctypes.c_int
+    lib.pysdm_cuda_error_string.argtypes = [ctypes.c_int]
+    lib.pysdm_cuda_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def _launch_adjacent(mult, ext, kernnorm, rand, is_first):
+    lib = library_adjacent()
+    n = mult.shape[0]
+    mult = mult.contiguous()
+    ext = ext.contiguous()
+    kernnorm = kernnorm.to(torch.float32).contiguous()
+    rand = rand.to(torch.float32).contiguous()
+    is_first = is_first.contiguous()
+    mult_out = torch.empty_like(mult)
+    ext_out = torch.empty_like(ext)
+    rate = torch.empty(n, dtype=torch.float32, device=mult.device)
+    deficit = torch.empty_like(rate)
+    if n == 0:
+        return mult_out, ext_out, rate, deficit, rate
+    with torch.cuda.device(mult.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.pysdm_coalesce_adjacent(
+            mult.data_ptr(), ext.data_ptr(), int(ext.dtype == torch.float64),
+            ext.shape[0], kernnorm.data_ptr(), rand.data_ptr(),
+            is_first.data_ptr(), n, mult_out.data_ptr(), ext_out.data_ptr(),
+            rate.data_ptr(), deficit.data_ptr(), stream,
+        )
+    if err != 0:
+        msg = lib.pysdm_cuda_error_string(err).decode()
+        raise RuntimeError(f"collision_adjacent launch failed: {msg} ({err})")
+    coalesce_adjacent.launches += 1
+    return mult_out, ext_out, rate, deficit, rate

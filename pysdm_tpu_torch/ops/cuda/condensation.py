@@ -116,10 +116,11 @@ def kernel_params(formulae, settings):
 
 def masses_new_reference(
     formulae, settings, water_mass, vdry, kappa, multiplicity, cell_id,
-    thd, qv, rhod, dt_sub, active, rho_air, mu_air,
+    thd, qv, rhod, dt_sub, active, rho_air, mu_air, stats=None,
 ):
     """plain PyTorch twin of the kernel (same function, same signature,
-    the per-drop stopping rule); computes in the dtype of ``water_mass``"""
+    the per-drop stopping rule); computes in the dtype of ``water_mass``.
+    ``stats``: see ``drop_solve``"""
     from ..condensation import drop_solve, thermo
 
     cell = cell_id.long().clamp(0, thd.shape[0] - 1)
@@ -132,7 +133,7 @@ def masses_new_reference(
         f_org=zeros, reynolds=zeros,
         active_drop=active[cell] & (multiplicity > 0), dt_sub=dt_sub[cell],
         T=T, p=p, RH=RH, lv=lv, pvs=pvs, DTp=DTp, KTp=KTp, Sc=Sc,
-        per_drop=True,
+        per_drop=True, stats=stats,
     )
 
 

@@ -1,7 +1,12 @@
-"""Sort-free mirror matching for a single cell (port of ``MirrorPairing`` in
+"""Disjoint-pair matchings over the particle axis (port of
 ``pysdm_tpu/ops/pairing.py``).
 
-Draw ONE uniform integer K in [0, N) and pair slot o with slot
+``AdjacentPairing``, the sort croupier of multi-cell domains: after the
+bucket shuffle (``ops/segments.py``) slots p and p + 1 pair where
+``is_first[p]``; the candidate probability per cell is
+floor(n/2) / (n(n-1)/2) (``ops.collisions.normalization_factor``).
+
+``MirrorPairing``, the sort-free croupier of a single cell: draw ONE uniform integer K in [0, N) and pair slot o with slot
 (K - o) mod N. The map is an involution, so the matching is disjoint by
 construction; every unordered pair is a candidate with probability exactly
 1/N, hence the normalization factor dt/dv * N
@@ -9,11 +14,23 @@ construction; every unordered pair is a candidate with probability exactly
 and dead slots (multiplicity 0) are masked out of ``is_first``.
 
 The JAX package reads the partner as ``roll(flip(x), K + 1)``; here the
-partner index is computed directly and read with a gather. The sort
-croupier of multi-cell domains (``AdjacentPairing``) comes with slice 3.
+partner index is computed directly and read with a gather.
 """
 
 import torch
+
+
+class AdjacentPairing:
+    """pairs = slots (p, p+1) where is_first[p] (sort-croupier convention)"""
+
+    def __init__(self, is_first):
+        self.is_first = is_first
+
+    @staticmethod
+    def partner(x, axis=0):
+        """partner value at leader slots (slot p sees p + 1; garbage at the
+        other slots, which every use masks by ``is_first``)"""
+        return torch.roll(x, -1, dims=axis)
 
 
 class MirrorPairing:

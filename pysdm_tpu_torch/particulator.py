@@ -44,8 +44,11 @@ class Particulator:
         self.n_steps = 0
         # {'particles', 'env', 'counters', 'flags', 'host'}
         self.sim_state = None
-        # host-side generator of the per-substep draws, seeded by Builder
+        # generators seeded by Builder: host-side (per-substep scalars) and
+        # on the device (per-slot rows)
         self.rng = None
+        self.device_rng = None
+        self.u01_injection = False
         self._step_fn = None
         self._resolver = AttributeResolver(self.formulae)
         self.attributes = _AttributeView(self)
@@ -72,6 +75,21 @@ class Particulator:
 
     def get_counter(self, name):
         return self.sim_state["counters"][name].cpu().numpy()
+
+    def inject_u01(self, streams: dict):
+        """parity mode: replace the injected u01 rows (one per purpose, shape
+        (n_sd,)) that the NEXT step consumes; needs a simulation built after
+        ``Builder.enable_u01_injection``"""
+        if not self.u01_injection:
+            raise RuntimeError(
+                "u01 injection not enabled (Builder.enable_u01_injection)"
+            )
+        for name, values in streams.items():
+            if name not in self.sim_state["u01"]:
+                raise KeyError(f"unknown u01 purpose: {name}")
+            self.sim_state["u01"][name] = torch.as_tensor(
+                values, dtype=self.dtype, device=self.device
+            )
 
     def get_env(self, key):
         if key in self.sim_state["env"]:

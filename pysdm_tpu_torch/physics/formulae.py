@@ -1,8 +1,8 @@
 """Formulae engine (API parity with ``pysdm_tpu/physics/formulae.py``): one
 variant per physics family, bound to a frozen constants namespace.
 
-The port binds the families the box and parcel slices read, with the JAX
-package's defaults (``pysdm_tpu/physics/formulae.py:86-118``). Choosing a
+The port binds the families the box, parcel and 2D warm-rain slices read,
+with the JAX package's defaults (``pysdm_tpu/physics/formulae.py:86-118``). Choosing a
 variant the port does not have yet raises ``NotImplementedError`` naming
 the ROADMAP item or slice that brings it; so does choosing any variant of a
 family the port does not bind yet.
@@ -26,7 +26,6 @@ from .constants import make_constants
 from .particle_shape_and_density import VARIANTS as SHAPE_VARIANTS
 from .trivia import Trivia
 
-_SLICE_3 = "slice 3 (multi-cell column and 2D warm rain)"
 _SLICE_4 = "slice 4 (breakup)"
 _SLICE_5 = "slice 5 (ice, chemistry, isotopes, optics)"
 _PHYSICS = "ROADMAP queue 1 item 3 (the rest of physics/)"
@@ -54,11 +53,15 @@ _FAMILIES = {
     ),
     "diffusion_kinetics": (diffusion_kinetics.VARIANTS, "FuchsSutugin", _PHYSICS),
     "diffusion_thermics": (diffusion_thermics.VARIANTS, "Neglect", _PHYSICS),
-    # the other ventilation variants need the Reynolds number, hence the
-    # terminal velocity
-    "ventilation": (misc_families.VENTILATION_VARIANTS, "Neglect", _SLICE_3),
+    "ventilation": (misc_families.VENTILATION_VARIANTS, "Neglect", _PHYSICS),
     "state_variable_triplet": (
         state_variable_triplet.VARIANTS, "LibcloudphPlusPlus", _PHYSICS,
+    ),
+    "particle_advection": (
+        misc_families.PARTICLE_ADVECTION_VARIANTS, "ImplicitInSpace", _PHYSICS,
+    ),
+    "terminal_velocity": (
+        misc_families.TERMINAL_VELOCITY_VARIANTS, "GunnKinzer1949", _PHYSICS,
     ),
     "hydrostatics": (
         misc_families.HYDROSTATICS_VARIANTS,
@@ -72,8 +75,6 @@ _FAMILIES = {
 
 # families of the JAX package that the port does not bind yet
 _LATER_FAMILIES = {
-    "particle_advection": _SLICE_3,
-    "terminal_velocity": _SLICE_3,
     "fragmentation_function": _SLICE_4,
     **{
         name: _SLICE_5

@@ -1,9 +1,41 @@
-"""The smaller single-purpose families the parcel reads (port of the
-matching parts of ``pysdm_tpu/physics/misc_families.py``): hydrostatics,
-air dynamic viscosity, ventilation (``Neglect``), surface tension
-(``Constant``) and the diffusion coordinate."""
+"""The smaller single-purpose families the parcel and the kinematic grids
+read (port of the matching parts of ``pysdm_tpu/physics/misc_families.py``):
+particle advection, hydrostatics, air dynamic viscosity, ventilation
+(``Neglect``), surface tension (``Constant``), the diffusion coordinate and
+the terminal velocity (``GunnKinzer1949``, whose table lives in
+``dynamics/terminal_velocity.py``)."""
 
 from . import _xp
+
+
+# --- particle_advection -----------------------------------------------------
+class ExplicitInSpace:
+    @staticmethod
+    def displacement(const, position_in_cell, c_l, c_r):
+        return c_l * (1 - position_in_cell) + c_r * position_in_cell
+
+
+class ImplicitInSpace:
+    """eqs. 14-16 in Arabas et al. 2015"""
+
+    @staticmethod
+    def displacement(const, position_in_cell, c_l, c_r):
+        return (c_l * (1 - position_in_cell) + c_r * position_in_cell) / (1 - c_r + c_l)
+
+
+PARTICLE_ADVECTION_VARIANTS = {
+    "ExplicitInSpace": ExplicitInSpace,
+    "ImplicitInSpace": ImplicitInSpace,
+}
+
+
+# --- terminal_velocity -------------------------------------------------------
+class GunnKinzer1949:
+    """the Gunn & Kinzer 1949 table; the attribute resolver interpolates it
+    (``dynamics/terminal_velocity.py``)"""
+
+
+TERMINAL_VELOCITY_VARIANTS = {"GunnKinzer1949": GunnKinzer1949}
 
 
 # --- hydrostatics -----------------------------------------------------------
