@@ -36,7 +36,30 @@ Run from the root of the checkout: ``python3 chip_smoke.py``. Phases:
    backend, 64 drops, 50 steps, adaptive and not: water masses to rtol 2e-3
    and qv to rtol 1e-4. From qv0 = 0.0158 the parcel stays subsaturated in
    50 steps (the haze grows); a third, non-adaptive case starts from qv0 =
-   0.0225 and activates the drops within the 50 steps.
+   0.0225 and activates the drops within the 50 steps;
+8. K4 (the prefix sum) against torch.cumsum and float64 sums at 2^20 and at
+   the warm rain's 2.56 M, integers exactly, two runs bit-equal;
+9. K2 (sort-croupier coalescence) against its twin at 2.56 M slots;
+10. the warm rain (config #5, 25 x 25 cells x 2^12 super-droplets) through
+   ``make_simulation`` on the card, 30 steps after one, with K2, K3 and K4
+   launches counted; the per-cell float32 sums against float64;
+11. ``tests/smoke/test_kinematic_2d.py``'s 8x8 scenario on the card, and a
+   float32 card spin-up against the CPU float64 one;
+12. the warm-rain step with K2's and K4's twins in their places (timing);
+13. K5 (collision with breakup) against its twin on the card at 2^17 and
+   2^20, with config #2's functions and with a set that bounces and
+   coalesces too (``compare_k5`` states the bounds); then the device time
+   of kernel and twin;
+14. config #2, the de Jong/Mackay 2023 breakup box, through ``bench.py``'s
+   recipe (2^17 super-droplets, adaptive, dt = 1 s) on the ``GPU``
+   backend, run(1) as warm-up, then run(100) timed with K5's count reset
+   just before and read just after: it must equal the collision substeps;
+   water mass to 1e-5 (the bench's assert), multiplicities >= 0,
+   coalescence and breakup rates > 0; then 10 steps through K5 and 10 with
+   its twin in its place (timing only);
+15. config #2 through its model entry point, ``run_box_breakup`` on the
+   card at 2^17: finite spectra, each read twice bit-equal (deterministic
+   sums), the liquid under dv/dlnr conserved, rates.
 
 Every box phase checks multiplicities >= 0, water mass conserved to 1e-6 and
 coalescence having happened. Any failure raises, and the script exits
@@ -962,6 +985,308 @@ def _warm_rain_with_twins(p, gpu):
           f" their places [{gpu}]")
 
 
+# config #2, the de Jong/Mackay 2023 breakup box, at the JAX bench's size
+# (``bench.py:183-228``)
+BREAKUP_N = 2**17
+BREAKUP_STEPS = 100
+# float32 operations K5 runs per slot (collision kernel, three pair-keyed
+# draws, gamma, the process choice, the Berry efficiency with its four powf)
+# and per breaking slot (the fragment mass and the transfer: nine
+# exp-and-compare candidates, three logs, the rescale), each transcendental
+# call counted as one operation
+K5_OPS_PER_SLOT = 60
+K5_OPS_PER_BREAKUP = 150
+
+
+def k5_state(n, K, n_ext, ext_dtype, seed):
+    """K5's inputs as numpy: multiplicities up to 2^40 with 5% dead slots and
+    5% ties with the partner (K - o) mod n; radii log-uniform in 5-500 um;
+    extensive rows signed water mass and, past the first, tracers;
+    float32 rows of volume, radius and a monotone stand-in fall velocity"""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    mult = rng.integers(1, 2**40, size=n).astype(np.int64)
+    partner = (K - np.arange(n)) % n
+    tie = rng.uniform(size=n) < 0.05
+    mult[partner[tie]] = mult[tie]
+    mult[rng.uniform(size=n) < 0.05] = 0
+    radius = np.exp(rng.uniform(np.log(5e-6), np.log(500e-6), n))
+    volume = 4 / 3 * np.pi * radius**3
+    ext = np.concatenate([
+        volume[None, :] * 1e3, rng.uniform(1e-18, 1e-16, (n_ext - 1, n))
+    ]).astype(ext_dtype)
+    attrs = {
+        "volume": volume.astype(np.float32),
+        "radius": radius.astype(np.float32),
+        "relative fall velocity": (4 * (radius / 50e-6) ** 0.5).astype(
+            np.float32
+        ),
+    }
+    return mult, ext, attrs
+
+
+def k5_function_sets():
+    """config #2's functions (Geometric, Berry1967, ConstEb(1), Exponential)
+    and a set that bounces and coalesces too (ConstantK, ConstEc(0.5),
+    ConstEb(0.5), AlwaysN(4)); (kernel object, PairFunctions) each"""
+    from pysdm_tpu_torch.dynamics.collisions import (
+        breakup_efficiencies as be,
+        breakup_fragmentations as bf,
+        coalescence_efficiencies as ce,
+        collision_kernels as ck,
+    )
+    from pysdm_tpu_torch.models.dejong_mackay_et_al_2023 import Settings0D
+    from pysdm_tpu_torch.ops.cuda.breakup import PairFunctions
+
+    s = Settings0D()
+    constant = ck.ConstantK(a=1e-9)
+    return {
+        "config2": (s.kernel, PairFunctions.of(
+            s.kernel, s.coal_eff, s.break_eff, s.fragmentation
+        )),
+        "mixed": (constant, PairFunctions.of(
+            constant, ce.ConstEc(0.5), be.ConstEb(0.5), bf.AlwaysN(4)
+        )),
+    }
+
+
+def k5_args(torch, state, kernel, functions, K, device):
+    """the wrapper's arguments on ``device``, with a scale that gives the
+    median pair about one expected collision"""
+    import numpy as np
+
+    from pysdm_tpu_torch.ops.cuda.breakup import required_rows
+
+    mult, ext, attrs = state
+    rows = {
+        name: torch.from_numpy(attrs[name]).to(device)
+        for name in required_rows(functions)
+    }
+    partner = torch.remainder(K - torch.arange(mult.shape[0], device=device), mult.shape[0])
+    values = kernel.pairwise(None, rows, {k: v[partner] for k, v in rows.items()})
+    scale = 1.0 / (
+        np.median(mult[mult > 0]) * float(torch.median(values.float()))
+    )
+    return (
+        torch.from_numpy(mult).to(device), torch.from_numpy(ext).to(device),
+        0, rows, functions,
+        torch.tensor([scale], dtype=torch.float32, device=device), K,
+        2718281828, 2**63 // int(2e5),
+    )
+
+
+def compare_k5(got, want, processes, mult0):
+    """kernel (or twin) ``got`` against ``want``: multiplicities equal at
+    coalescing, bouncing and idle slots; at breakup slots, whose float32
+    transfer runs through expf/logf/log1pf (a few ulps apart between two
+    libms), equal on > 99.9% of all slots and within rel 1e-4 elsewhere
+    (the JAX package's own bound, ``tests/unit/test_pallas_breakup.py``);
+    extensive rows to rtol 1e-6 where the multiplicities agree; the five
+    sums to rtol 1e-5 (another summation order); total water mass to 5e-6.
+    Returns (the largest absolute difference of the extensive rows, the
+    number of multiplicities that differ)."""
+    import numpy as np
+
+    got = [x.cpu().numpy() for x in got]
+    want = [x.cpu().numpy() for x in want]
+    broke = processes["breakup"].cpu().numpy()
+    same = got[0] == want[0]
+    if not (same | broke).all():
+        raise AssertionError("K5: a coalescing or bouncing slot differs")
+    rel = np.abs(got[0] - want[0].astype(float)) / np.maximum(
+        np.maximum(got[0], want[0]), 1
+    )
+    if not (same.mean() > 0.999 and rel.max() < 1e-4):
+        raise AssertionError(
+            f"K5: {int((~same).sum())} multiplicities differ, rel {rel.max()!r}"
+        )
+    changed = float((want[0] != mult0).mean())
+    if not (0.05 < changed < 0.95 and broke.any()):
+        raise AssertionError(f"K5 touched {changed} of the slots")
+    np.testing.assert_allclose(got[1][:, same], want[1][:, same], rtol=1e-6)
+    for g, w in zip(got[2:], want[2:]):
+        np.testing.assert_allclose(g, w, rtol=1e-5)
+    water = [float((m * e[0].astype(float)).sum()) for m, e in (got[:2], want[:2])]
+    np.testing.assert_allclose(water[0], water[1], rtol=5e-6)
+    return float(np.abs(got[1].astype(float) - want[1]).max()), int((~same).sum())
+
+
+def _k5_vs_twin(torch, k5, device, gpu):
+    """phase 13: K5 against its twin on the card at 2^17 and 2^20 with both
+    function sets; returns (max_abs_err, kernel_ms, twin_ms, bytes, ops) of
+    the main path's shape (config #2's functions at 2^17, one float32
+    extensive row)"""
+    import numpy as np
+
+    sets = k5_function_sets()
+    out = None
+    for n, name, n_ext, ext_dtype in (
+        (BREAKUP_N, "config2", 1, np.float32),
+        (BREAKUP_N, "mixed", 2, np.float64),
+        (2**20, "config2", 2, np.float32),
+        (2**20, "mixed", 1, np.float32),
+    ):
+        K = n // 3 * 2 + 1
+        state = k5_state(n, K, n_ext, ext_dtype, seed=n + n_ext)
+        kernel, functions = sets[name]
+        args = k5_args(torch, state, kernel, functions, K, device)
+        before = k5.coalesce_breakup_mirror.launches
+        got = k5.coalesce_breakup_mirror(*args)
+        torch.cuda.synchronize()
+        if k5.coalesce_breakup_mirror.launches != before + 1:
+            raise AssertionError("K5's counter did not count the launch")
+        processes = {}
+        want = k5.coalesce_breakup_mirror_reference(*args, processes=processes)
+        err, n_diff = compare_k5(got, want, processes, state[0])
+        n_break = int(processes["breakup"].sum())
+        kernel_ms = _time_ms(torch, lambda: k5.coalesce_breakup_mirror(*args), 200)
+        twin_ms = _time_ms(
+            torch, lambda: k5.coalesce_breakup_mirror_reference(*args), 10
+        )
+        print(f"phase 13: K5 n={n} {name} n_ext={n_ext}"
+              f" {np.dtype(ext_dtype).name}: {n_break} breakup slots,"
+              f" {int(processes['coalescence'].sum())} coalescence slots,"
+              f" {n_diff} multiplicities differ; ext max abs err {err!r};"
+              f" kernel {kernel_ms!r} ms, plain twin {twin_ms!r} ms [{gpu}]")
+        if out is None:
+            # each input read once (mult 8, rows 4 each, attribute rows 4
+            # each), each output written once (mult 8, rows 4 each)
+            n_bytes = n * (8 + 4 * n_ext + 4 * len(args[3]) + 8 + 4 * n_ext)
+            n_ops = n * K5_OPS_PER_SLOT + n_break * K5_OPS_PER_BREAKUP
+            out = (err, kernel_ms, twin_ms, n_bytes, n_ops)
+    return out
+
+
+def build_breakup_box(n_sd, backend):
+    """``bench.py``'s config #2 (``_bench_breakup``): Settings0D(seed=44),
+    Collision(Geometric, Berry1967, ConstEb(1), Exponential, adaptive) on a
+    Box of dv = 1 m^3, dt = 1 s"""
+    from pysdm_tpu_torch import Builder
+    from pysdm_tpu_torch.dynamics import Collision
+    from pysdm_tpu_torch.environments import Box
+    from pysdm_tpu_torch.initialisation.sampling.spectral_sampling import (
+        ConstantMultiplicity,
+    )
+    from pysdm_tpu_torch.models.dejong_mackay_et_al_2023 import Settings0D
+
+    s = Settings0D(seed=44, warn_overflows=False)
+    s.n_sd = n_sd
+    builder = Builder(
+        n_sd=n_sd, backend=backend(s.formulae), environment=Box(dv=s.dv, dt=s.dt)
+    )
+    builder.add_dynamic(Collision(
+        collision_kernel=s.kernel, coalescence_efficiency=s.coal_eff,
+        breakup_efficiency=s.break_eff, fragmentation_function=s.fragmentation,
+        adaptive=s.adaptive, warn_overflows=False,
+    ))
+    attributes = {}
+    attributes["volume"], attributes["multiplicity"] = ConstantMultiplicity(
+        s.spectrum
+    ).sample(n_sd)
+    return builder.build(attributes)
+
+
+def _breakup_main_path(k5, gpu):
+    """phase 14: config #2 through ``bench.py``'s recipe on the card;
+    returns K5's launches in the timed steps"""
+    from pysdm_tpu_torch.backends import GPU
+    from pysdm_tpu_torch.dynamics.collisions import collision
+
+    p = build_breakup_box(BREAKUP_N, GPU)
+    mass0, count0 = _totals(p)
+    p.run(1)
+    p.block_until_ready()
+    dyn = p.dynamics["Collision"]
+    substeps0, reads0 = dyn.substeps_run, dyn.host_reads
+    k5.coalesce_breakup_mirror.launches = 0
+    t0 = time.perf_counter()
+    p.run(BREAKUP_STEPS)
+    p.block_until_ready()
+    elapsed = time.perf_counter() - t0
+    launches = k5.coalesce_breakup_mirror.launches
+    substeps = dyn.substeps_run - substeps0
+    if launches != substeps or substeps < BREAKUP_STEPS:
+        raise AssertionError(f"{launches} K5 launches for {substeps} substeps")
+    mass1, count1 = _totals(p)
+    if abs(mass1 - mass0) > 1e-5 * mass0:
+        raise AssertionError(f"phase 14: water mass {mass0} -> {mass1}")
+    rates = {
+        name: float(p.get_counter(name).sum())
+        for name in ("collision_rate", "coalescence_rate", "breakup_rate",
+                     "collision_rate_deficit", "breakup_rate_deficit")
+    }
+    if not (rates["coalescence_rate"] > 0 and rates["breakup_rate"] > 0):
+        raise AssertionError(f"phase 14: rates {rates}")
+    print(f"phase 14: breakup box (config #2) n_sd={BREAKUP_N}, adaptive,"
+          f" {BREAKUP_STEPS} steps after one:"
+          f" {BREAKUP_N / 2 * BREAKUP_STEPS / elapsed!r} pair-updates/s,"
+          f" {elapsed / BREAKUP_STEPS * 1e3!r} ms/step, {launches} K5"
+          f" launches = {substeps} substeps, host reads"
+          f" {(dyn.host_reads - reads0) / BREAKUP_STEPS!r}/step; water mass"
+          f" drift {(mass1 - mass0) / mass0!r}, droplets {count0!r} ->"
+          f" {count1!r}; rates {rates} [{gpu}]")
+
+    n_plain = 10
+    times = []
+    twin = _replaced(
+        collision, "coalesce_breakup_mirror", k5.coalesce_breakup_mirror_reference
+    )
+    for context in (contextlib.nullcontext(), twin):
+        with context:
+            t0 = time.perf_counter()
+            p.run(n_plain)
+            p.block_until_ready()
+            times.append((time.perf_counter() - t0) / n_plain * 1e3)
+    print(f"phase 14: {n_plain} more steps: {times[0]!r} ms/step through K5,"
+          f" {times[1]!r} ms/step with the plain twin in its place [{gpu}]")
+    return launches
+
+
+def _breakup_model(k5, gpu):
+    """phase 15: config #2 through its model entry point,
+    ``run_box_breakup(Settings0D(), backend_class=GPU)``, at the bench's
+    2^17 super-droplets, spectra read at 0, 25, 50 and 100 s"""
+    import numpy as np
+
+    from pysdm_tpu_torch.models import dejong_mackay_et_al_2023 as model
+
+    settings = model.Settings0D()
+    settings.n_sd = BREAKUP_N
+    settings._steps = [0, 25, 50, 100]
+    k5.coalesce_breakup_mirror.launches = 0
+    t0 = time.perf_counter()
+    out = model.run_box_breakup(settings, return_nv=True)
+    elapsed = time.perf_counter() - t0
+    launches = k5.coalesce_breakup_mirror.launches
+    core = out.core
+    if core.device.type != "cuda":
+        raise AssertionError(f"run_box_breakup built on {core.device}")
+    substeps = core.dynamics["Collision"].substeps_run
+    if launches != substeps or substeps < settings._steps[-1]:
+        raise AssertionError(f"{launches} K5 launches for {substeps} substeps")
+    if not (np.isfinite(out.y).all() and np.isfinite(out.y2).all()):
+        raise AssertionError("run_box_breakup: non-finite spectrum")
+    for name in ("dv/dlnr", "N(v)"):
+        product = core.products[name]
+        if not np.array_equal(product.get(), product.get()):
+            raise AssertionError(f"run_box_breakup: {name} read twice differs")
+    dlnr = np.diff(np.log(settings.radius_bins_edges))
+    liquid = (out.y * dlnr).sum(axis=1)  # kg per m^3 of air under dv/dlnr
+    drift = np.abs(liquid / liquid[0] - 1).max()
+    collision, _, coalescence, breakup = out.rates[-1]
+    if not (drift < 1e-4 and coalescence > 0 and breakup > 0):
+        raise AssertionError(
+            f"run_box_breakup: liquid {liquid}, rates {out.rates[-1]}"
+        )
+    print(f"phase 15: run_box_breakup(Settings0D(), backend_class=GPU) at"
+          f" n_sd={BREAKUP_N}, {settings._steps[-1]} steps in {elapsed!r} s:"
+          f" {launches} K5 launches; liquid under dv/dlnr {liquid.tolist()}"
+          f" kg/m^3 (max drift {drift!r}); number"
+          f" {(out.y2.sum(axis=1)).tolist()} m^-3; rates (collision,"
+          f" deficit, coalescence, breakup) {out.rates[-1].tolist()} [{gpu}]")
+
+
 def main():
     import torch
 
@@ -969,6 +1294,7 @@ def main():
         print("chip_smoke: torch sees no CUDA device", file=sys.stderr)
         return 2
     from pysdm_tpu_torch.ops.cuda import _build
+    from pysdm_tpu_torch.ops.cuda import breakup as k5
     from pysdm_tpu_torch.ops.cuda import collision as kern
     from pysdm_tpu_torch.ops.cuda import condensation as k3
     from pysdm_tpu_torch.ops.cuda import scan
@@ -987,12 +1313,18 @@ def main():
         print(f"triton does not import: {err}")
 
     # every kernel is built anew from its source, all nvcc runs at once
-    sources = ("collision_mirror", "condensation", "scan", "collision_adjacent")
+    sources = (
+        "collision_mirror", "condensation", "scan", "collision_adjacent",
+        "collision_breakup",
+    )
     for name in sources:
         _build.library_path(name)[1].unlink(missing_ok=True)
     t0 = time.perf_counter()
     with concurrent.futures.ThreadPoolExecutor() as pool:
-        loaders = (kern.library, k3.library, scan.library, kern.library_adjacent)
+        loaders = (
+            kern.library, k3.library, scan.library, kern.library_adjacent,
+            k5.library,
+        )
         for future in [pool.submit(load) for load in loaders]:
             future.result()
     print(f"phase 1: built {', '.join(sources)} in"
@@ -1012,6 +1344,11 @@ def main():
     _warm_rain_with_twins(p, gpu)
     del p
     _warm_rain_scenario_on_card(gpu)
+    k5_err, k5_ms, k5_twin_ms, k5_bytes, k5_ops = _k5_vs_twin(
+        torch, k5, device, gpu
+    )
+    k5_launches = _breakup_main_path(k5, gpu)
+    _breakup_model(k5, gpu)
 
     # least times on the card, from this run's inputs: K1 at N_MAIN with two
     # float32 rows (mult 8 + rows 8 + volume 4 in, mult 8 + rows 8 out per
@@ -1021,6 +1358,7 @@ def main():
     k3_bound = bound_ms(N_PARCEL * 29, k3_evaluations * K3_OPS_PER_MINFUN)
     k4_bound = bound_ms(k4_n * 8)
     k2_bound = bound_ms(k2_bytes)
+    k5_bound = bound_ms(k5_bytes, k5_ops)
 
     print(json.dumps({"kernels": [{
         "name": "coalesce_mirror",
@@ -1071,6 +1409,18 @@ def main():
         "bound_by": k4_bound[1],
         # the twin is the library call, torch.cumsum in the input's dtype
         "library_ms": k4_twin_ms,
+    }, {
+        "name": "coalesce_breakup_mirror",
+        "route": "cuda",
+        "source": "pysdm_tpu_torch/csrc/collision_breakup.cu",
+        "replaces": "pysdm_tpu/ops/pallas/breakup.py:340",
+        "launches": k5_launches,
+        "max_abs_err": k5_err,
+        "ms": k5_ms,
+        "plain_ms": k5_twin_ms,
+        "bound_ms": k5_bound[0],
+        "bound_by": k5_bound[1],
+        "library_ms": None,
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

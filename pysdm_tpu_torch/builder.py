@@ -85,11 +85,6 @@ class Builder:
         self._flags[name] = bool(default)
 
     def build(self, attributes: dict, products=()):
-        if products:
-            raise NotImplementedError(
-                "products are not ported yet: they come with the rest of"
-                " slice 1 (ops/moments.py, products/size_spectral.py)"
-            )
         particulator = self.particulator
         attributes = dict(attributes)
         if "volume" in attributes and "water mass" not in attributes:
@@ -111,6 +106,13 @@ class Builder:
 
         for dynamic in particulator.dynamics.values():
             dynamic.register(self)
+        # products register before the state is assembled, so that the
+        # attributes they request get rows (``pysdm_tpu/builder.py:133-141``)
+        for product in products:
+            product.register(self)
+            if product.name in particulator.products:
+                raise ValueError(f"duplicate product name: {product.name}")
+            particulator.products[product.name] = product
 
         extensive = {}
         for name, value in attributes.items():

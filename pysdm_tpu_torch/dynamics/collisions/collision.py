@@ -1,10 +1,14 @@
-"""Collision dynamic: SDM Monte-Carlo coalescence (port of
+"""Collision dynamic: SDM Monte-Carlo coalescence and breakup (port of
 ``pysdm_tpu/dynamics/collisions/collision.py``).
 
 Two croupiers, chosen as the JAX package chooses them:
 - one cell (box, parcel): a substep draws (K, seed), pairs slot o with
   (K - o) mod N (the mirror croupier, ``ops/pairing.py``) and hands the
-  whole pair update to K1 (``coalesce_mirror``);
+  whole pair update to one kernel: K1 (``coalesce_mirror``) for
+  coalescence alone, K5 (``coalesce_breakup_mirror``) for bounce,
+  coalescence and breakup (``Collision`` with ``enable_breakup``,
+  ``Breakup``), which evaluates the collision kernel, Ec, Eb and the
+  fragment mass in its body;
 - many cells, u01 injection, or ``croupier="sort"``: a substep sorts the
   whole state by (cell, random bits) (``ops/segments.py``
   ``bucket_shuffle_state``), pairs neighbouring slots of a cell, computes
@@ -16,6 +20,12 @@ tensor ops (``ops.collisions.scale_prob_adaptive``), as the JAX package
 does with XLA ops ahead of its Pallas kernels. On CPU tensors each kernel
 wrapper runs its plain twin.
 
+Breakup runs only where the JAX package takes its Pallas kernel: one cell,
+the mirror croupier, ``handle_all_breakups`` False, and the functions K5
+evaluates. Everything else needs the JAX package's float64 breakup path
+(``ops/breakup.py``), which is not ported: ``register`` raises
+``NotImplementedError`` for it on any device.
+
 Random numbers: (K, seed) come from the particulator's host-side
 ``torch.Generator``; the sort croupier's per-slot shuffle bits and gamma
 draws from its generator on the state's device (``device_rng``), never
@@ -26,8 +36,6 @@ from the host. Under u01 injection (``Builder.enable_u01_injection``) the
 Host syncs: none in the non-adaptive step. The adaptive loop ``while
 dt_left > 0`` reads one boolean from the device per substep
 (``host_reads`` counts them).
-
-Breakup (slice 4) raises ``NotImplementedError``.
 """
 
 from collections import namedtuple
@@ -37,19 +45,53 @@ import torch
 from ...impl.attributes import AttributeResolver
 from ...ops import collisions as coll_ops
 from ...ops import segments as seg_ops
-from ...ops.cuda.collision import coalesce_adjacent, coalesce_mirror
+from ...ops.cuda.breakup import (
+    BREAKUP_KERNELS,
+    EB_CONST,
+    EC_BERRY1967,
+    EC_CONST,
+    FRAG_ALWAYS_N,
+    FRAG_CONSTANT_MASS,
+    FRAG_EXPONENTIAL,
+    PairFunctions,
+    coalesce_breakup_mirror,
+    required_rows,
+)
+from ...ops.cuda.collision import (
+    MIRROR_KERNELS,
+    coalesce_adjacent,
+    coalesce_mirror,
+)
 from ...ops.pairing import AdjacentPairing, MirrorPairing
 from .breakup_efficiencies import ConstEb
 from .breakup_fragmentations import AlwaysN
 from .coalescence_efficiencies import ConstEc
 
-DEFAULTS = namedtuple("_", ("dt_coal_range", "adaptive", "substeps"))(
+DEFAULTS = namedtuple(
+    "_", ("dt_coal_range", "adaptive", "substeps", "max_multiplicity")
+)(
     dt_coal_range=(0.1, 100.0),
     adaptive=True,
     substeps=1,
+    max_multiplicity=2**63 // int(2e5),
 )
 
 _RATE_COUNTERS = ("collision_rate", "collision_rate_deficit", "coalescence_rate")
+_BREAKUP_COUNTERS = _RATE_COUNTERS + ("breakup_rate", "breakup_rate_deficit")
+# the functions K5 evaluates in its body, by role: (attribute, ids)
+_K5_FUNCTIONS = (
+    ("collision_kernel", BREAKUP_KERNELS),
+    ("compute_coalescence_efficiency", (EC_CONST, EC_BERRY1967)),
+    ("compute_breakup_efficiency", (EB_CONST,)),
+    (
+        "compute_number_of_fragments",
+        (FRAG_ALWAYS_N, FRAG_CONSTANT_MASS, FRAG_EXPONENTIAL),
+    ),
+)
+_NOT_PORTED = (
+    "needs the JAX package's float64 breakup path (ops/breakup.py), which"
+    " is not ported (ROADMAP queue 1, 'Still to port' item 2)"
+)
 U01_PURPOSES = ("collision_shuffle", "collision_gamma")
 
 
@@ -71,19 +113,16 @@ class Collision:
         adaptive: bool = DEFAULTS.adaptive,
         dt_coal_range=DEFAULTS.dt_coal_range,
         enable_breakup: bool = True,
-        warn_overflows: bool = True,  # breakup only; accepted for API parity
+        warn_overflows: bool = True,  # accepted for API parity
     ):
         if not (substeps == 1 or adaptive is False):
             raise ValueError("substeps > 1 requires adaptive=False")
         if not dt_coal_range[0] > 0:
             raise ValueError("dt_coal_range must start above 0")
-        if enable_breakup:
-            raise NotImplementedError(
-                "collisional breakup is not ported yet: it comes with"
-                " slice 4 (kernel K5)"
-            )
         self.particulator = None
         self.enable = True
+        self.enable_breakup = enable_breakup
+        self.max_multiplicity = DEFAULTS.max_multiplicity
         self.collision_kernel = collision_kernel
         self.compute_coalescence_efficiency = coalescence_efficiency
         self.compute_breakup_efficiency = breakup_efficiency
@@ -98,7 +137,7 @@ class Collision:
         # while collisions are switched off (spin-up)
         self._sort_when_disabled = False
         # device values read back to steer the adaptive loop, and the
-        # substeps run (one K1 or K2 launch each on CUDA tensors)
+        # substeps run (one K1, K2 or K5 launch each on CUDA tensors)
         self.host_reads = 0
         self.substeps_run = 0
 
@@ -122,9 +161,14 @@ class Collision:
                 )
             for purpose in U01_PURPOSES:
                 builder.add_u01_purpose(purpose)
-        if self._uses_mirror() and getattr(
-            self.collision_kernel, "kernel_id", None
-        ) is None:
+        if self.enable_breakup:
+            self._check_breakup(builder)
+        if (
+            not self.enable_breakup
+            and self._uses_mirror()
+            and getattr(self.collision_kernel, "kernel_id", None)
+            not in MIRROR_KERNELS
+        ):
             raise NotImplementedError(
                 f"{type(self.collision_kernel).__name__} has no K1 body: the"
                 " mirror croupier's kernel evaluates Golovin, ConstantK and"
@@ -133,6 +177,10 @@ class Collision:
         if self.dt_coal_range[1] > self.particulator.dt:
             self.dt_coal_range = (self.dt_coal_range[0], self.particulator.dt)
         self.collision_kernel.register(builder)
+        if self.enable_breakup:
+            self.compute_coalescence_efficiency.register(builder)
+            self.compute_breakup_efficiency.register(builder)
+            self.compute_number_of_fragments.register(builder)
         n_cell = self.particulator.mesh.n_cell
         rate_dtype = self.particulator.mult_dtype
         builder.add_flag("collision_enable", self.enable)
@@ -144,6 +192,29 @@ class Collision:
         # precision sentinel: largest single-substep rate sum observed (sums
         # beyond 2^24 are no longer exact in float32)
         builder.add_counter("rate_step_sum_max", 1, torch.float32)
+        if self.enable_breakup:
+            builder.add_counter("breakup_rate", n_cell, torch.float64)
+            builder.add_counter("breakup_rate_deficit", n_cell, torch.float64)
+
+    def _check_breakup(self, builder):
+        """breakup only where the JAX package takes its Pallas kernel K5
+        (``pysdm_tpu/dynamics/collisions/collision.py:344-360``)"""
+        if builder.formulae.handle_all_breakups:
+            raise NotImplementedError(
+                f"Formulae(handle_all_breakups=True) {_NOT_PORTED}"
+            )
+        if not self._uses_mirror():
+            raise NotImplementedError(
+                "breakup on the sort croupier (many cells, u01 injection or"
+                f" croupier='sort') {_NOT_PORTED}"
+            )
+        for role, ids in _K5_FUNCTIONS:
+            function = getattr(self, role)
+            if getattr(function, "kernel_id", None) not in ids:
+                raise NotImplementedError(
+                    f"{type(function).__name__} has no body in K5, the"
+                    f" mirror breakup kernel; it {_NOT_PORTED}"
+                )
 
     def _draw_mirror(self, n_sd):
         """(K, seed) for one substep from the particulator's host-side
@@ -182,32 +253,55 @@ class Collision:
         formulae = particulator.formulae
         resolver = AttributeResolver(formulae)
         kernel = self.collision_kernel
-        kernel_id, params = kernel.kernel_id, kernel.cuda_params
         dt_range = self.dt_coal_range
         norm = coll_ops.mirror_normalization_factor(
             dt, particulator.mesh.dv, n_sd, ftype, particulator.device
         )
         fixed_scale = (norm * (1.0 / self.substeps)).to(torch.float32)
+        if self.enable_breakup:
+            functions = PairFunctions.of(*(
+                getattr(self, role) for role, _ in _K5_FUNCTIONS
+            ))
+            row_names = required_rows(functions)
+            counter_names = _BREAKUP_COUNTERS
+        else:
+            row_names = {"volume"}
+            counter_names = _RATE_COUNTERS
+        # every attribute a substep reads: the kernel's rows, and the
+        # collision kernel's own for the adaptive substep choice
+        attr_names = sorted(row_names | set(kernel.required_attributes))
 
-        def collide(particles, counters, K, seed, scale):
+        def collide(particles, counters, K, seed, scale, attrs):
             self.substeps_run += 1
-            volume = resolver.get(particles, "volume").to(torch.float32)
-            mult, ext, *rates = coalesce_mirror(
-                particles.multiplicity, particles.extensive, volume,
-                kernel_id, params, scale, K, seed,
-            )
-            for name, total in zip(_RATE_COUNTERS, rates):
+            rows = {name: attrs[name].to(torch.float32) for name in row_names}
+            if self.enable_breakup:
+                mult, ext, *rates = coalesce_breakup_mirror(
+                    particles.multiplicity, particles.extensive,
+                    particles.ext_names.index("signed water mass"), rows,
+                    functions, scale, K, seed, self.max_multiplicity,
+                )
+            else:
+                mult, ext, *rates = coalesce_mirror(
+                    particles.multiplicity, particles.extensive,
+                    rows["volume"], kernel.kernel_id, kernel.cuda_params,
+                    scale, K, seed,
+                )
+            for name, total in zip(counter_names, rates):
                 counters[name] = coll_ops.accumulate_counter(
                     counters[name], total, counters
                 )
             return particles.replace(multiplicity=mult, extensive=ext)
 
+        def attributes(particles):
+            return {name: resolver.get(particles, name) for name in attr_names}
+
         def adaptive_substep(particles, counters, dt_left):
             K, seed = self._draw_mirror(n_sd)
             pairing = MirrorPairing(K, n_sd, particles.alive)
-            volume = resolver.get(particles, "volume")
+            attrs = attributes(particles)
             kernel_values = kernel.pairwise(
-                formulae, {"volume": volume}, {"volume": pairing.partner(volume)}
+                formulae, attrs,
+                {name: pairing.partner(v) for name, v in attrs.items()},
             )
             prob = coll_ops.collision_probability(
                 kernel_values, particles.multiplicity, norm, pairing
@@ -224,7 +318,7 @@ class Collision:
                 pairing=pairing,
             )
             scale = (norm * (dt_todo / dt)).to(torch.float32)
-            return collide(particles, counters, K, seed, scale), dt_left
+            return collide(particles, counters, K, seed, scale, attrs), dt_left
 
         def step(sim):
             # spin-up gate (reference Arabas-2015 SpinUp flips enable)
@@ -235,7 +329,10 @@ class Collision:
             if not self.adaptive:
                 for _ in range(self.substeps):
                     K, seed = self._draw_mirror(n_sd)
-                    particles = collide(particles, counters, K, seed, fixed_scale)
+                    particles = collide(
+                        particles, counters, K, seed, fixed_scale,
+                        attributes(particles),
+                    )
             else:
                 particles = self._adaptive_loop(
                     particles, counters, 1, adaptive_substep
@@ -371,4 +468,32 @@ class Coalescence(Collision):
             adaptive=adaptive,
             dt_coal_range=dt_coal_range,
             enable_breakup=False,
+        )
+
+
+class Breakup(Collision):
+    def __init__(
+        self,
+        *,
+        collision_kernel,
+        fragmentation_function,
+        croupier=None,
+        optimized_random=False,
+        substeps: int = DEFAULTS.substeps,
+        adaptive: bool = DEFAULTS.adaptive,
+        dt_coal_range=DEFAULTS.dt_coal_range,
+        warn_overflows=True,
+    ):
+        super().__init__(
+            collision_kernel=collision_kernel,
+            coalescence_efficiency=ConstEc(Ec=0.0),
+            breakup_efficiency=ConstEb(Eb=1.0),
+            fragmentation_function=fragmentation_function,
+            croupier=croupier,
+            optimized_random=optimized_random,
+            substeps=substeps,
+            adaptive=adaptive,
+            dt_coal_range=dt_coal_range,
+            enable_breakup=True,
+            warn_overflows=warn_overflows,
         )

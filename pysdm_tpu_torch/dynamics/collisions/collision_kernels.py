@@ -3,17 +3,21 @@
 ``pysdm_tpu/dynamics/collisions/collision_kernels.py``.
 
 Each kernel has ``pairwise(formulae, attrs_a, attrs_b)`` over tensors. On
-the multi-cell path its values feed K2 as a row (``Geometric``); on the
-single-cell path the adaptive substep choice reads them, and the kernels
-with a ``kernel_id`` and two float parameters, ``cuda_params``, are
-evaluated again in K1's body.
+the multi-cell path its values feed K2 as a row; on the single-cell path
+the adaptive substep choice reads them, and the kernel is evaluated again
+in the body of K1 (``Golovin``, ``ConstantK``, ``Linear``) or K5 (those
+and ``Geometric``) from its ``kernel_id`` and two float parameters,
+``cuda_params``.
 """
 
 import numpy as np
 import torch
 from scipy import special
 
-from ...ops.cuda.collision import CONSTANT_K, GOLOVIN, LINEAR
+from ...ops.cuda.breakup import (  # noqa: F401 (the reference's name here)
+    berry_1967_linear_collection_efficiency,
+)
+from ...ops.cuda.collision import CONSTANT_K, GEOMETRIC, GOLOVIN, LINEAR
 
 
 class Golovin:
@@ -92,15 +96,21 @@ class Linear:
 class Geometric:
     """gravitational geometric-sweepout kernel
     (reference ``collision_kernels/geometric.py``):
-    K = E_c * pi * (r + r')^2 * |v_t - v_t'|. K1 has no body for it: it
-    runs on the multi-cell path, where K2 takes its values as a row."""
+    K = E_c * pi * (r + r')^2 * |v_t - v_t'|. K5 evaluates it in its body;
+    K1 has none (coalescence alone takes it on the sort croupier, where K2
+    reads its values as a row)."""
 
     required_attributes = ("radius", "relative fall velocity")
-    kernel_id = None
+    kernel_id = GEOMETRIC
 
     def __init__(self, collection_efficiency=1.0, x="volume"):
         self.collection_efficiency = collection_efficiency
         self.x = x
+
+    @property
+    def cuda_params(self):
+        # the JAX package multiplies pi * E_c in double before float32
+        return (np.pi * self.collection_efficiency, 0.0)
 
     def register(self, builder):
         builder.request_attribute("radius")
@@ -112,3 +122,4 @@ class Geometric:
             attrs_a["relative fall velocity"] - attrs_b["relative fall velocity"]
         )
         return np.pi * self.collection_efficiency * r_sum**2 * dv
+

@@ -41,9 +41,11 @@ import torch
 
 from . import _build
 
-# collision kernels the CUDA kernel evaluates in its body
-# (``dynamics/collisions/collision_kernels.py`` sets ``kernel_id``)
-GOLOVIN, CONSTANT_K, LINEAR = 0, 1, 2
+# collision kernels a CUDA kernel evaluates in its body
+# (``dynamics/collisions/collision_kernels.py`` sets ``kernel_id``): K1 the
+# first three, K5 (``ops/cuda/breakup.py``) all four
+GOLOVIN, CONSTANT_K, LINEAR, GEOMETRIC = 0, 1, 2, 3
+MIRROR_KERNELS = (GOLOVIN, CONSTANT_K, LINEAR)
 
 _BIG = float(2**31 - 128)
 _M32 = 0xFFFFFFFF
@@ -208,7 +210,7 @@ def library():
 
 
 def _launch(mult, ext, volume, kernel_id, params, scale, K, seed):
-    if kernel_id not in (GOLOVIN, CONSTANT_K, LINEAR):
+    if kernel_id not in MIRROR_KERNELS:
         raise ValueError(f"unknown collision kernel id {kernel_id}")
     lib = library()
     n = mult.shape[0]

@@ -10,6 +10,7 @@ import numpy as np
 import torch
 
 from .impl.attributes import AttributeResolver
+from .ops import moments as moments_ops
 
 
 class _AttributeView:
@@ -41,6 +42,7 @@ class Particulator:
         self.mesh = None
         self.dt = None
         self.dynamics = {}
+        self.products = {}
         self.n_steps = 0
         # {'particles', 'env', 'counters', 'flags', 'host'}
         self.sim_state = None
@@ -97,9 +99,43 @@ class Particulator:
         return np.asarray(self.environment[key])
 
     def reset_counter(self, name):
-        self.sim_state["counters"][name].zero_()
+        # a new tensor: on the CPU, arrays get_counter returned share the
+        # old one's memory
+        counters = self.sim_state["counters"]
+        counters[name] = torch.zeros_like(counters[name])
 
     def set_flag(self, name, value):
         if name not in self.sim_state["flags"]:
             raise KeyError(f"unknown flag: {name}")
         self.sim_state["flags"][name] = bool(value)
+
+    # -- reductions for products ----------------------------------------
+    def spectrum_moments(
+        self,
+        *,
+        attr_name,
+        rank,
+        attr_bins,
+        filter_attr=None,
+        weighting_attribute=None,
+        weighting_rank=0,
+    ):
+        """per-(bin, cell) moments (numpy), each (n_bins, n_cell)"""
+        attr = self.get_attribute(attr_name)
+        weight = (
+            self.get_attribute(weighting_attribute)
+            if weighting_attribute
+            else None
+        )
+        m0, mk = moments_ops.spectrum_moments(
+            multiplicity=self.particles.multiplicity,
+            attr_data=attr,
+            x_attr=self.get_attribute(filter_attr) if filter_attr else attr,
+            cell_id=self.particles.cell_id,
+            x_bins=torch.as_tensor(attr_bins, dtype=self.dtype, device=self.device),
+            rank=rank,
+            n_cell=self.mesh.n_cell,
+            weighting_attribute=weight,
+            weighting_rank=weighting_rank,
+        )
+        return m0.cpu().numpy(), mk.cpu().numpy()

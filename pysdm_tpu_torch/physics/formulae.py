@@ -1,8 +1,8 @@
 """Formulae engine (API parity with ``pysdm_tpu/physics/formulae.py``): one
 variant per physics family, bound to a frozen constants namespace.
 
-The port binds the families the box, parcel and 2D warm-rain slices read,
-with the JAX package's defaults (``pysdm_tpu/physics/formulae.py:86-118``). Choosing a
+The port binds the families the box, parcel, 2D warm-rain and breakup
+slices read, with the JAX package's defaults (``pysdm_tpu/physics/formulae.py:86-118``). Choosing a
 variant the port does not have yet raises ``NotImplementedError`` naming
 the ROADMAP item or slice that brings it; so does choosing any variant of a
 family the port does not bind yet.
@@ -26,7 +26,6 @@ from .constants import make_constants
 from .particle_shape_and_density import VARIANTS as SHAPE_VARIANTS
 from .trivia import Trivia
 
-_SLICE_4 = "slice 4 (breakup)"
 _SLICE_5 = "slice 5 (ice, chemistry, isotopes, optics)"
 _PHYSICS = "ROADMAP queue 1 item 3 (the rest of physics/)"
 
@@ -71,26 +70,28 @@ _FAMILIES = {
         misc_families.AIR_DYNAMIC_VISCOSITY_VARIANTS, "ZografosEtAl1987",
         _PHYSICS,
     ),
+    # the names only: fragment sampling lives in
+    # dynamics/collisions/breakup_fragmentations.py, as in the JAX package
+    "fragmentation_function": (
+        misc_families.FRAGMENTATION_FUNCTION_VARIANTS, "AlwaysN", None,
+    ),
 }
 
 # families of the JAX package that the port does not bind yet
 _LATER_FAMILIES = {
-    "fragmentation_function": _SLICE_4,
-    **{
-        name: _SLICE_5
-        for name in (
-            "latent_heat_sublimation", "diffusion_ice_kinetics",
-            "diffusion_ice_capacity", "freezing_temperature_spectrum",
-            "heterogeneous_ice_nucleation_rate",
-            "homogeneous_ice_nucleation_rate",
-            "isotope_equilibrium_fractionation_factors",
-            "isotope_kinetic_fractionation_factors",
-            "isotope_meteoric_water_line", "isotope_ratio_evolution",
-            "isotope_diffusivity_ratios", "isotope_relaxation_timescale",
-            "isotope_temperature_inference", "isotope_ventilation_ratio",
-            "optical_albedo", "optical_depth", "bulk_phase_partitioning",
-        )
-    },
+    name: _SLICE_5
+    for name in (
+        "latent_heat_sublimation", "diffusion_ice_kinetics",
+        "diffusion_ice_capacity", "freezing_temperature_spectrum",
+        "heterogeneous_ice_nucleation_rate",
+        "homogeneous_ice_nucleation_rate",
+        "isotope_equilibrium_fractionation_factors",
+        "isotope_kinetic_fractionation_factors",
+        "isotope_meteoric_water_line", "isotope_ratio_evolution",
+        "isotope_diffusivity_ratios", "isotope_relaxation_timescale",
+        "isotope_temperature_inference", "isotope_ventilation_ratio",
+        "optical_albedo", "optical_depth", "bulk_phase_partitioning",
+    )
 }
 
 

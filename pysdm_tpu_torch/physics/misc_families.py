@@ -154,3 +154,18 @@ DIFFUSION_COORDINATE_VARIANTS = {
     "WaterMass": WaterMass,
     "WaterMassLogarithm": WaterMassLogarithm,
 }
+
+
+class Null:
+    """placeholder variant for families with no physics selected"""
+
+
+# fragmentation_function: the names the JAX package accepts
+# (``pysdm_tpu/physics/formulae.py:133-144``), each bound to Null
+FRAGMENTATION_FUNCTION_VARIANTS = {
+    name: Null
+    for name in (
+        "Null", "AlwaysN", "ConstantMass", "Exponential", "ExponFrag",
+        "Feingold1988", "Gaussian", "LowList1982Nf", "SLAMS", "Straub2010Nf",
+    )
+}

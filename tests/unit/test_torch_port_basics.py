@@ -71,8 +71,8 @@ def test_formula_matches_jax_package(family, name, args):
 
 
 def test_unported_formula_family_names_its_slice():
-    with pytest.raises(NotImplementedError, match="slice 4"):
-        pysdm_tpu_torch.Formulae(fragmentation_function="Exponential")
+    with pytest.raises(NotImplementedError, match="slice 5"):
+        pysdm_tpu_torch.Formulae(latent_heat_sublimation="MurphyKoop2005")
     with pytest.raises(NotImplementedError, match="queue 1 item 3"):
         pysdm_tpu_torch.Formulae(terminal_velocity="RogersYau")
     with pytest.raises(NotImplementedError, match="queue 1 item 3"):
