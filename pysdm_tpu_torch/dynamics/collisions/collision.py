@@ -407,9 +407,11 @@ class Collision:
                 is_first,
             )
             # the coalescence rate equals the collision rate in a
-            # coalescence-only substep: one per-cell sum serves both
-            rate_c = coll_ops.per_cell_rates(rate, cell_start, n_cell)
-            deficit_c = coll_ops.per_cell_rates(deficit, cell_start, n_cell)
+            # coalescence-only substep: one per-cell sum serves both, and
+            # one scan both rows
+            rate_c, deficit_c = coll_ops.per_cell_rates(
+                torch.stack([rate, deficit]), cell_start, n_cell
+            )
             for name, total in zip(_RATE_COUNTERS, (rate_c, deficit_c, rate_c)):
                 counters[name] = coll_ops.accumulate_counter(
                     counters[name], total, counters

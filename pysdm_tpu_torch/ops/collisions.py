@@ -89,9 +89,9 @@ def scale_prob_adaptive(
 
 
 def per_cell_rates(values, cell_start, n_cell):
-    """float32 per-cell sums of a per-slot rate row (K4 under
-    ``sorted_segment_sum``); the JAX package sums rates in float32 whatever
-    the counter's dtype"""
+    """float32 per-cell sums of a per-slot rate row, or of ``(R, n)`` rate
+    rows in one scan (K4 under ``sorted_segment_sum``); the JAX package sums
+    rates in float32 whatever the counter's dtype"""
     return sorted_segment_sum(values.to(torch.float32), cell_start, n_cell)
 
 

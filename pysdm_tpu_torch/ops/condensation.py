@@ -68,6 +68,80 @@ def thermo(formulae, thd, qv, rhod, air_density, air_viscosity):
     return T, p, RH, lv, pvs, DTp, KTp, Sc
 
 
+def per_drop_minfun(formulae, *, x_old, dt_sub, kappa, rd3, T, RH, Fk, Fd):
+    """K3's residual of the implicit step, ``x_old - x + dt dx/dt(x)``, as
+    the kernel evaluates it: what does not depend on ``x`` is folded into
+    per-drop constants once, the radius enters as its inverse, one
+    ``(m / (rho_w 4 pi / 3)) ** (-1/3)``, and no division is left in the
+    log coordinate with the leading-terms Koehler curve (there dx/dt =
+    3 r dr/dt / r^2, the mass cancels). The supersaturation difference is
+    formed as (RH - 1) - A / r + B / r^3, without rounding RH_eq to an ulp
+    of 1 first. Only the variants K3 evaluates."""
+    f = formulae
+    const = f.constants
+    k3.check_variants(f, families=(
+        "diffusion_coordinate", "hygroscopicity", "drop_growth",
+        "surface_tension", "particle_shape_and_density",
+    ))
+    log_coordinate = f.diffusion_coordinate.variant == "WaterMassLogarithm"
+    leading_terms = f.hygroscopicity.variant == "KappaKoehlerLeadingTerms"
+    x_max = f.diffusion_coordinate.x_max()
+    inv_F = 1 / (Fd if f.drop_growth.variant == "Fick" else Fk + Fd)
+    # r^3 = mass * per_mass
+    per_mass = 1 / (const.rho_w * const.PI_4_3)
+    A = 2 * const.sgm_w / const.Rv / T / const.rho_w
+    if log_coordinate:
+        rate = dt_sub * 3 * inv_F
+    else:
+        rate = dt_sub * (4 * const.PI * const.rho_w) * inv_F
+    if leading_terms:
+        RH_minus_1 = RH - 1
+        B = kappa * rd3
+    else:
+        rd3_solute = rd3 * (1 - kappa)
+
+    def minfun(x_new):
+        r3 = (torch.exp(x_new) if log_coordinate else x_new) * per_mass
+        inv_r = r3 ** (-1 / 3)
+        inv_r2 = inv_r * inv_r
+        if leading_terms:
+            excess = RH_minus_1 - A * inv_r + B * (inv_r2 * inv_r)
+        else:
+            excess = RH - torch.exp(A * inv_r) * (r3 - rd3) / (r3 - rd3_solute)
+        growth = rate * excess * inv_r2 if log_coordinate else rate * excess / inv_r
+        return torch.where(x_new > x_max, x_old - x_new, x_old - x_new + growth)
+
+    return minfun
+
+
+def _interpolation_fraction(xa, fxa, xb, fxb, xc, fxc, tol, x_max):
+    """where in the bracket [xa, xb] Chandrupatla's method evaluates next,
+    as a fraction of the way from xa (the newest point) to xb; xc is the
+    point the newest one replaced. Inverse quadratic interpolation through
+    the three points where his criterion says it is safe, else the middle:
+    the criterion fails on a degenerate triple (the first round, xc = xa; a
+    round that did not move; equal values on the float32 plateau near the
+    root), so those rounds bisect. A bracket that reaches past ``x_max``,
+    where minfun continues on another branch, bisects too. The fraction
+    keeps 3/4 of the tolerance away from both ends: when the interpolation
+    points next to an end, the evaluation lands just across the root and
+    the bracket closes to within the tolerance at once."""
+    width = (xb - xa).abs()
+    xi = (xa - xb) / (xc - xb)
+    phi = (fxa - fxb) / (fxc - fxb)
+    t = (
+        fxa / (fxb - fxa) * (fxc / (fxb - fxc))
+        + (xc - xa) / (xb - xa) * (fxa / (fxc - fxa)) * (fxb / (fxc - fxb))
+    )
+    safe = (
+        (phi * phi < xi) & ((1 - phi) * (1 - phi) < 1 - xi)
+        & (torch.maximum(xa, xb) <= x_max) & torch.isfinite(t)
+    )
+    t = torch.where(safe, t, 0.5)
+    margin = torch.clamp(0.75 * tol / width, max=0.5)
+    return torch.minimum(torch.maximum(t, margin), 1 - margin)
+
+
 def drop_solve(
     formulae, settings, *, water_mass, vdry, kappa, f_org, reynolds,
     active_drop, dt_sub, T, p, RH, lv, pvs, DTp, KTp, Sc, per_drop,
@@ -78,13 +152,19 @@ def drop_solve(
 
     ``per_drop=False``: the JAX package's XLA formulation, bisecting every
     drop until none is outside ``rtol_x`` (at most ``bisect_iters``).
-    ``per_drop=True``: K3's rule, each drop stopping once its own bracket
-    satisfies hi - lo <= rtol_x |x_old| + 1e-30, at most
-    min(bisect_iters, 40) halvings (``pysdm_tpu/ops/pallas/condensation.py``
-    ``:218-237`` stops per 32768-drop block instead), or at a midpoint where
-    minfun is exactly 0. All three land within rtol_x |x_old| of the same
-    root, except where the JAX rules meet an exact zero: they take it for
-    "root above" and end at the bracket's upper end.
+    ``per_drop=True``: K3's plain twin. Its minfun is ``per_drop_minfun``;
+    each drop stops once its own bracket satisfies hi - lo <= rtol_x |x_old|
+    + 1e-30, after at most min(bisect_iters, 40) rounds
+    (``pysdm_tpu/ops/pallas/condensation.py`` ``:218-237`` stops per
+    32768-drop block instead), or at a point where minfun is exactly 0; a
+    round evaluates where Chandrupatla's method says
+    (``_interpolation_fraction``: inverse quadratic interpolation with a
+    bisection safeguard), not always the middle, and the result is the
+    middle of the last bracket. A bracket that reaches past x_max is cut
+    there first, or the drop fails as one with a non-finite root. All
+    three rules land within rtol_x |x_old| of the same root, except where
+    the JAX rules meet an exact zero: they take it for "root above" and
+    end at the bracket's upper end.
 
     ``stats``: a dict that, when given, receives ``minfun_evaluations``,
     the per-drop evaluations of minfun that the per-drop rule needs (what
@@ -94,7 +174,7 @@ def drop_solve(
     rtol_x, RH_rtol, max_iters, bisect_iters = settings
     x_max = f.diffusion_coordinate.x_max()
 
-    def minfun(x_new, x_old, dt_sub, kappa, f_org, rd3, T, RH, Fk, Fd):
+    def formula_minfun(x_new, x_old, dt_sub, kappa, f_org, rd3, T, RH, Fk, Fd):
         mass_new = f.diffusion_coordinate.mass(x_new)
         volume_new = f.particle_shape_and_density.mass_to_volume(mass_new)
         r_new = f.trivia.radius(volume_new)
@@ -135,9 +215,19 @@ def drop_solve(
     dx_old = torch.where(at_equilibrium, 0.0, dx_old)
     need_solve = active & (dx_old != 0)
 
-    margs = (x_old, dt_sub, kappa, f_org, rd3, T, RH, Fk, Fd)
+    if per_drop:
+        minfun = per_drop_minfun(
+            f, x_old=x_old, dt_sub=dt_sub, kappa=kappa, rd3=rd3, T=T, RH=RH,
+            Fk=Fk, Fd=Fd,
+        )
+    else:
+        margs = (x_old, dt_sub, kappa, f_org, rd3, T, RH, Fk, Fd)
+
+        def minfun(x_new):
+            return formula_minfun(x_new, *margs)
+
     a = x_old
-    fa = minfun(a, *margs)
+    fa = minfun(a)
 
     # f32-robust bracket (JAX ops/condensation.py:167-192): probe in the
     # direction of minfun's own sign, with the step floored at 8 ulps of
@@ -150,7 +240,7 @@ def drop_solve(
     converged_at_a = need_solve & (fa == 0)
 
     b = torch.maximum(x_insane, a + dx_step)
-    fb = minfun(b, *margs)
+    fb = minfun(b)
     evaluations = [2 * need_solve.sum()] if stats is not None else []
     # double the step until the sign changes; a bracketed drop stays
     # bracketed, so the loop ends once none is left
@@ -161,7 +251,7 @@ def drop_solve(
         if stats is not None:
             evaluations.append(not_bracketed.sum())
         b_try = torch.maximum(x_insane, a + dx_step * 2.0 ** (i + 1))
-        fb_try = minfun(b_try, *margs)
+        fb_try = minfun(b_try)
         b = torch.where(not_bracketed, b_try, b)
         fb = torch.where(not_bracketed, fb_try, fb)
     bracketed = (fa * fb < 0) | converged_at_a
@@ -174,21 +264,53 @@ def drop_solve(
 
     if per_drop:
         tol = rtol_x * x_old.abs() + 1e-30
+        # xa is the newest point (first the bracket's far end), xb the other
+        # end, xc the point xa replaced
+        xa, fxa, xb, fxb = b, fb, a, fa
+        # a bracket that reaches past x_max (minfun continues there on
+        # another branch, below zero) is cut at x_max: minfun above zero
+        # there means the root lies beyond the largest drop the coordinate
+        # holds, and the drop fails as one with a non-finite root does
+        # (halving such a bracket stays astride x_max for all its rounds
+        # and ends on its last middle, whose mass overflows or, where the
+        # far end is nearer, passes for a result)
+        astride = solving & (xa > x_max) & (xb < x_max)
+        beyond = torch.zeros_like(astride)
+        if bool(astride.any()):
+            if stats is not None:
+                evaluations.append(astride.sum())
+            x_top = torch.full_like(x_old, x_max)
+            f_top = minfun(x_top)
+            beyond = astride & (f_top > 0)
+            xa = torch.where(astride, x_top, xa)
+            fxa = torch.where(astride, f_top, fxa)
+            xb = torch.where(astride & (f_top == 0), x_top, xb)
+            solving = solving & ~beyond
+        xc, fxc = xa, fxa
         for _ in range(min(bisect_iters, 40)):
-            update = solving & ((hi - lo) - tol > 0)
+            update = solving & ((xb - xa).abs() - tol > 0)
             if not bool(update.any()):
                 break
             if stats is not None:
                 evaluations.append(update.sum())
-            mid = 0.5 * (lo + hi)
-            fmid = minfun(mid, *margs)
-            go_lo = flo * fmid < 0
+            t = _interpolation_fraction(xa, fxa, xb, fxb, xc, fxc, tol, x_max)
+            xt = xa + t * (xb - xa)
+            ft = minfun(xt)
+            # xt replaces the end whose minfun has its sign; if that is xb,
+            # the old xa becomes the other end
+            same = (ft > 0) == (fxa > 0)
             # an exact zero is the root: the global rule below takes it for
             # "root above" and walks lo up to hi (ROADMAP queue 3)
-            at_root = update & (fmid == 0)
-            hi = torch.where(update & go_lo | at_root, mid, hi)
-            lo = torch.where(update & ~go_lo, mid, lo)
-            flo = torch.where(update & ~go_lo, fmid, flo)
+            at_root = ft == 0
+            xc = torch.where(update, torch.where(same, xa, xb), xc)
+            fxc = torch.where(update, torch.where(same, fxa, fxb), fxc)
+            xb = torch.where(update & (~same | at_root),
+                             torch.where(at_root, xt, xa), xb)
+            fxb = torch.where(update & ~same, fxa, fxb)
+            xa = torch.where(update, xt, xa)
+            fxa = torch.where(update, ft, fxa)
+        lo = torch.where(beyond, torch.inf, xa)
+        hi, solving = xb, solving | beyond
     else:
         scale = torch.where(x_old != 0, x_old, 1.0).abs()
         for _ in range(bisect_iters):
@@ -198,7 +320,7 @@ def drop_solve(
             if not bool(unconverged.any()):
                 break
             mid = 0.5 * (lo + hi)
-            fmid = minfun(mid, *margs)
+            fmid = minfun(mid)
             go_lo = flo * fmid < 0
             hi = torch.where(go_lo, mid, hi)
             lo = torch.where(go_lo, lo, mid)
@@ -251,13 +373,26 @@ class CondensationSolver:
         self.n_substeps_min = max(1, int(-(-dt // dt_range[1])))  # ceil
         self.substep_solves = 0
         self.host_reads = 0
+        self._zeros = {}
 
     def _percell_sum(self, values, cell_start):
-        """per-cell sums over cell-sorted drops; one cell is one plain sum
-        (JAX ``_percell_sum``)"""
+        """per-cell sums over cell-sorted drops, of one row ``(n,)`` or of
+        rows ``(R, n)`` at once (one prefix sum, K4 on CUDA tensors, for
+        all of them; each row's sums equal its own call's bit for bit);
+        one cell is one plain sum per row (JAX ``_percell_sum``)"""
         if self.n_cell == 1:
-            return values.sum()[None]
+            if values.dim() == 1:
+                return values.sum()[None]
+            return torch.stack([row.sum() for row in values])[:, None]
         return sorted_segment_sum(values, cell_start, self.n_cell)
+
+    def _zero(self, like):
+        """a 0-d zero of ``like``'s dtype on its device (``torch.where``
+        writes into ``out=`` only between tensors)"""
+        key = (like.dtype, like.device)
+        if key not in self._zeros:
+            self._zeros[key] = like.new_zeros(())
+        return self._zeros[key]
 
     def _read(self, tensor):
         """a device value the host branches on (counted)"""
@@ -306,9 +441,14 @@ class CondensationSolver:
                 air_density, air_viscosity,
             )
         mult_f = multiplicity.to(water_mass.dtype)
-        ml_new = self._percell_sum(
-            torch.where(mass_new > 0, mult_f * mass_new, 0.0), cell_start
-        )
+        # the liquid and the failed solves depend on the solve alone: both
+        # rows go through one prefix sum (the 0/1 failures sum exactly in
+        # any float type)
+        zero = self._zero(water_mass)
+        rows = water_mass.new_empty((2,) + water_mass.shape)
+        torch.where(mass_new > 0, mult_f * mass_new, zero, out=rows[0])
+        rows[1] = ~success_drop
+        ml_new, fails = self._percell_sum(rows, cell_start)
         dml_dt = (ml_new - ml_old) / torch.where(dt_sub > 0, dt_sub, 1.0)
         dqv_dt_corr = -dml_dt / m_d
         dthd_dt_corr = f.state_variable_triplet.dthd_dt(
@@ -319,9 +459,6 @@ class CondensationSolver:
         qv = torch.where(act, qv + dt_sub * (dqv_dt_pred / 2 + dqv_dt_corr), qv)
         rhod = torch.where(act, rhod + dt_sub * drhod_dt / 2, rhod)
 
-        fails = self._percell_sum(
-            (~success_drop).to(torch.float32), cell_start
-        )
         # a non-finite thd/qv (the trapezoidal correction on a numerical
         # cliff) rolls the cell back to its substep-entry state, in full:
         # its drops keep their substep-entry masses too
@@ -346,15 +483,17 @@ class CondensationSolver:
             # of drops crossing the critical mass in this substep
             mass_cr = f.particle_shape_and_density.volume_to_mass(attrs["v_cr"])
             weight = torch.where(committed, mult_f, 0.0)
-
-            def count(crossed):
-                return self._percell_sum(
-                    torch.where(crossed, weight, 0.0), cell_start
-                )
-
-            n_act = count((mass_new > mass_cr) & (mass_cr > water_mass))
-            n_deact = count((mass_new < mass_cr) & (mass_cr < water_mass))
-            n_act_growing = count((mass_new > mass_cr) & (mass_new > water_mass))
+            # the three counts wait for ``finite_cell``, so they form a
+            # second group of rows under one prefix sum
+            crossings = (
+                (mass_new > mass_cr) & (mass_cr > water_mass),
+                (mass_new < mass_cr) & (mass_cr < water_mass),
+                (mass_new > mass_cr) & (mass_new > water_mass),
+            )
+            rows = water_mass.new_empty((3,) + water_mass.shape)
+            for row, crossed in zip(rows, crossings):
+                torch.where(crossed, weight, zero, out=row)
+            n_act, n_deact, n_act_growing = self._percell_sum(rows, cell_start)
             n_ripen = torch.where(n_deact > 0, n_act_growing, zeros_cell)
             events = (n_act, n_deact, n_ripen)
         ml_out = torch.where(act & finite_cell, ml_new, ml_old)
@@ -367,11 +506,13 @@ class CondensationSolver:
             torch.where(water_mass > 0, mult_f * water_mass, 0.0), cell_start
         )
 
-    def run_substeps(self, *, attrs, multiplicity, n_substeps, thd, **kwargs):
+    def run_substeps(
+        self, *, attrs, multiplicity, n_substeps, thd, ml_old, **kwargs
+    ):
         """advance every cell through its own n_substeps (JAX lockstep loop,
-        spent cells masked; the trip count is read on the host)"""
+        spent cells masked; the trip count is read on the host); ``ml_old``
+        is the liquid per cell at the step's entry"""
         dt_sub_cell = self.dt / n_substeps.to(thd.dtype)
-        ml_old = self._liquid(attrs, multiplicity, kwargs["cell_start"])
         water_mass = attrs["water_mass"]
         qv, rhod = kwargs.pop("qv"), kwargs.pop("rhod")
         RH_max = torch.zeros_like(thd)
@@ -396,11 +537,12 @@ class CondensationSolver:
 
     def step_fake(self, *, attrs, multiplicity, n_substeps, thd, cell_mask, **kwargs):
         """one substep of length dt/n_substeps without committing attributes
-        (reference ``make_step_fake``); returns (thd_new, success)"""
+        (reference ``make_step_fake``); returns (thd_new, success).
+        ``kwargs["ml_old"]``: the liquid per cell of the uncommitted state,
+        the same for every fake substep of a step"""
         _, thd_new, _, _, _, _, success, _ = self.substep(
             attrs=attrs, multiplicity=multiplicity, cell_active=cell_mask,
             dt_sub_cell=self.dt / n_substeps.to(thd.dtype), thd=thd,
-            ml_old=self._liquid(attrs, multiplicity, kwargs["cell_start"]),
             fake=True, **kwargs,
         )
         return thd_new, success
@@ -486,6 +628,9 @@ class CondensationSolver:
             drhod_dt=(prhod - rhod) / dt, m_d=m_d,
             air_density=air_density, air_viscosity=air_viscosity,
         )
+        # the liquid at the step's entry: every fake substep and the first
+        # real one start from it
+        kwargs["ml_old"] = self._liquid(attrs, multiplicity, cell_start)
         if self.adaptive:
             n_substeps = self.adapt_substeps(
                 n_substeps_prev=n_substeps, thd=thd,

@@ -21,11 +21,19 @@ BUILD_DIR = _PACKAGE.parent / "build" / "pysdm_tpu_torch"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3",
-    # no contraction of a*b+c into FMA: the kernels mirror the TPU kernels'
-    # separately rounded float32 operations
-    "-fmad=false",
     "-shared", "-Xcompiler", "-fPIC",
 )
+# contraction of a*b+c into FMA, per source. Off by default: the collision
+# kernels and the scan mirror separately rounded float32 operations bit for
+# bit. On for the condensation solve, which is held to its twin by a
+# tolerance: an FMA is one instruction for two and rounds once.
+FMAD_DEFAULT = ("-fmad=false",)
+SOURCE_FLAGS = {"condensation": ("-fmad=true",)}
+
+
+def flags(name):
+    """the nvcc flags of ``csrc/<name>.cu``"""
+    return NVCC_FLAGS + SOURCE_FLAGS.get(name, FMAD_DEFAULT)
 
 
 def nvcc_path():
@@ -50,7 +58,7 @@ def library_path(name):
     source = CSRC / f"{name}.cu"
     headers = b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
     digest = hashlib.sha256(
-        source.read_bytes() + headers + " ".join(NVCC_FLAGS).encode()
+        source.read_bytes() + headers + " ".join(flags(name)).encode()
     ).hexdigest()[:16]
     return source, BUILD_DIR / f"lib{name}_{digest}.so"
 
@@ -64,7 +72,7 @@ def load(name):
         # build under a private name and rename: concurrent builders never
         # load a half-written library
         tmp = target.with_name(f"{target.name}.{os.getpid()}.tmp")
-        cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(source)]
+        cmd = [nvcc_path(), *flags(name), "-o", str(tmp), str(source)]
         proc = subprocess.run(cmd, capture_output=True, text=True)
         if proc.returncode != 0:
             raise RuntimeError(

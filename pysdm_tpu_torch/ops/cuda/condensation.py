@@ -6,21 +6,22 @@ Replaces the TPU kernel ``fused_masses_new``, built by
 ``make_fused_masses_new`` (``pysdm_tpu/ops/pallas/condensation.py:37``,
 ``:255``, ``pallas_call`` at ``:299``). Per drop: the thermodynamic state of
 its cell, Koehler, Fuchs-Sutugin, Fk and Fd, the sign-directed bracket and
-the bisection, returning (mass_new, success). The per-cell rows are read
-through the drop's cell id; the drop is active when its cell is, its
-multiplicity is above zero and its water mass is positive. Each drop stops
-bisecting when its own bracket is within rtol_x |x_old| + 1e-30 or minfun
-is exactly 0 at the midpoint (the TPU kernel stops per 32768-drop block,
-the JAX XLA path when all drops have converged, and both walk past an exact
-zero to the bracket's upper end).
+a bracketing root search (Chandrupatla's inverse quadratic interpolation
+with a bisection safeguard), returning (mass_new, success). The per-cell
+rows are read through the drop's cell id; the drop is active when its cell
+is, its multiplicity is above zero and its water mass is positive. Each
+drop stops when its own bracket is within rtol_x |x_old| + 1e-30 or minfun
+is exactly 0 at the point evaluated (the TPU kernel bisects and stops per
+32768-drop block, the JAX XLA path when all drops have converged, and both
+walk past an exact zero to the bracket's upper end).
 
 The kernel evaluates one variant set: the parcel slice's formula variants
 with ventilation ``Neglect`` (``SUPPORTED``). On a CUDA tensor any other set
 raises ``NotImplementedError``; nothing falls back to the twin.
 
-On the card the kernel is bound by its arithmetic (up to ~58 minfun
-evaluations per drop, each an expf, a powf and ~10 divisions), not by its
-~29 bytes per drop; the source's note has the measurement.
+On the card the kernel is bound by its arithmetic (a serial chain of minfun
+evaluations per drop), not by its ~29 bytes per drop; the source's note says
+what the design does about the cost and the number of the evaluations.
 """
 
 import ctypes
@@ -46,10 +47,11 @@ SUPPORTED = {
 }
 
 
-def check_variants(formulae):
-    """raises ``NotImplementedError`` naming the first variant K3 does not
-    evaluate"""
-    for family, names in SUPPORTED.items():
+def check_variants(formulae, families=tuple(SUPPORTED)):
+    """raises ``NotImplementedError`` naming the first variant, among
+    ``families``, that K3 does not evaluate"""
+    for family in families:
+        names = SUPPORTED[family]
         variant = getattr(formulae, family).variant
         if variant not in names:
             raise NotImplementedError(
@@ -71,7 +73,7 @@ class K3Params(ctypes.Structure):
             "D0", "K0", "rho_w", "pi_4_3", "one_third", "koehler_A",
             "lambdaK_coef", "two_Rd", "two_Rv", "mac_a", "mac_b", "hac_a",
             "hac_b", "rho_w_Rv", "four_pi_rho_w", "x_max", "RH_rtol",
-            "rtol_x",
+            "rtol_x", "per_mass",
         )),
         *((name, ctypes.c_int) for name in (
             "max_iters", "bisect_cap", "coordinate", "hygroscopicity",
@@ -100,6 +102,7 @@ def kernel_params(formulae, settings):
         rho_w_Rv=c.rho_w * c.Rv, four_pi_rho_w=4 * c.PI * c.rho_w,
         x_max=formulae.diffusion_coordinate.x_max(),
         RH_rtol=RH_rtol, rtol_x=rtol_x,
+        per_mass=1 / (c.rho_w * c.PI_4_3),
         max_iters=max_iters, bisect_cap=min(bisect_iters, 40),
         coordinate=SUPPORTED["diffusion_coordinate"].index(
             formulae.diffusion_coordinate.variant

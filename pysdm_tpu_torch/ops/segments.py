@@ -5,7 +5,8 @@ One sort of the particles by the packed key (cell, random bits) gives both
 the cell segments and a uniform random order within each cell (the sort
 croupier); dead particles (multiplicity 0) go to a trailing bucket, cell
 ``n_cell``. Per-cell sums over sorted slots are differences of one prefix
-sum (K4, ``ops/cuda/scan.py``), with no scatter-add.
+sum (K4, ``ops/cuda/scan.py``), with no scatter-add; rows that share their
+segments are summed together, in one scan.
 
 The key is an int64 ``(cell << nbits) | bits``: it orders as the JAX
 package's u32 key does (``:36-59``, and as its two-key sort where fewer
@@ -126,11 +127,16 @@ def cell_start_of_sorted(cell_id, n_cell):
 def sorted_segment_sum(values, cell_start, n_cell):
     """per-cell sums over cell-sorted slots as differences of one inclusive
     prefix sum (K4 on CUDA tensors): sum_i = c[start[i+1]] - c[start[i]].
-    Exact for integers; for floats the error is that of a prefix over the
-    whole array, ~eps |prefix| per cell."""
+    ``values`` is one row ``(n,)``, giving ``(n_cell,)``, or rows ``(R, n)``
+    that share ``cell_start``, giving ``(R, n_cell)`` from one scan and one
+    pair of gathers, each row equal to its own call bit for bit. Exact for
+    integers; for floats the error is that of a prefix over the whole
+    array, ~eps |prefix| per cell."""
     c = cumsum(values)
-    cpad = torch.cat([c.new_zeros(1), c])
-    return cpad[cell_start[1 : n_cell + 1]] - cpad[cell_start[:n_cell]]
+    cpad = torch.cat([c.new_zeros(c.shape[:-1] + (1,)), c], dim=-1)
+    return (
+        cpad[..., cell_start[1 : n_cell + 1]] - cpad[..., cell_start[:n_cell]]
+    )
 
 
 def sorted_segment_min(values, sorted_cell, n_cell):

@@ -22,6 +22,12 @@ Tolerances:
   end of the bracket (``test_exact_zero_of_minfun_is_the_root``);
 - rtol_x = 1e-2: log-mass within 2 rtol_x |x_old|, since the twin stops each
   drop on its own bracket and the TPU kernel a whole block at once.
+
+Then the twin's root search (``ops/condensation.py``
+``drop_solve(per_drop=True)``: Chandrupatla's interpolation with a
+bisection safeguard, the bracket cut at x_max) where the safeguard and the
+cut have to act, against the float64 root and the TPU kernel, and the one
+case in which the two report different outcomes (a root beyond x_max).
 """
 
 import functools
@@ -42,6 +48,7 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.dirname(
 
 import chip_smoke  # noqa: E402
 import pysdm_tpu_torch  # noqa: E402
+from pysdm_tpu_torch.ops import condensation as cond_ops  # noqa: E402
 from pysdm_tpu_torch.ops.condensation import (  # noqa: E402
     DropSolveSettings,
     drop_solve,
@@ -73,13 +80,9 @@ def _inputs():
     )
 
 
-@functools.cache
-def _both(rtol_x):
-    rows = _inputs()
-    twin = run_k3(
-        pysdm_tpu_torch.Formulae(seed=44),
-        DropSolveSettings(rtol_x, RH_RTOL, MAX_ITERS, BISECT_ITERS), rows,
-    )
+def _pallas(rows, rtol_x):
+    """the TPU kernel in interpret mode on the rows, their cell rows
+    expanded to drops; numpy (mass_new, success)"""
     fused = make_fused_masses_new(
         pysdm_tpu.Formulae(seed=44), RH_rtol=RH_RTOL, max_iters=MAX_ITERS,
         bisect_iters=BISECT_ITERS, rtol_x=rtol_x,
@@ -96,7 +99,17 @@ def _both(rtol_x):
         )),
         interpret=True,
     )
-    return twin, (np.asarray(mass), np.asarray(success))
+    return np.asarray(mass), np.asarray(success)
+
+
+@functools.cache
+def _both(rtol_x):
+    rows = _inputs()
+    twin = run_k3(
+        pysdm_tpu_torch.Formulae(seed=44),
+        DropSolveSettings(rtol_x, RH_RTOL, MAX_ITERS, BISECT_ITERS), rows,
+    )
+    return twin, _pallas(rows, rtol_x)
 
 
 @functools.cache
@@ -245,3 +258,140 @@ def test_exact_zero_of_minfun_is_the_root(per_drop):
         assert error.max() < 1e-5
     else:
         assert error.max() > 1e-4
+
+
+def _twin(rows, settings, stats=None):
+    """``masses_new_reference`` on CPU tensors of the rows, in their dtype"""
+    return chip_smoke.k3_call(
+        lambda *a: k3.masses_new_reference(*a, stats=stats),
+        FORMULAE, settings, rows, "cpu",
+    )
+
+
+def _float64(rows):
+    return {
+        k: v.astype(np.float64) if v.dtype == np.float32 else v
+        for k, v in rows.items()
+    }
+
+
+def _cell_4(dt_sub):
+    """the drops of ``chip_smoke.k3_rows``' supersaturated cell 4 under a
+    substep of ``dt_sub`` seconds"""
+    rows = chip_smoke.k3_rows(4096)
+    in_cell = rows["cell_id"] == 4
+    only = {k: v[in_cell] if v.shape[0] == 4096 else v for k, v in rows.items()}
+    only["dt_sub"] = np.full(5, dt_sub, np.float32)
+    return only
+
+
+def test_interpolation_needs_a_third_of_the_halvings_evaluations():
+    """the growing drops of ``chip_smoke.k3_rows`` at rtol_x = 1e-6: two
+    evaluations for the bracket and ~4 rounds, where halving a bracket of
+    width |dx_old| down to 1e-6 |x_old| takes ~16"""
+    rows = chip_smoke.k3_rows(4096)
+    growing = rows["cell_id"] == 0
+    rows = {
+        k: v[growing] if v.shape[0] == 4096 else v for k, v in rows.items()
+    }
+    stats = {}
+    mass, success = _twin(
+        rows, DropSolveSettings(*chip_smoke.K3_SETTINGS), stats
+    )
+    assert success.all() and (mass > rows["water_mass"]).all()
+    assert stats["minfun_evaluations"] < 8 * growing.sum()
+
+
+def test_safeguard_bisects_where_interpolation_is_unsafe(monkeypatch):
+    """on the float32 plateau near the root (rtol_x = 0: every drop runs to
+    the round cap, minfun moving in ulps of x_old) Chandrupatla's criterion
+    must send rounds to bisection: the fractions handed out include exact
+    halves after the first round, every one lies inside the bracket, and
+    the result stays within 1e-5 (log-mass) of the float64 root"""
+    fractions = []
+    real = cond_ops._interpolation_fraction
+
+    def recording(*args):
+        t = real(*args)
+        fractions.append(t)
+        return t
+
+    monkeypatch.setattr(cond_ops, "_interpolation_fraction", recording)
+    rows = chip_smoke.k3_rows(4096)
+    settings = DropSolveSettings(0.0, *chip_smoke.K3_SETTINGS[1:])
+    mass, _ = _twin(rows, settings)
+    f32_rounds = len(fractions)
+    assert f32_rounds == 40
+    assert (fractions[0] == 0.5).all()  # no third point yet
+    late = torch.stack(fractions[20:f32_rounds])
+    assert (late == 0.5).any() and ((late >= 0) & (late <= 1)).all()
+    monkeypatch.setattr(cond_ops, "_interpolation_fraction", real)
+    root, _ = _twin(_float64(rows), settings)
+    moved = (mass != rows["water_mass"]) & (root > 0)
+    error = np.abs(np.log(mass[moved].astype(np.float64)) - np.log(root[moved]))
+    assert error.max() < 1e-5
+
+
+def test_a_bracket_past_x_max_is_cut_there():
+    """dt_sub = 1e30 under supersaturation sends the bracket's far end to
+    ~1e28 in the log coordinate, past x_max = 0 (a 1 kg drop). One
+    evaluation at x_max (minfun above zero there: the root lies beyond)
+    ends the drop as a non-finite root ends: mass kept, success false,
+    three evaluations in all"""
+    only = _cell_4(1e30)
+    stats = {}
+    mass, success = _twin(
+        only, DropSolveSettings(*chip_smoke.K3_SETTINGS), stats
+    )
+    assert not success.any()
+    np.testing.assert_array_equal(mass, only["water_mass"])
+    assert stats["minfun_evaluations"] == 3 * mass.size
+
+
+@pytest.mark.parametrize("rtol_x", (0.0, 1e-2))
+def test_root_below_x_max_in_a_bracket_past_it_matches_pallas_kernel(rtol_x):
+    """a 3e5 s step: the explicit estimate overshoots x_max while the
+    implicit root stays below it (a drop of ~2-4 mg). The twin cuts the
+    bracket at x_max (minfun below zero there) and searches inside it; the
+    TPU kernel halves the whole bracket. Same success; at rtol_x = 0 both
+    on the float64 root (the twin within 1e-5, as in
+    ``test_twin_matches_pallas_kernel``), at 1e-2 within 2 rtol_x |x_old|
+    of each other"""
+    only = _cell_4(3e5)
+    settings = DropSolveSettings(rtol_x, RH_RTOL, MAX_ITERS, BISECT_ITERS)
+    mass_t, succ_t = _twin(only, settings)
+    mass_j, succ_j = _pallas(only, rtol_x)
+    assert succ_t.all() and succ_j.all()
+    assert (mass_t > 1e3 * only["water_mass"]).all() and (mass_t < 1.0).all()
+    if rtol_x == 0:
+        root = _twin(_float64(only), settings)[0]
+        np.testing.assert_allclose(mass_t, root, rtol=1e-5)
+        # 40 halvings of a bracket that reaches far past x_max leave the TPU
+        # kernel up to 1.6e-5 from the root
+        np.testing.assert_allclose(mass_j, root, rtol=2e-5)
+    else:
+        x_old = np.abs(np.log(only["water_mass"].astype(np.float64)))
+        dx = np.abs(
+            np.log(mass_t.astype(np.float64)) - np.log(mass_j.astype(np.float64))
+        )
+        assert (dx <= 2 * rtol_x * x_old).all()
+
+
+def test_a_root_beyond_x_max_fails_where_the_pallas_kernel_reports_success():
+    """where the port departs from the JAX package (ROADMAP queue 3). A
+    1e12 s step puts the root beyond x_max and the bracket's far end at
+    ~1e10, where exp overflows. The TPU kernel's 40 halvings end astride
+    x_max in a bracket still ~0.01 to tens wide and it reports success with
+    whatever mass the middle gives, here above a tonne for some drops (at
+    1e30 s the middle overflows and it fails, as the non_finite_root case
+    shows). K3 and its twin fail at every such step: the mass is kept, the
+    adaptive substepping sees the failure"""
+    only = _cell_4(1e12)
+    settings = DropSolveSettings(1e-6, RH_RTOL, MAX_ITERS, BISECT_ITERS)
+    mass_t, succ_t = _twin(only, settings)
+    assert not succ_t.any()
+    np.testing.assert_array_equal(mass_t, only["water_mass"])
+    assert not _twin(_float64(only), settings)[1].any()
+    mass_j, succ_j = _pallas(only, 1e-6)
+    assert succ_j.all()
+    assert (mass_j > 1e3 * only["water_mass"]).all() and mass_j.max() > 1e3

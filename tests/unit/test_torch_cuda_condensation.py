@@ -75,6 +75,84 @@ def test_kernel_matches_twin_on_card(device, variants, rtol_x):
         chip_smoke.check_k3_regimes(rows, *kernel)
 
 
+@pytest.mark.parametrize("name, source_cell, active", (
+    ("every_drop_growing", 0, True),
+    ("every_drop_haze_at_equilibrium", 1, True),
+    ("every_cell_inactive", 0, False),
+    ("every_bracket_past_x_max", 4, True),
+))
+def test_uniform_rows_match_twin_on_card(device, name, source_cell, active):
+    """the row sets ``chip_smoke.py`` times in phase 5, and one whose every
+    bracket is cut at x_max: kernel against twin at the bounds above; an
+    inactive drop keeps its mass bit for bit and counts as solved"""
+    formulae = Formulae(seed=44)
+    settings = DropSolveSettings(*chip_smoke.K3_SETTINGS)
+    rows = chip_smoke.k3_uniform_rows(
+        chip_smoke.settle_haze(formulae, chip_smoke.k3_rows(N), device),
+        source_cell, active,
+    )
+    kernel = chip_smoke.k3_call(k3.masses_new, formulae, settings, rows, device)
+    twin = chip_smoke.k3_call(
+        k3.masses_new_reference, formulae, settings, rows, device
+    )
+    chip_smoke.compare_k3(rows, kernel, twin, settings.rtol_x)
+    mass, success = kernel
+    if not active:
+        np.testing.assert_array_equal(mass, rows["water_mass"])
+        assert success.all()
+    elif source_cell == 4:
+        np.testing.assert_array_equal(mass, rows["water_mass"])
+        assert not success.any()
+    else:
+        assert success.all()
+
+
+def test_drops_in_a_random_order_take_the_per_thread_cell_state(device):
+    """a block whose drops do not lie within eight cells of its first drop's
+    computes no shared cell state: each thread computes its cell's. Every
+    drop must get the bits it gets among its sorted neighbours, and the
+    twin's result on the permuted rows at the bounds above"""
+    formulae = Formulae(seed=44)
+    settings = DropSolveSettings(*chip_smoke.K3_SETTINGS)
+    rows = chip_smoke.settle_haze(formulae, chip_smoke.k3_rows(N), device)
+    permuted, order = chip_smoke.k3_permuted_rows(rows)
+    assert (np.diff(permuted["cell_id"][:256]) < 0).any()
+    kernel = chip_smoke.k3_call(k3.masses_new, formulae, settings, rows, device)
+    shuffled = chip_smoke.k3_call(
+        k3.masses_new, formulae, settings, permuted, device
+    )
+    for got, want in zip(shuffled, kernel):
+        np.testing.assert_array_equal(got, want[order])
+    twin = chip_smoke.k3_call(
+        k3.masses_new_reference, formulae, settings, permuted, device
+    )
+    chip_smoke.compare_k3(permuted, shuffled, twin, settings.rtol_x)
+    chip_smoke.check_k3_regimes(permuted, *shuffled)
+
+
+@pytest.mark.parametrize("n_cell", (5, 100, 625, 4096))
+def test_sorted_cells_of_any_size_match_twin_on_card(device, n_cell):
+    """drops sorted into ``n_cell`` cells: at 100 a block's drops span two
+    or three cells (shared state; the last block's eight cells reach past
+    the last cell), at 625 about ten and at 4096 sixty-four (more than the
+    eight a block shares: per-thread state)"""
+    formulae = Formulae(seed=44)
+    settings = DropSolveSettings(*chip_smoke.K3_SETTINGS)
+    rows = chip_smoke.k3_regrouped_rows(
+        chip_smoke.settle_haze(formulae, chip_smoke.k3_rows(N), device), n_cell
+    )
+    kernel = chip_smoke.k3_call(k3.masses_new, formulae, settings, rows, device)
+    twin = chip_smoke.k3_call(
+        k3.masses_new_reference, formulae, settings, rows, device
+    )
+    chip_smoke.compare_k3(rows, kernel, twin, settings.rtol_x)
+    mass, success = kernel
+    state = rows["cell_id"] % 5
+    assert success[state == 0].all() and not success[state == 4].any()
+    assert (mass[state == 0] > rows["water_mass"][state == 0]).all()
+    np.testing.assert_array_equal(mass[state == 2], rows["water_mass"][state == 2])
+
+
 def test_wrapper_raises_instead_of_falling_back(device):
     formulae = Formulae(seed=44)
     settings = DropSolveSettings(*chip_smoke.K3_SETTINGS)

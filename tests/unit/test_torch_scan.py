@@ -65,6 +65,89 @@ def test_sorted_segment_sum_matches_jax_package(dtype):
         np.testing.assert_allclose(got, expected, rtol=0, atol=atol)
 
 
+@pytest.mark.parametrize("n", SIZES)
+@pytest.mark.parametrize("dtype", (np.float32, np.int32))
+def test_rows_match_pallas_kernel_row_for_row(n, dtype):
+    """an (R, n) tensor is scanned along its rows: each row against the TPU
+    kernel on that row (int32 exactly, float32 to the bound above), and
+    equal to the row's own 1D call bit for bit"""
+    rng = np.random.default_rng(n + 1)
+    x = (
+        rng.uniform(size=(3, n)) if dtype == np.float32
+        else rng.integers(-1000, 1000, (3, n))
+    ).astype(dtype)
+    got = scan.cumsum(torch.from_numpy(x))
+    assert got.shape == (3, n) and got.numpy().dtype == dtype
+    for r in range(3):
+        expected = np.asarray(_cumsum_pallas(jnp.asarray(x[r]), interpret=True))
+        if dtype == np.int32:
+            np.testing.assert_array_equal(got[r].numpy(), expected)
+        else:
+            np.testing.assert_allclose(got[r].numpy(), expected, rtol=2e-6)
+        assert torch.equal(got[r], scan.cumsum(torch.from_numpy(x[r])))
+
+
+@pytest.mark.parametrize("dtype", (np.float64, np.int64, np.float32))
+def test_sorted_segment_sum_of_rows_matches_single_calls_and_jax(dtype):
+    rng = np.random.default_rng(8)
+    n, n_cell, n_rows = 5000, 64, 4
+    cell = np.sort(rng.integers(0, n_cell + 1, n)).astype(np.int32)
+    cell_start = np.searchsorted(cell, np.arange(n_cell + 1)).astype(np.int32)
+    values = rng.uniform(0, 100, (n_rows, n)).astype(dtype)
+    start = torch.from_numpy(cell_start).long()
+    got = segments.sorted_segment_sum(torch.from_numpy(values), start, n_cell)
+    assert got.shape == (n_rows, n_cell) and got.numpy().dtype == dtype
+    for r in range(n_rows):
+        single = segments.sorted_segment_sum(
+            torch.from_numpy(values[r]), start, n_cell
+        )
+        assert torch.equal(got[r], single)
+        expected = np.asarray(jax_segments.sorted_segment_sum(
+            jnp.asarray(values[r]), jnp.asarray(cell_start), n_cell
+        ))
+        if np.issubdtype(dtype, np.integer):
+            np.testing.assert_array_equal(got[r].numpy(), expected)
+        else:
+            prefix = np.cumsum(values[r].astype(np.float64))[-1]
+            atol = 64 * np.finfo(dtype).eps * prefix
+            np.testing.assert_allclose(got[r].numpy(), expected, rtol=0, atol=atol)
+
+
+def test_wrapper_counts_no_launch_on_cpu():
+    launches, rows = scan.cumsum.launches, scan.cumsum.rows
+    scan.cumsum(torch.ones((4, 10)))
+    assert (scan.cumsum.launches, scan.cumsum.rows) == (launches, rows)
+
+
 def test_non_1d_input_is_refused():
-    with pytest.raises(ValueError, match="1D"):
-        scan.cumsum(torch.ones((2, 3)))
+    """more than 2D is refused: a 2D tensor is scanned row by row"""
+    with pytest.raises(ValueError, match="1D or 2D"):
+        scan.cumsum(torch.ones((2, 3, 4)))
+    assert scan.cumsum(torch.ones((2, 3))).tolist() == [[1, 2, 3], [1, 2, 3]]
+
+
+def test_scratch_table_is_bounded_and_numbers_its_launches(monkeypatch):
+    """the wrapper's table of flag buffers: one zeroed buffer per (device,
+    stream, rows, n) with a generation that rises by one a launch; at most
+    ``_SCRATCH_ENTRIES`` buffers, the one used longest ago making room"""
+
+    class Library:
+        @staticmethod
+        def pysdm_cumsum_scratch_bytes(rows, n):
+            return 8 * rows * n
+
+    monkeypatch.setattr(scan, "_SCRATCH", {})
+    cpu = torch.device("cpu")
+    first, generation = scan._scratch(Library, cpu, 0, 2, 8)
+    assert (first.numel(), generation, int(first.sum())) == (128, 1, 0)
+    assert scan._scratch(Library, cpu, 0, 2, 8)[1] == 2
+    assert scan._scratch(Library, cpu, 1, 2, 8)[0] is not first  # its stream's
+    for n in range(1, scan._SCRATCH_ENTRIES - 1):
+        scan._scratch(Library, cpu, 0, 1, n)
+    assert len(scan._SCRATCH) == scan._SCRATCH_ENTRIES
+    again, generation = scan._scratch(Library, cpu, 0, 2, 8)
+    assert again is first and generation == 3  # used: now the newest
+    scan._scratch(Library, cpu, 0, 1, 1000)
+    assert len(scan._SCRATCH) == scan._SCRATCH_ENTRIES
+    assert (None, 1, 2, 8) not in scan._SCRATCH  # stream 1's was the oldest
+    assert scan._scratch(Library, cpu, 0, 2, 8)[0] is first

@@ -3,8 +3,9 @@
 Runs ``chip_smoke.py``'s parcel (2^17 super-droplets, adaptive
 condensation) to step 400, inside the cloud, times a few steps with the
 host clock, then the same number of steps under ``torch.profiler``, and
-prints per step: K3 launches, substep solves and host reads, wall time with
-and without the profiler, device time per kernel (from the trace's kernel
+prints per step: K3 launches, K4 launches and rows (none: one cell sums
+without a prefix sum), substep solves and host reads, wall time with and
+without the profiler, device time per kernel (from the trace's kernel
 events) and the device's busy share (the union of kernel intervals over the
 profiled and the unprofiled wall time: the profiler's own host cost varies
 between runs). The chrome trace goes to ``--out``.
@@ -39,6 +40,7 @@ def main():
         return 2
     from pysdm_tpu_torch.backends import GPU
     from pysdm_tpu_torch.ops.cuda import condensation as k3
+    from pysdm_tpu_torch.ops.cuda import scan
 
     os.makedirs(args.out, exist_ok=True)
     gpu = chip_smoke.gpu_line()
@@ -50,7 +52,7 @@ def main():
 
     def counts():
         return (k3.masses_new.launches, solver.substep_solves,
-                solver.host_reads)
+                solver.host_reads, scan.cumsum.launches, scan.cumsum.rows)
 
     t0 = time.perf_counter()
     p.run(steps)
@@ -62,7 +64,9 @@ def main():
         p.run(steps)
         p.block_until_ready()
         wall_prof = (time.perf_counter() - t0) / steps
-    launches, solves, reads = ((b - a) / steps for a, b in zip(before, counts()))
+    launches, solves, reads, k4, k4_rows = (
+        (b - a) / steps for a, b in zip(before, counts())
+    )
     trace = os.path.join(args.out, "trace_parcel.json")
     prof.export_chrome_trace(trace)
     kernels = kernel_events(trace)
@@ -72,8 +76,8 @@ def main():
         per_name[e["name"]][1] += 1
     busy = busy_us(kernels) / steps
     print(f"== parcel 2^17 adaptive from step 400: {steps} steps; per step"
-          f" {launches!r} K3 launches, {solves!r} solves, {reads!r} host"
-          f" reads; wall {wall * 1e3!r} ms/step, profiled"
+          f" {launches!r} K3 launches, {k4!r} K4 launches of {k4_rows!r} rows,"
+          f" {solves!r} solves, {reads!r} host reads; wall {wall * 1e3!r} ms/step, profiled"
           f" {wall_prof * 1e3!r} ms/step; device busy {busy!r} us/step ="
           f" {busy / (wall_prof * 1e6)!r} of the profiled and"
           f" {busy / (wall * 1e6)!r} of the unprofiled wall time;"

@@ -5,8 +5,8 @@ Builds ``chip_smoke.py``'s full-width warm rain (config #5: 25 x 25 cells,
 2^12 super-droplets per cell, collisions and sedimentation on), runs one
 warm-up step, times a few steps with the host clock, then the same number
 of steps under ``torch.profiler``, and prints per step: the launches of K2
-(sort-croupier coalescence), K3 (condensation solve) and K4 (prefix sum),
-collision substeps, condensation solves and host reads, wall time with and
+(sort-croupier coalescence), K3 (condensation solve) and K4 (prefix sum,
+with the rows it scanned), collision substeps, condensation solves and host reads, wall time with and
 without the profiler, device time per kernel (from the trace's kernel
 events) and the device's busy share (the union of kernel intervals over the
 profiled and the unprofiled wall time). The chrome trace goes to ``--out``.
@@ -61,6 +61,7 @@ def main():
             kern.coalesce_adjacent.launches, k3.masses_new.launches,
             scan.cumsum.launches, collision.substeps_run,
             solver.substep_solves, chip_smoke._host_reads(p),
+            scan.cumsum.rows,
         )
 
     t0 = time.perf_counter()
@@ -73,7 +74,7 @@ def main():
         p.run(steps)
         p.block_until_ready()
         wall_prof = (time.perf_counter() - t0) / steps
-    k2, k3_n, k4, substeps, solves, reads = (
+    k2, k3_n, k4, substeps, solves, reads, k4_rows = (
         (b - a) / steps for a, b in zip(before, counts())
     )
     trace = os.path.join(args.out, "trace_warmrain.json")
@@ -86,7 +87,7 @@ def main():
     busy = busy_us(kernels) / steps
     print(f"== warm rain {chip_smoke.WARM_RAIN_GRID} x"
           f" {chip_smoke.WARM_RAIN_SD_PER_CELL}: {steps} steps; per step"
-          f" {k2!r} K2, {k3_n!r} K3, {k4!r} K4 launches, {substeps!r} collision"
+          f" {k2!r} K2, {k3_n!r} K3, {k4!r} K4 launches ({k4_rows!r} rows), {substeps!r} collision"
           f" substeps, {solves!r} condensation solves, {reads!r} host reads;"
           f" wall {wall * 1e3!r} ms/step, profiled {wall_prof * 1e3!r}"
           f" ms/step; device busy {busy!r} us/step ="
