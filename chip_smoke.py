@@ -9,8 +9,12 @@ Run from the root of the checkout: ``python3 chip_smoke.py``. Phases:
 2. K1 (mirror coalescence) against its plain PyTorch twin on the card, on
    random states with dead slots, ties and multiplicities up to 2^40, at 2^16
    and 2^20 slots: multiplicities exactly, extensive rows to rtol 1e-6
-   (float32) or 1e-12 (float64), rate sums to rtol 1e-5; then the device time
-   of kernel and twin at 2^20 (CUDA events);
+   (float32) or 1e-12 (float64), rate sums to rtol 1e-5; three launches on
+   the same inputs bit-equal, rate sums included, and launches on two
+   inputs queued on two streams at once bit-equal to the launches alone;
+   then the device time of kernel and twin at 2^20 (CUDA events), the
+   kernel's on one input (which stays in the L2) and over a rotation of
+   four inputs (which does not);
 3. the box path: ``bench.py``'s box (Golovin b = 1.5e3, 2^20 super-droplets,
    dv = 1e6 m^3, dt = 1 s, non-adaptive) on the ``GPU`` backend, run(1) as
    warm-up, then run(100) timed; launch counts are reset just before and
@@ -65,7 +69,11 @@ Run from the root of the checkout: ``python3 chip_smoke.py``. Phases:
 13. K5 (collision with breakup) against its twin on the card at 2^17 and
    2^20, with config #2's functions and with a set that bounces and
    coalesces too (``compare_k5`` states the bounds); then the device time
-   of kernel and twin;
+   of kernel and twin; determinism as in phase 2; the kernel's time over a
+   rotation of 16 random states at 2^17 (device memory); then K5 on 16
+   substeps captured from config #2's main path (phase 14's recipe, one
+   warm-up step): against the twin and timed, on the first state and over
+   the rotation of all 16;
 14. config #2, the de Jong/Mackay 2023 breakup box, through ``bench.py``'s
    recipe (2^17 super-droplets, adaptive, dt = 1 s) on the ``GPU``
    backend, run(1) as warm-up, then run(100) timed with K5's count reset
@@ -153,6 +161,42 @@ def _time_ms(torch, fn, reps):
     return start.elapsed_time(stop) / reps
 
 
+def k1_args(torch, n, ext_dtype, seed, device):
+    """K1's arguments on a random state (``_random_state``), Golovin, a
+    scale that changes 5-95% of the slots"""
+    from pysdm_tpu_torch.ops.cuda.collision import GOLOVIN
+
+    K = (n // 3) * 2
+    mult, ext, volume = _random_state(torch, n, K, ext_dtype, seed, device)
+    scale = torch.tensor([2e-3], dtype=torch.float32, device=device)
+    return (mult, ext, volume, GOLOVIN, (1.5e3, 0.0), scale, K, 3141592653)
+
+
+def check_deterministic(torch, fn, inputs, label):
+    """three calls of ``fn`` on the same inputs bit-equal in every output,
+    rate sums included; calls on two inputs queued on two streams at once
+    (each stream has its own scratch) bit-equal to the calls alone"""
+    runs = [fn(*inputs[0]) for _ in range(3)]
+    torch.cuda.synchronize()
+    for run in runs[1:]:
+        if not all(torch.equal(a, b) for a, b in zip(runs[0], run)):
+            raise AssertionError(f"{label}: three runs differ")
+    alone = [runs[0], fn(*inputs[1])]
+    torch.cuda.synchronize()
+    streams = [torch.cuda.Stream() for _ in alone]
+    together = []
+    for _ in range(10):
+        for args, stream in zip(inputs, streams):
+            with torch.cuda.stream(stream):
+                together.append(fn(*args))
+    torch.cuda.synchronize()
+    for k, got in enumerate(together):
+        if not all(torch.equal(a, b) for a, b in zip(got, alone[k % 2])):
+            raise AssertionError(f"{label}: calls on two streams differ")
+    print(f"{label}: three runs bit-equal, rate sums included; 10 pairs of"
+          f" calls queued on two streams bit-equal to the calls alone")
+
+
 def _kernel_vs_twin(torch, kern, device, gpu):
     """phase 2; returns (max_abs_err, kernel_ms, twin_ms) at N_MAIN"""
     import numpy as np
@@ -160,11 +204,8 @@ def _kernel_vs_twin(torch, kern, device, gpu):
     max_abs_err = 0.0
     for n, ext_dtype in ((2**16, np.float32), (2**16, np.float64),
                          (N_MAIN, np.float32)):
-        K = (n // 3) * 2
-        mult, ext, volume = _random_state(torch, n, K, ext_dtype, n, device)
-        scale = torch.tensor([2e-3], dtype=torch.float32, device=device)
-        args = (mult, ext, volume, kern.GOLOVIN, (1.5e3, 0.0), scale, K,
-                3141592653)
+        args = k1_args(torch, n, ext_dtype, n, device)
+        mult = args[0]
         before = kern.coalesce_mirror.launches
         got = kern.coalesce_mirror(*args)
         torch.cuda.synchronize()
@@ -186,10 +227,20 @@ def _kernel_vs_twin(torch, kern, device, gpu):
             max_abs_err = err
         print(f"phase 2: n={n} ext={np.dtype(ext_dtype).name}: xi equal,"
               f" ext max abs err {err!r}, rates {got[2:]} vs {want[2:]}")
+    # four inputs of 37 MB each (mult, two float32 rows, volume in; mult
+    # and rows out), together past the 50 MB L2
+    inputs = [args] + [
+        k1_args(torch, N_MAIN, ext_dtype, seed, device) for seed in (1, 2, 3)
+    ]
+    check_deterministic(torch, kern.coalesce_mirror, inputs[:2], "phase 2: K1")
     kernel_ms = _time_ms(torch, lambda: kern.coalesce_mirror(*args), 200)
     twin_ms = _time_ms(torch, lambda: kern.coalesce_mirror_reference(*args), 10)
-    print(f"phase 2: n={N_MAIN} kernel {kernel_ms!r} ms, plain twin"
-          f" {twin_ms!r} ms per substep [{gpu}]")
+    rotated_ms = _time_rotated_ms(
+        torch, lambda a: kern.coalesce_mirror(*a), inputs, 200
+    )
+    print(f"phase 2: n={N_MAIN} kernel {kernel_ms!r} ms on one input (in the"
+          f" L2), {rotated_ms!r} ms over a rotation of {len(inputs)} inputs"
+          f" (device memory), plain twin {twin_ms!r} ms per substep [{gpu}]")
     return max_abs_err, kernel_ms, twin_ms
 
 
@@ -1302,6 +1353,8 @@ BREAKUP_STEPS = 100
 # call counted as one operation
 K5_OPS_PER_SLOT = 60
 K5_OPS_PER_BREAKUP = 150
+# substeps of config #2 captured for phase 13 (4.2 MB each: 16 exceed the L2)
+K5_CAPTURED = 16
 
 
 def k5_state(n, K, n_ext, ext_dtype, seed):
@@ -1382,16 +1435,18 @@ def k5_args(torch, state, kernel, functions, K, device):
     )
 
 
-def compare_k5(got, want, processes, mult0):
+def compare_k5(got, want, processes, mult0, wm_index=0, require_changes=True):
     """kernel (or twin) ``got`` against ``want``: multiplicities equal at
     coalescing, bouncing and idle slots; at breakup slots, whose float32
     transfer runs through expf/logf/log1pf (a few ulps apart between two
     libms), equal on > 99.9% of all slots and within rel 1e-4 elsewhere
     (the JAX package's own bound, ``tests/unit/test_pallas_breakup.py``);
     extensive rows to rtol 1e-6 where the multiplicities agree; the five
-    sums to rtol 1e-5 (another summation order); total water mass to 5e-6.
-    Returns (the largest absolute difference of the extensive rows, the
-    number of multiplicities that differ)."""
+    sums to rtol 1e-5 (another summation order); total water mass (row
+    ``wm_index``) to 5e-6. With ``require_changes`` the update must touch
+    5-95% of the slots and break some up (random states; a config #2
+    substep may touch fewer). Returns (the largest absolute difference of
+    the extensive rows, the number of multiplicities that differ)."""
     import numpy as np
 
     got = [x.cpu().numpy() for x in got]
@@ -1408,12 +1463,15 @@ def compare_k5(got, want, processes, mult0):
             f"K5: {int((~same).sum())} multiplicities differ, rel {rel.max()!r}"
         )
     changed = float((want[0] != mult0).mean())
-    if not (0.05 < changed < 0.95 and broke.any()):
+    if require_changes and not (0.05 < changed < 0.95 and broke.any()):
         raise AssertionError(f"K5 touched {changed} of the slots")
     np.testing.assert_allclose(got[1][:, same], want[1][:, same], rtol=1e-6)
     for g, w in zip(got[2:], want[2:]):
         np.testing.assert_allclose(g, w, rtol=1e-5)
-    water = [float((m * e[0].astype(float)).sum()) for m, e in (got[:2], want[:2])]
+    water = [
+        float((m * e[wm_index].astype(float)).sum())
+        for m, e in (got[:2], want[:2])
+    ]
     np.testing.assert_allclose(water[0], water[1], rtol=5e-6)
     return float(np.abs(got[1].astype(float) - want[1]).max()), int((~same).sum())
 
@@ -1461,7 +1519,84 @@ def _k5_vs_twin(torch, k5, device, gpu):
             n_bytes = n * (8 + 4 * n_ext + 4 * len(args[3]) + 8 + 4 * n_ext)
             n_ops = n * K5_OPS_PER_SLOT + n_break * K5_OPS_PER_BREAKUP
             out = (err, kernel_ms, twin_ms, n_bytes, n_ops)
-    return out
+            main_args = args
+
+    # the main shape over 16 random states of 4.2 MB each, together past
+    # the 50 MB L2
+    kernel, functions = sets["config2"]
+    inputs = [main_args] + [
+        k5_args(torch, k5_state(BREAKUP_N, K, 1, np.float32, seed), kernel,
+                functions, K, device)
+        for seed, K in enumerate(range(1001, 1016))
+    ]
+    check_deterministic(
+        torch, k5.coalesce_breakup_mirror, inputs[:2], "phase 13: K5"
+    )
+    rotated_ms = _time_rotated_ms(
+        torch, lambda a: k5.coalesce_breakup_mirror(*a), inputs, 200
+    )
+    print(f"phase 13: K5 n={BREAKUP_N} config2 over a rotation of"
+          f" {len(inputs)} random states (device memory): {rotated_ms!r} ms"
+          f" [{gpu}]")
+
+    # the states config #2's main path hands K5
+    captured = capture_k5_substeps(k5, K5_CAPTURED)
+    err = out[0]
+    counts = np.zeros(3, dtype=np.int64)
+    for args in captured:
+        got = k5.coalesce_breakup_mirror(*args)
+        processes = {}
+        want = k5.coalesce_breakup_mirror_reference(*args, processes=processes)
+        e, _ = compare_k5(
+            got, want, processes, args[0].cpu().numpy(), wm_index=args[2],
+            require_changes=False,
+        )
+        err = max(err, e)
+        counts += [
+            int((want[0] != args[0]).sum()),
+            int(processes["coalescence"].sum()),
+            int(processes["breakup"].sum()),
+        ]
+    one_ms = _time_ms(torch, lambda: k5.coalesce_breakup_mirror(*captured[0]), 200)
+    captured_ms = _time_rotated_ms(
+        torch, lambda a: k5.coalesce_breakup_mirror(*a), captured, 200
+    )
+    print(f"phase 13: K5 on {len(captured)} substeps captured from config"
+          f" #2's main path (2^17 slots each): within compare_k5's bounds of"
+          f" the twin; per substep {counts[0] / len(captured)!r} slots"
+          f" changed, {counts[1] / len(captured)!r} coalescence and"
+          f" {counts[2] / len(captured)!r} breakup slots; kernel"
+          f" {one_ms!r} ms on the first (in the L2), {captured_ms!r} ms over"
+          f" the rotation [{gpu}]")
+    return (err, *out[1:])
+
+
+def capture_k5_substeps(k5, count):
+    """the arguments of ``count`` K5 calls on config #2's main path
+    (``build_breakup_box`` on the card, one step of warm-up first), cloned
+    before each call"""
+    from pysdm_tpu_torch.backends import GPU
+    from pysdm_tpu_torch.dynamics.collisions import collision
+
+    p = build_breakup_box(BREAKUP_N, GPU)
+    p.run(1)
+    captured = []
+
+    def record(mult, ext, wm_index, attrs, functions, scale, *rest):
+        captured.append((
+            mult.clone(), ext.clone(), wm_index,
+            {name: row.clone() for name, row in attrs.items()}, functions,
+            scale.clone(), *rest,
+        ))
+        return k5.coalesce_breakup_mirror(
+            mult, ext, wm_index, attrs, functions, scale, *rest
+        )
+
+    with _replaced(collision, "coalesce_breakup_mirror", record):
+        while len(captured) < count:
+            p.run(1)
+    p.block_until_ready()
+    return captured[:count]
 
 
 def build_breakup_box(n_sd, backend):

@@ -119,7 +119,8 @@ class Builder:
             cname = canonical_ext_name(name)
             if cname in MAXIMUM_NAMES:
                 raise NotImplementedError(
-                    f"{name!r}: max-merged attributes come with slice 5"
+                    f"{name!r}: max-merged attributes come with ice, chemistry"
+                    " and isotopes (other dynamics)"
                 )
             if cname not in EXTENSIVE_NAMES:
                 raise ValueError(f"unknown base attribute: {name}")

@@ -13,11 +13,27 @@
 // kernel, Ec, Eb and the fragment mass are evaluated here by id.
 //
 // Design:
-// - one thread per slot, 256-thread blocks. Both members of a pair read only
-//   the inputs and recompute the pair's arithmetic from the role-resolved
-//   (j, k) values, so both get bit-identical results; each thread writes
-//   its own slot into separate output buffers, so no thread can read a
-//   value its partner has already updated;
+// - one thread per pair, not per slot. Pair p's thread takes the pair's
+//   leader o (the smaller slot; sdm_pair.cuh mirror_pair, in closed form)
+//   and its partner po, loads both slots once, computes the pair once and
+//   writes BOTH output slots. A warp's 32 pairs read and write 32
+//   consecutive leaders and, within each of the map's two runs, 32
+//   consecutive partners in descending order, so loads and stores stay
+//   coalesced. Outputs are separate buffers, so the slots that pair with
+//   themselves (thread 0 copies them) and the dead pairs get their
+//   unchanged copy;
+// - every load is issued before any branch on loaded data, so a pair waits
+//   for memory once; then the costly physics only where it is read: the
+//   int64 division only where gamma falls below its cap (a 128-bit product
+//   of the cap and xi_k decides; sdm_pair.cuh capped_quotient), Berry's Ec
+//   (four powf), Eb and the process draw only where gamma > 0, the fragment
+//   mass and the transfer only where the pair breaks up;
+// - one launch: the five rate sums go per pair, warp and block in a fixed
+//   order into per-block partials, and the last block to finish (a ticket
+//   from a counter that atomicInc returns to 0 with the launch's last
+//   ticket) adds them in a fixed block order (sdm_pair.cuh grid_sums). The
+//   wrapper keeps the counter and the partials per device, stream and
+//   shape, zeroed once. No float atomics: two runs give the same bits;
 // - multiplicities are native int64: gamma = min(cap, xi_j / xi_k) is an
 //   exact division and the coalescence branch exact integer arithmetic.
 //   The TPU kernel walks an f32 quotient estimate +-5 steps over u32 limbs
@@ -31,22 +47,22 @@
 //   accurate versions, a few ulps from the CPU's;
 // - extensive rows are read and converted to float32 and the float32
 //   result is written back in the state's type, at every slot, as the TPU
-//   kernel does;
-// - the five rate sums are deterministic: a fixed-order shared-memory tree
-//   per block writes per-block partials, and a one-block second pass sums
-//   them in fixed order. No float atomics.
+//   kernel does.
+// Multiplicities and rows equal, bit for bit, the update computed at each
+// slot from that slot's view of the pair (the twin's form): the collision
+// kernels, Ec and the fragment mass are symmetric in the pair, and the
+// walks stop at their first failing step. The rate sums are added in
+// another order than the twin's.
 //
 // What bounds it on the card: each input read once and each output written
 // once, a slot moves 32 B (multiplicity 8 in and 8 out, one float32
-// extensive row 4 in and 4 out, two float32 attribute rows 8 in; the
-// partner's reads hit the caches), 4.2 MB at config #2's 2^17 slots, ~1.3
-// us at 3.35 TB/s. Its float32 work is ~60 operations a slot (the Berry
-// efficiency's four powf at every slot) and ~150 more where the pair
-// breaks up (the transfer's nine expf), ~0.1 us at the card's float32
-// rate. So it is bound by bytes, and at these sizes by its two launches and
-// a short grid; within a warp the transfer of one breaking slot holds the
-// others (divergence), which only the launch of separate passes would
-// avoid.
+// extensive row 4 in and 4 out, two float32 attribute rows 8 in), 4.2 MB at
+// config #2's 2^17 slots, ~1.3 us at 3.35 TB/s; its float32 work, ~60
+// operations a slot and ~150 more where a pair breaks up, takes ~0.1 us at
+// the card's float32 rate. At these sizes what is left is the launch, one
+// wave of threads each waiting for memory once, the chain of arithmetic of
+// the slowest pair in a warp (Berry's powf, the transfer's expf) and the
+// last block's sums. Measured times stand in PERF.md.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -56,8 +72,11 @@
 
 namespace {
 
-constexpr int THREADS = 256;
+constexpr int THREADS = 256;  // pairs a block
+// extensive rows of both slots loaded with the multiplicities
+constexpr int ROWS_AHEAD = 2;
 constexpr int N_SUMS = 5;
+constexpr int SCRATCH_HEAD = 16;  // bytes before the partials: the counter
 constexpr float TWO_M24 = 5.9604644775390625e-08f;  // 2^-24
 constexpr uint32_t SEED_PROCESS = 0xA5A5A5A5u;
 constexpr uint32_t SEED_FRAGMENT = 0x3C3C3C3Cu;
@@ -200,11 +219,11 @@ struct TransferForm {
                     : mul(mk, add(1.0f, mul(sub(g, 1.0f), alpha)));
   }
 
-  __device__ bool valid(float g) const {
-    float nmk, tfj;
-    pair_values(g, &nmk, &tfj);
-    return (g >= 1.0f) && (g <= gamma_f) && (nmk <= max_mult) &&
-           (tfj <= mult_j);
+  // whether g events fit; the pair values at g in nmk and tfj
+  __device__ bool valid(float g, float* nmk, float* tfj) const {
+    pair_values(g, nmk, tfj);
+    return (g >= 1.0f) && (g <= gamma_f) && (*nmk <= max_mult) &&
+           (*tfj <= mult_j);
   }
 };
 
@@ -240,15 +259,47 @@ __device__ Transfer transfer_closed_form(float gamma_f, float mult_j,
   float g = jmin(jmin(g1, g2), gamma_f);
   g = jmin(jmax(g, 0.0f), gamma_f);
   if (isnan(g)) g = 0.0f;
-  for (int i = 0; i < 4; ++i) {
-    if (t.valid(add(g, 1.0f))) g = add(g, 1.0f);
+  // the +-4 correction walks with their eight candidates evaluated at once:
+  // each walk stops at its first failing step, the downward one runs only
+  // where the upward one did not move, so g is the sequential walks'. The
+  // pair values at g come from its candidate's evaluation where it had one
+  float up[5], down[5];
+  up[0] = g;
+  down[0] = g;
+#pragma unroll
+  for (int i = 1; i < 5; ++i) {
+    up[i] = add(up[i - 1], 1.0f);
+    down[i] = sub(down[i - 1], 1.0f);
   }
+  bool ok_up[4], ok_down[4];
+  float nmk_up[4], tfj_up[4], nmk_down[4], tfj_down[4];
+#pragma unroll
   for (int i = 0; i < 4; ++i) {
-    if (!(t.valid(g) || g <= 0.0f)) g = sub(g, 1.0f);
+    ok_up[i] = t.valid(up[i + 1], &nmk_up[i], &tfj_up[i]);
+    ok_down[i] = t.valid(down[i], &nmk_down[i], &tfj_down[i]) ||
+                 down[i] <= 0.0f;
   }
-  g = jmax(g, 0.0f);
-  float nmk, tfj;
-  t.pair_values(jmax(g, 1.0f), &nmk, &tfj);
+  float g_up = g, g_down = g;
+  float nmk_u = 0.0f, tfj_u = 0.0f, nmk_d = nmk_down[0], tfj_d = tfj_down[0];
+  bool going_up = true, going_down = true;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    going_up = going_up && ok_up[i];
+    g_up = going_up ? up[i + 1] : g_up;
+    nmk_u = going_up ? nmk_up[i] : nmk_u;
+    tfj_u = going_up ? tfj_up[i] : tfj_u;
+    going_down = going_down && !ok_down[i];
+    g_down = going_down ? down[i + 1] : g_down;
+    if (i < 3) {
+      nmk_d = going_down ? nmk_down[i + 1] : nmk_d;
+      tfj_d = going_down ? tfj_down[i + 1] : tfj_d;
+    }
+  }
+  const bool moved_up = ok_up[0];
+  g = jmax(moved_up ? g_up : g_down, 0.0f);
+  float nmk = moved_up ? nmk_u : nmk_d, tfj = moved_up ? tfj_u : tfj_d;
+  // below 1 the values are not read; at down[4] no candidate has them
+  if (g >= 1.0f && !moved_up && going_down) t.pair_values(g, &nmk, &tfj);
   Transfer out;
   out.take = g >= 1.0f ? tfj : 0.0f;
   out.nmk = g >= 1.0f ? nmk : t.mk;
@@ -256,208 +307,267 @@ __device__ Transfer transfer_closed_form(float gamma_f, float mult_j,
   return out;
 }
 
-// fixed-order tree sums over the block; results valid in thread 0
-__device__ __forceinline__ void block_sums(float (*red)[THREADS],
-                                           const float* x) {
-  const int t = threadIdx.x;
-  for (int s = 0; s < N_SUMS; ++s) red[s][t] = x[s];
-  __syncthreads();
-  for (int h = THREADS / 2; h > 0; h >>= 1) {
-    if (t < h) {
-      for (int s = 0; s < N_SUMS; ++s)
-        red[s][t] = __fadd_rn(red[s][t], red[s][t + h]);
-    }
-    __syncthreads();
+// the kernel's arguments but the pair map and the sums' scratch
+template <typename T>
+struct Args {
+  const int64_t* __restrict__ mult;
+  const T* __restrict__ ext;
+  int n_ext, wm_index;
+  const float* __restrict__ volume;
+  const float* __restrict__ radius;
+  const float* __restrict__ vfall;
+  PairFunctions f;
+  const float* __restrict__ scale;
+  int64_t n;
+  uint32_t seed;
+  float max_mult;
+  int64_t* __restrict__ mult_out;
+  T* __restrict__ ext_out;
+
+  __device__ float row(int r, int64_t slot) const {
+    return (float)ext[(int64_t)r * n + slot];
   }
+  __device__ void put(int r, int64_t slot, float value) const {
+    ext_out[(int64_t)r * n + slot] = (T)value;
+  }
+  // a slot that keeps its values (its rows still pass through float32)
+  __device__ void keep(int64_t slot) const {
+    mult_out[slot] = mult[slot];
+    for (int r = 0; r < n_ext; ++r) put(r, slot, row(r, slot));
+  }
+};
+
+// what a pair does to each of its extensive rows, in float32
+struct RowUpdate {
+  enum { KEEP, COALESCE, BREAK_UP } process = KEEP;
+  bool o_is_j = false, split = false, deplete = false;
+  float gf = 0.0f, mk_f = 0.0f, take = 0.0f, nmk_safe = 0.0f;
+  float rescale_j = 0.0f, rescale_k = 0.0f;
+
+  // the row's new values in slots o and po from its values there
+  __device__ void apply(float e_o, float e_p, float* out_o,
+                        float* out_p) const {
+    if (process == KEEP) {
+      *out_o = e_o;
+      *out_p = e_p;
+      return;
+    }
+    const float ej = o_is_j ? e_o : e_p, ek = o_is_j ? e_p : e_o;
+    float new_j, new_k;
+    if (process == COALESCE) {
+      const float merged = add(ek, mul(gf, ej));
+      new_j = split ? merged : ej;
+      new_k = merged;
+    } else {
+      const float ek_mix = dvd(add(mul(ek, mk_f), mul(take, ej)), nmk_safe);
+      new_j = mul(deplete ? ek_mix : ej, rescale_j);
+      new_k = mul(ek_mix, rescale_k);
+    }
+    *out_o = o_is_j ? new_j : new_k;
+    *out_p = o_is_j ? new_k : new_j;
+  }
+};
+
+// v[i] of a small array held in registers (no dynamic index into it)
+__device__ __forceinline__ float pick(const float (&v)[ROWS_AHEAD], int i) {
+  float out = 0.0f;
+#pragma unroll
+  for (int r = 0; r < ROWS_AHEAD; ++r) out = r == i ? v[r] : out;
+  return out;
+}
+
+// the pair (o, po), o < po the leader: computed once, both slots written;
+// adds the pair's five rates to s
+template <typename T>
+__device__ void pair_update(const Args<T>& x, int64_t o, int64_t po,
+                            float (&s)[N_SUMS]) {
+  // every load first and none behind a branch on loaded data, so that the
+  // pair waits for memory once
+  const int64_t a = x.mult[o], b = x.mult[po];
+  const float va = x.volume ? x.volume[o] : 0.0f;
+  const float vb = x.volume ? x.volume[po] : 0.0f;
+  const float ra = x.radius ? x.radius[o] : 0.0f;
+  const float rb = x.radius ? x.radius[po] : 0.0f;
+  const float ua = x.vfall ? x.vfall[o] : 0.0f;
+  const float ub = x.vfall ? x.vfall[po] : 0.0f;
+  float eo[ROWS_AHEAD], ep[ROWS_AHEAD];
+#pragma unroll
+  for (int r = 0; r < ROWS_AHEAD; ++r) {
+    eo[r] = r < x.n_ext ? x.row(r, o) : 0.0f;
+    ep[r] = r < x.n_ext ? x.row(r, po) : 0.0f;
+  }
+  const bool wm_ahead = x.wm_index < ROWS_AHEAD;
+  const float wo = wm_ahead ? pick(eo, x.wm_index) : x.row(x.wm_index, o);
+  const float wp = wm_ahead ? pick(ep, x.wm_index) : x.row(x.wm_index, po);
+
+  RowUpdate u;
+  int64_t m_o = a, m_p = b;
+  if (a != 0 && b != 0) {
+    // j = the not-smaller multiplicity; a tie goes to the leader
+    u.o_is_j = a >= b;
+    const int64_t mj = u.o_is_j ? a : b, mk = u.o_is_j ? b : a;
+    const PairFunctions& f = x.f;
+    const float kn = mul(kernel_value(f, va, vb, ra, rb, ua, ub), x.scale[0]);
+    const float u_gamma = u01_hash(x.seed, (uint32_t)o);
+    const float mj_f = u64_to_f32((uint64_t)mj);
+    const float mk_f = u64_to_f32((uint64_t)mk);
+    const float gamma_f = jmax(ceilf(sub(mul(mj_f, kn), u_gamma)), 0.0f);
+    const int64_t cap = (int64_t)fminf(gamma_f, BIG);
+    // at cap = 0, g = min(xi_j / xi_k, 0) = 0 without the division
+    const int64_t g = cap > 0 ? sdm::capped_quotient(mj, mk, cap) : 0;
+    const float gf = u32_to_f32((uint32_t)g);
+    s[0] = mul(gf, mk_f);
+    s[1] = mul(sub(gamma_f, gf), mk_f);
+    if (g > 0) {
+      // process: bounce if u > Ec + (1 - Ec) Eb, coalesce if u < Ec, else
+      // break up; Ec (Berry's four powf) only here, where gamma > 0
+      const float Ec = f.ec_id == EC_BERRY1967 ? berry_1967_ec(ra, rb) : f.ec0;
+      const float Eb = f.eb0;
+      const float u_proc = u01_hash(x.seed ^ SEED_PROCESS, (uint32_t)o);
+      int64_t m_j = mj, m_k = mk;
+      u.gf = gf;
+      u.mk_f = mk_f;
+      if (sub(u_proc, add(Ec, mul(sub(1.0f, Ec), Eb))) > 0.0f) {
+        // bounce
+      } else if (sub(u_proc, Ec) < 0.0f) {
+        // Shima update: xi_j -= gamma xi_k; an exhausted j takes half of k
+        const int64_t nn = mj - g * mk;
+        u.process = RowUpdate::COALESCE;
+        u.split = nn == 0;
+        const int64_t half = mk >> 1;
+        m_j = u.split ? half : nn;
+        m_k = u.split ? mk - half : mk;
+        s[2] = mul(gf, mk_f);
+      } else {
+        const float mass_j = fabsf(u.o_is_j ? wo : wp);
+        const float mass_k = fabsf(u.o_is_j ? wp : wo);
+        const float mass_sum = add(mass_j, mass_k);
+        // the fragment mass sees the pair in slot order, as the TPU
+        // kernel's
+        const float u_frag = u01_hash(x.seed ^ SEED_FRAGMENT, (uint32_t)o);
+        float fm = fragment_mass(f, fabsf(wo), fabsf(wp), u_frag);
+        fm = (isnan(fm) || fm <= 0.0f) ? mass_sum : fm;
+        fm = jmin(fm, mass_sum);
+        fm = mass_sum <= 0.0f ? 1.0f : fm;
+        const Transfer t = transfer_closed_form(
+            gf, mj_f, jmax(mk_f, 1.0f), mass_j, mass_k, fm, x.max_mult);
+        u.process = RowUpdate::BREAK_UP;
+        u.deplete = t.take >= mj_f;
+        const float nj = u.deplete ? mul(t.nmk, 0.5f) : sub(mj_f, t.take);
+        const float nk = u.deplete ? mul(t.nmk, 0.5f) : t.nmk;
+        const float bj = jmax(rintf(nj), 1.0f);
+        const float bk = jmax(rintf(nk), 1.0f);
+        m_j = (int64_t)bj;
+        m_k = (int64_t)bk;
+        u.take = t.take;
+        u.nmk_safe = jmax(t.nmk, 1e-30f);
+        u.rescale_j = dvd(nj, bj);
+        u.rescale_k = dvd(nk, bk);
+        s[3] = mul(t.g, mk_f);
+        s[4] = mul(sub(gf, t.g), mk_f);
+      }
+      m_o = u.o_is_j ? m_j : m_k;
+      m_p = u.o_is_j ? m_k : m_j;
+    }
+  }
+
+  x.mult_out[o] = m_o;
+  x.mult_out[po] = m_p;
+  float out_o, out_p;
+#pragma unroll
+  for (int r = 0; r < ROWS_AHEAD; ++r) {
+    if (r < x.n_ext) {
+      u.apply(eo[r], ep[r], &out_o, &out_p);
+      x.put(r, o, out_o);
+      x.put(r, po, out_p);
+    }
+  }
+  for (int r = ROWS_AHEAD; r < x.n_ext; ++r) {
+    u.apply(x.row(r, o), x.row(r, po), &out_o, &out_p);
+    x.put(r, o, out_o);
+    x.put(r, po, out_p);
+  }
+}
+
+// one thread per pair; thread 0 also copies the slots that pair with
+// themselves
+template <typename T>
+__global__ void __launch_bounds__(THREADS)
+    coalesce_breakup_mirror_kernel(Args<T> x, int64_t K, unsigned* counter,
+                                   float* partials, float* sums) {
+  const int64_t p = (int64_t)blockIdx.x * THREADS + threadIdx.x;
+  float s[N_SUMS] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
+  if (p < sdm::mirror_pair_count(x.n, K)) {
+    int64_t o, po;
+    sdm::mirror_pair(x.n, K, p, &o, &po);
+    pair_update(x, o, po, s);
+  }
+  if (p == 0) {
+    for (int r = 0; r < 2; ++r) {
+      const int64_t slot = sdm::mirror_self_slot(x.n, K, r);
+      if (slot >= 0) x.keep(slot);
+    }
+  }
+  sdm::grid_sums<N_SUMS, THREADS>(s, counter, partials, sums);
+}
+
+// the blocks of a launch over n slots: one thread per pair, at most n / 2
+// pairs
+int64_t blocks_for(int64_t n) {
+  const int64_t pairs = n / 2;
+  return pairs > 0 ? (pairs + THREADS - 1) / THREADS : 1;
 }
 
 template <typename T>
-__global__ void __launch_bounds__(THREADS) coalesce_breakup_mirror_kernel(
-    const int64_t* __restrict__ mult, const T* __restrict__ ext, int n_ext,
-    int wm_index, const float* __restrict__ volume,
-    const float* __restrict__ radius, const float* __restrict__ vfall,
-    PairFunctions f, const float* __restrict__ scale, int64_t n, int64_t K,
-    uint32_t seed, float max_mult, int64_t* __restrict__ mult_out,
-    T* __restrict__ ext_out, float* __restrict__ partials) {
-  __shared__ float red[N_SUMS][THREADS];
-  const int64_t o = (int64_t)blockIdx.x * THREADS + threadIdx.x;
-  float sums[N_SUMS] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
-  if (o < n) {
-    int64_t po = K - o;
-    if (po < 0) po += n;
-    const int64_t a = mult[o];
-    const int64_t b = mult[po];
-    const bool in_pair = (a != 0) && (b != 0) && (po != o);
-    const bool isf = in_pair && (po > o);  // the pair's leader
-    // j = not-smaller multiplicity; ties go to the leader
-    const bool a_is_j = isf ? (a >= b) : (a > b);
-    const int64_t mj = a_is_j ? a : b;
-    const int64_t mk = a_is_j ? b : a;
-    const bool i_am_j = in_pair && a_is_j;
-
-    const float va = volume ? volume[o] : 0.0f, vb = volume ? volume[po] : 0.0f;
-    const float ra = radius ? radius[o] : 0.0f, rb = radius ? radius[po] : 0.0f;
-    const float ua = vfall ? vfall[o] : 0.0f, ub = vfall ? vfall[po] : 0.0f;
-    const float kn = mul(kernel_value(f, va, vb, ra, rb, ua, ub), scale[0]);
-    const float Ec = f.ec_id == EC_BERRY1967 ? berry_1967_ec(ra, rb) : f.ec0;
-    const float Eb = f.eb0;
-
-    const uint32_t pair_id = (uint32_t)(o < po ? o : po);
-    const float u_gamma = u01_hash(seed, pair_id);
-    const float u_proc = u01_hash(seed ^ SEED_PROCESS, pair_id);
-
-    const float mj_f = u64_to_f32((uint64_t)mj);
-    float gamma_f = jmax(ceilf(sub(mul(mj_f, kn), u_gamma)), 0.0f);
-    if (!in_pair) gamma_f = 0.0f;
-    const int64_t cap = (int64_t)fminf(gamma_f, BIG);
-    int64_t g = 0;
-    if (in_pair) {
-      const int64_t q = mj / mk;
-      g = q < cap ? q : cap;
-    }
-    const float gf = u32_to_f32((uint32_t)g);
-    const float mk_f = u64_to_f32((uint64_t)mk);
-
-    // process: bounce if u > Ec + (1 - Ec) Eb, coalesce if u < Ec, else
-    // break up
-    const bool active = in_pair && g > 0;
-    const bool bouncing = sub(u_proc, add(Ec, mul(sub(1.0f, Ec), Eb))) > 0.0f;
-    const bool do_coal = active && !bouncing && sub(u_proc, Ec) < 0.0f;
-    const bool do_break = active && !bouncing && !do_coal;
-
-    int64_t m_new = a;
-    bool split = false;
-    if (do_coal) {
-      // Shima update: xi_j -= gamma xi_k; an exhausted j takes half of k
-      const int64_t nn = mj - g * mk;
-      split = nn == 0;
-      const int64_t half = mk >> 1;
-      m_new = i_am_j ? (split ? half : nn) : (split ? mk - half : mk);
-    }
-    float gjk = 0.0f;
-    if (do_break) {
-      const float wj = (float)ext[(int64_t)wm_index * n + (i_am_j ? o : po)];
-      const float wk = (float)ext[(int64_t)wm_index * n + (i_am_j ? po : o)];
-      const float mass_j = fabsf(wj), mass_k = fabsf(wk);
-      const float mass_sum = add(mass_j, mass_k);
-      // the fragment mass sees the pair in slot order, as the TPU kernel's
-      const float w_own = (float)ext[(int64_t)wm_index * n + o];
-      const float w_oth = (float)ext[(int64_t)wm_index * n + po];
-      const float u_frag = u01_hash(seed ^ SEED_FRAGMENT, pair_id);
-      float fm = fragment_mass(f, fabsf(w_own), fabsf(w_oth), u_frag);
-      fm = (isnan(fm) || fm <= 0.0f) ? mass_sum : fm;
-      fm = jmin(fm, mass_sum);
-      fm = mass_sum <= 0.0f ? 1.0f : fm;
-      const Transfer t = transfer_closed_form(
-          gf, mj_f, jmax(mk_f, 1.0f), mass_j, mass_k, fm, max_mult);
-      gjk = t.g;
-      const bool deplete = t.take >= mj_f;
-      const float nj = deplete ? mul(t.nmk, 0.5f) : sub(mj_f, t.take);
-      const float nk = deplete ? mul(t.nmk, 0.5f) : t.nmk;
-      const float bj = jmax(rintf(nj), 1.0f);
-      const float bk = jmax(rintf(nk), 1.0f);
-      m_new = (int64_t)(i_am_j ? bj : bk);
-      const float nmk_safe = jmax(t.nmk, 1e-30f);
-      for (int r = 0; r < n_ext; ++r) {
-        const float ej = (float)ext[(int64_t)r * n + (i_am_j ? o : po)];
-        const float ek = (float)ext[(int64_t)r * n + (i_am_j ? po : o)];
-        const float ek_mix = dvd(add(mul(ek, mk_f), mul(t.take, ej)), nmk_safe);
-        const float e_new = i_am_j ? mul(deplete ? ek_mix : ej, dvd(nj, bj))
-                                   : mul(ek_mix, dvd(nk, bk));
-        ext_out[(int64_t)r * n + o] = (T)e_new;
-      }
-    } else {
-      for (int r = 0; r < n_ext; ++r) {
-        const float e_own = (float)ext[(int64_t)r * n + o];
-        float e_new = e_own;
-        if (do_coal) {
-          const float e_oth = (float)ext[(int64_t)r * n + po];
-          const float ej = i_am_j ? e_own : e_oth;
-          const float ek = i_am_j ? e_oth : e_own;
-          const float merged = add(ek, mul(gf, ej));
-          e_new = i_am_j ? (split ? merged : ej) : merged;
-        }
-        ext_out[(int64_t)r * n + o] = (T)e_new;
-      }
-    }
-    mult_out[o] = m_new;
-
-    if (isf) {
-      sums[0] = mul(gf, mk_f);
-      sums[1] = mul(sub(gamma_f, gf), mk_f);
-      if (do_coal) sums[2] = mul(gf, mk_f);
-      if (do_break) {
-        sums[3] = mul(gjk, mk_f);
-        sums[4] = mul(sub(gf, gjk), mk_f);
-      }
-    }
-  }
-  block_sums(red, sums);
-  if (threadIdx.x == 0) {
-    for (int s = 0; s < N_SUMS; ++s)
-      partials[(int64_t)s * gridDim.x + blockIdx.x] = red[s][0];
-  }
-}
-
-// second pass: sums the per-block partials in fixed order
-__global__ void __launch_bounds__(THREADS)
-    finish_sums_kernel(const float* __restrict__ partials, int n_blocks,
-                       float* __restrict__ out) {
-  __shared__ float red[N_SUMS][THREADS];
-  float x[N_SUMS] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
-  for (int i = threadIdx.x; i < n_blocks; i += THREADS) {
-    for (int s = 0; s < N_SUMS; ++s)
-      x[s] = __fadd_rn(x[s], partials[(int64_t)s * n_blocks + i]);
-  }
-  block_sums(red, x);
-  if (threadIdx.x == 0) {
-    for (int s = 0; s < N_SUMS; ++s) out[s] = red[s][0];
-  }
+int launch(Args<T> x, int64_t K, void* scratch, void* sums, cudaStream_t s) {
+  const int64_t blocks = blocks_for(x.n);
+  char* base = (char*)scratch;
+  coalesce_breakup_mirror_kernel<T><<<(unsigned)blocks, THREADS, 0, s>>>(
+      x, K, (unsigned*)base, (float*)(base + SCRATCH_HEAD), (float*)sums);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 extern "C" {
 
-// number of float partials the caller allocates for n slots
-long long pysdm_coalesce_breakup_mirror_partials(long long n) {
-  return N_SUMS * ((n + THREADS - 1) / THREADS);
+// bytes of scratch for n slots: the ticket counter, then the per-block
+// partial sums. The caller zeroes it once, when it allocates it, and keeps
+// it for the later calls on this stream (calls on one stream never
+// overlap; the counter is back at 0 after every launch).
+long long pysdm_coalesce_breakup_mirror_scratch_bytes(long long n) {
+  return SCRATCH_HEAD + 4 * N_SUMS * blocks_for(n);
 }
 
-// one substep; returns cudaGetLastError() after the launches (0 = success).
-// mult, mult_out: int64 (n,); ext, ext_out: (n_ext, n) float or double
-// (ext_is_f64), row wm_index the signed water mass; volume, radius, vfall:
-// float (n,) rows, NULL where the functions do not read them; f: the
-// functions (host memory); scale: float (1,) on the device; partials: float
-// (pysdm_coalesce_breakup_mirror_partials(n),); sums: float (5,) receives
-// the collision rate, its deficit, the coalescence rate, the breakup rate
-// and the breakup deficit.
+// one substep in one launch; returns cudaGetLastError() after it (0 =
+// success). mult, mult_out: int64 (n,); ext, ext_out: (n_ext, n) float or
+// double (ext_is_f64), row wm_index the signed water mass; volume, radius,
+// vfall: float (n,) rows, NULL where the functions do not read them; f: the
+// functions (host memory); scale: float (1,) on the device; scratch:
+// pysdm_coalesce_breakup_mirror_scratch_bytes(n) bytes; sums: float (5,)
+// receives the collision rate, its deficit, the coalescence rate, the
+// breakup rate and the breakup deficit.
 int pysdm_coalesce_breakup_mirror(
     const void* mult, const void* ext, int ext_is_f64, int n_ext,
     int wm_index, const void* volume, const void* radius, const void* vfall,
     const PairFunctions* f, const void* scale, long long n, long long K,
     unsigned int seed, float max_mult, void* mult_out, void* ext_out,
-    void* partials, void* sums, void* stream) {
-  const int n_blocks = (int)((n + THREADS - 1) / THREADS);
+    void* scratch, void* sums, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   if (ext_is_f64) {
-    coalesce_breakup_mirror_kernel<double><<<n_blocks, THREADS, 0, s>>>(
-        (const int64_t*)mult, (const double*)ext, n_ext, wm_index,
-        (const float*)volume, (const float*)radius, (const float*)vfall, *f,
-        (const float*)scale, n, K, seed, max_mult, (int64_t*)mult_out,
-        (double*)ext_out, (float*)partials);
-  } else {
-    coalesce_breakup_mirror_kernel<float><<<n_blocks, THREADS, 0, s>>>(
-        (const int64_t*)mult, (const float*)ext, n_ext, wm_index,
-        (const float*)volume, (const float*)radius, (const float*)vfall, *f,
-        (const float*)scale, n, K, seed, max_mult, (int64_t*)mult_out,
-        (float*)ext_out, (float*)partials);
+    return launch(Args<double>{(const int64_t*)mult, (const double*)ext,
+                               n_ext, wm_index, (const float*)volume,
+                               (const float*)radius, (const float*)vfall, *f,
+                               (const float*)scale, n, seed, max_mult,
+                               (int64_t*)mult_out, (double*)ext_out},
+                  K, scratch, sums, s);
   }
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  finish_sums_kernel<<<1, THREADS, 0, s>>>((const float*)partials, n_blocks,
-                                           (float*)sums);
-  return (int)cudaGetLastError();
+  return launch(Args<float>{(const int64_t*)mult, (const float*)ext, n_ext,
+                            wm_index, (const float*)volume,
+                            (const float*)radius, (const float*)vfall, *f,
+                            (const float*)scale, n, seed, max_mult,
+                            (int64_t*)mult_out, (float*)ext_out},
+                K, scratch, sums, s);
 }
 
 const char* pysdm_cuda_error_string(int code) {

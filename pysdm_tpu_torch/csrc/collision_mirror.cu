@@ -10,10 +10,20 @@
 // collision kernel is evaluated here from the volume row.
 //
 // Design:
-// - one thread per slot, 256-thread blocks. Both members of a pair read only
-//   the inputs and recompute the pair's arithmetic; each thread writes its
-//   own slot into separate output buffers, so no thread can read a value its
-//   partner has already updated;
+// - one thread per pair, not per slot. Pair p's thread takes the pair's
+//   leader o (the smaller slot; sdm_pair.cuh mirror_pair, in closed form)
+//   and its partner po, loads both slots once, computes the pair once and
+//   writes BOTH output slots. A warp's 32 pairs read and write 32
+//   consecutive leaders and, within each of the map's two runs, 32
+//   consecutive partners in descending order, so loads and stores stay
+//   coalesced. Outputs are separate buffers, so the slots that pair with
+//   themselves (thread 0 copies them) and the dead pairs get their
+//   unchanged copy;
+// - every load is issued before any branch on loaded data, so a pair waits
+//   for memory once; the int64 division only where gamma falls below its
+//   cap (a 128-bit product of the cap and xi_k decides; sdm_pair.cuh
+//   capped_quotient). At gamma = 0 k's rows still take e_k + 0 e_j, as the
+//   TPU kernel's do;
 // - multiplicities are native int64: gamma = min(cap, xi_j / xi_k) is an
 //   exact integer division. The TPU kernel has no 64-bit vector path and
 //   walks an f32 quotient estimate +-5 steps instead;
@@ -22,16 +32,21 @@
 //   on its own (__fmul_rn/__fadd_rn; the library is also built with
 //   -fmad=false), since a fused multiply-add would change ceil(prob - u)
 //   and e_k + gamma * e_j;
-// - the rate sums are deterministic: a fixed-order shared-memory tree per
-//   block writes per-block partials, and a one-block second pass sums them
-//   in fixed order. No float atomics.
+// - one launch: the rate and its deficit go per pair, warp and block in a
+//   fixed order into per-block partials, and the last block to finish adds
+//   them in a fixed block order (sdm_pair.cuh grid_sums); the coalescence
+//   rate is the collision rate. The wrapper keeps the ticket counter and
+//   the partials per device, stream and shape, zeroed once. No float
+//   atomics: two runs give the same bits.
+// Multiplicities and rows equal, bit for bit, the update computed at each
+// slot from that slot's view of the pair (the twin's form); the rate sums
+// are added in another order than the twin's.
 //
-// What bounds it on the card: per slot and substep it moves about 44 bytes
-// of device memory (own and partner multiplicity 16, extensive row 8 per
-// row, volume 8, writes of multiplicity 8 and extensive row 4) for some
-// 60 flops and one 64-bit division, so it is memory-bound; at 2^20 slots
-// that is ~46 MB, ~14 us at 3.35 TB/s, within reach of the launch overhead
-// of the ops around it.
+// What bounds it on the card: bytes. Each input read once and each output
+// written once, a slot moves 36 B with two float32 extensive rows
+// (multiplicity 8, rows 8 and volume 4 in; multiplicity 8 and rows 8 out),
+// 37.7 MB at 2^20 slots, 11.3 us at 3.35 TB/s, for some 60 flops and at
+// most one 64-bit division a pair. Measured times stand in PERF.md.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -40,7 +55,10 @@
 
 namespace {
 
-constexpr int THREADS = 256;
+constexpr int THREADS = 512;  // pairs a block
+// extensive rows of both slots loaded with the multiplicities
+constexpr int ROWS_AHEAD = 2;
+constexpr int SCRATCH_HEAD = 16;  // bytes before the partials: the counter
 constexpr float TWO_M24 = 5.9604644775390625e-08f;  // 2^-24
 
 using sdm::BIG;
@@ -77,148 +95,164 @@ __device__ __forceinline__ float kernel_value(int id, float p0, float p1,
   }
 }
 
-// fixed-order tree sum over the block; result valid in thread 0
-__device__ __forceinline__ void block_sum2(float (*red)[THREADS], float x0,
-                                           float x1) {
-  const int t = threadIdx.x;
-  red[0][t] = x0;
-  red[1][t] = x1;
-  __syncthreads();
-  for (int s = THREADS / 2; s > 0; s >>= 1) {
-    if (t < s) {
-      red[0][t] = __fadd_rn(red[0][t], red[0][t + s]);
-      red[1][t] = __fadd_rn(red[1][t], red[1][t + s]);
-    }
-    __syncthreads();
+template <typename T>
+struct Args {
+  const int64_t* __restrict__ mult;
+  const T* __restrict__ ext;
+  int n_ext;
+  const float* __restrict__ volume;
+  int kernel_id;
+  float p0, p1;
+  const float* __restrict__ scale;
+  int64_t n;
+  uint32_t seed;
+  int64_t* __restrict__ mult_out;
+  T* __restrict__ ext_out;
+
+  // a slot that keeps its values
+  __device__ void keep(int64_t slot) const {
+    mult_out[slot] = mult[slot];
+    for (int r = 0; r < n_ext; ++r)
+      ext_out[(int64_t)r * n + slot] = ext[(int64_t)r * n + slot];
   }
+};
+
+// the pair (o, po), o < po the leader: computed once, both slots written;
+// returns the pair's rate and deficit in s
+template <typename T>
+__device__ void pair_update(const Args<T>& x, int64_t o, int64_t po,
+                            float (&s)[2]) {
+  // every load first and none behind a branch on loaded data, so that the
+  // pair waits for memory once
+  const int64_t a = x.mult[o], b = x.mult[po];
+  const float va = x.volume[o], vb = x.volume[po];
+  T eo[ROWS_AHEAD], ep[ROWS_AHEAD];
+#pragma unroll
+  for (int r = 0; r < ROWS_AHEAD; ++r) {
+    eo[r] = r < x.n_ext ? x.ext[(int64_t)r * x.n + o] : T(0);
+    ep[r] = r < x.n_ext ? x.ext[(int64_t)r * x.n + po] : T(0);
+  }
+
+  const bool in_pair = a != 0 && b != 0;
+  // j = the not-smaller multiplicity; a tie goes to the leader
+  const bool o_is_j = a >= b;
+  const int64_t mj = o_is_j ? a : b, mk = o_is_j ? b : a;
+  const float kn =
+      __fmul_rn(kernel_value(x.kernel_id, x.p0, x.p1, va, vb), x.scale[0]);
+  const float u = u01_hash(x.seed, (uint32_t)o);
+  const float gamma_f = fmaxf(
+      ceilf(__fsub_rn(__fmul_rn(u64_to_f32((uint64_t)mj), kn), u)), 0.0f);
+  const int64_t cap = (int64_t)fminf(gamma_f, BIG);
+  // outside a pair or at cap = 0, g = 0 without the division
+  const int64_t g = in_pair && cap > 0 ? sdm::capped_quotient(mj, mk, cap) : 0;
+  const float gf = u32_to_f32((uint32_t)g);
+
+  // Shima update: xi_j -= gamma xi_k; k absorbs gamma copies of j; an
+  // exhausted j takes half of k's multiplicity. At gamma = 0 k's rows still
+  // take e_k + 0 e_j, as the TPU kernel's do
+  const int64_t nn = mj - g * mk;
+  const bool split = nn == 0 && g > 0;
+  const int64_t half = mk >> 1;
+  const int64_t m_j = split ? half : nn, m_k = split ? mk - half : mk;
+  x.mult_out[o] = in_pair ? (o_is_j ? m_j : m_k) : a;
+  x.mult_out[po] = in_pair ? (o_is_j ? m_k : m_j) : b;
+  auto put = [&](int r, T e_o, T e_p) {
+    const T ej = o_is_j ? e_o : e_p, ek = o_is_j ? e_p : e_o;
+    const T merged = merge_rn(ek, gf, ej);
+    const T new_j = split ? merged : ej;
+    x.ext_out[(int64_t)r * x.n + o] = in_pair ? (o_is_j ? new_j : merged) : e_o;
+    x.ext_out[(int64_t)r * x.n + po] = in_pair ? (o_is_j ? merged : new_j) : e_p;
+  };
+#pragma unroll
+  for (int r = 0; r < ROWS_AHEAD; ++r) {
+    if (r < x.n_ext) put(r, eo[r], ep[r]);
+  }
+  for (int r = ROWS_AHEAD; r < x.n_ext; ++r)
+    put(r, x.ext[(int64_t)r * x.n + o], x.ext[(int64_t)r * x.n + po]);
+  if (in_pair) {
+    const float mk_f = u64_to_f32((uint64_t)mk);
+    s[0] = __fmul_rn(gf, mk_f);
+    s[1] = __fmul_rn(__fsub_rn(gamma_f, gf), mk_f);
+  }
+}
+
+// one thread per pair; thread 0 also copies the slots that pair with
+// themselves. sums: the collision rate and its deficit, then the
+// coalescence rate, which in a coalescence-only substep is the first
+template <typename T>
+__global__ void __launch_bounds__(THREADS)
+    coalesce_mirror_kernel(Args<T> x, int64_t K, unsigned* counter,
+                           float* partials, float* sums) {
+  const int64_t p = (int64_t)blockIdx.x * THREADS + threadIdx.x;
+  float s[2] = {0.0f, 0.0f};
+  if (p < sdm::mirror_pair_count(x.n, K)) {
+    int64_t o, po;
+    sdm::mirror_pair(x.n, K, p, &o, &po);
+    pair_update(x, o, po, s);
+  }
+  if (p == 0) {
+    for (int r = 0; r < 2; ++r) {
+      const int64_t slot = sdm::mirror_self_slot(x.n, K, r);
+      if (slot >= 0) x.keep(slot);
+    }
+  }
+  if (sdm::grid_sums<2, THREADS>(s, counter, partials, sums) &&
+      threadIdx.x == 0) {
+    sums[2] = sums[0];
+  }
+}
+
+// the blocks of a launch over n slots: one thread per pair, at most n / 2
+// pairs
+int64_t blocks_for(int64_t n) {
+  const int64_t pairs = n / 2;
+  return pairs > 0 ? (pairs + THREADS - 1) / THREADS : 1;
 }
 
 template <typename T>
-__global__ void __launch_bounds__(THREADS) coalesce_mirror_kernel(
-    const int64_t* __restrict__ mult, const T* __restrict__ ext, int n_ext,
-    const float* __restrict__ volume, int kernel_id, float p0, float p1,
-    const float* __restrict__ scale, int64_t n, int64_t K, uint32_t seed,
-    int64_t* __restrict__ mult_out, T* __restrict__ ext_out,
-    float* __restrict__ partials) {
-  __shared__ float red[2][THREADS];
-  const int64_t o = (int64_t)blockIdx.x * THREADS + threadIdx.x;
-  float rate = 0.0f, deficit = 0.0f;
-  if (o < n) {
-    int64_t po = K - o;
-    if (po < 0) po += n;
-    const int64_t a = mult[o];
-    const int64_t b = mult[po];
-    const bool in_pair = (a != 0) && (b != 0) && (po != o);
-    const bool isf = in_pair && (po > o);  // the pair's leader
-    // j = not-smaller multiplicity; ties go to the leader
-    const bool a_is_j = isf ? (a >= b) : (a > b);
-    const int64_t mj = a_is_j ? a : b;
-    const int64_t mk = a_is_j ? b : a;
-
-    const float kn = __fmul_rn(
-        kernel_value(kernel_id, p0, p1, volume[o], volume[po]), scale[0]);
-    const float u = u01_hash(seed, (uint32_t)(o < po ? o : po));
-    float gamma_f = fmaxf(
-        ceilf(__fsub_rn(__fmul_rn(u64_to_f32((uint64_t)mj), kn), u)), 0.0f);
-    if (!in_pair) gamma_f = 0.0f;
-    const int64_t cap = (int64_t)fminf(gamma_f, BIG);
-    int64_t g = 0;
-    if (in_pair) {
-      const int64_t q = mj / mk;
-      g = q < cap ? q : cap;
-    }
-    const float gf = u32_to_f32((uint32_t)g);
-
-    // Shima update: xi_j -= gamma xi_k; k absorbs gamma copies of j; an
-    // exhausted j takes half of k's multiplicity
-    const int64_t nn = mj - g * mk;
-    const bool split = in_pair && nn == 0 && g > 0;
-    const int64_t half = mk >> 1;
-    const int64_t mj_new = split ? half : nn;
-    const int64_t mk_new = split ? mk - half : mk;
-    const bool i_am_j = in_pair && a_is_j;
-    mult_out[o] = in_pair ? (i_am_j ? mj_new : mk_new) : a;
-
-    for (int r = 0; r < n_ext; ++r) {
-      const T e_own = ext[(int64_t)r * n + o];
-      const T e_other = ext[(int64_t)r * n + po];
-      const T ej = i_am_j ? e_own : e_other;
-      const T ek = i_am_j ? e_other : e_own;
-      const T merged = merge_rn(ek, gf, ej);
-      const T e_new = i_am_j ? (split ? merged : ej) : merged;
-      ext_out[(int64_t)r * n + o] = in_pair ? e_new : e_own;
-    }
-
-    if (isf) {
-      const float mk_f = u64_to_f32((uint64_t)mk);
-      rate = __fmul_rn(gf, mk_f);
-      deficit = __fmul_rn(__fsub_rn(gamma_f, gf), mk_f);
-    }
-  }
-  block_sum2(red, rate, deficit);
-  if (threadIdx.x == 0) {
-    partials[blockIdx.x] = red[0][0];
-    partials[gridDim.x + blockIdx.x] = red[1][0];
-  }
-}
-
-// second pass: sums the per-block partials in fixed order; the coalescence
-// rate equals the collision rate in a coalescence-only substep
-__global__ void __launch_bounds__(THREADS)
-    finish_rates_kernel(const float* __restrict__ partials, int n_blocks,
-                        float* __restrict__ sums) {
-  __shared__ float red[2][THREADS];
-  float r = 0.0f, d = 0.0f;
-  for (int i = threadIdx.x; i < n_blocks; i += THREADS) {
-    r = __fadd_rn(r, partials[i]);
-    d = __fadd_rn(d, partials[n_blocks + i]);
-  }
-  block_sum2(red, r, d);
-  if (threadIdx.x == 0) {
-    sums[0] = red[0][0];
-    sums[1] = red[1][0];
-    sums[2] = red[0][0];
-  }
+int launch(Args<T> x, int64_t K, void* scratch, void* sums, cudaStream_t s) {
+  char* base = (char*)scratch;
+  coalesce_mirror_kernel<T><<<(unsigned)blocks_for(x.n), THREADS, 0, s>>>(
+      x, K, (unsigned*)base, (float*)(base + SCRATCH_HEAD), (float*)sums);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 extern "C" {
 
-// number of float partials the caller allocates for n slots
-long long pysdm_coalesce_mirror_partials(long long n) {
-  return 2 * ((n + THREADS - 1) / THREADS);
+// bytes of scratch for n slots: the ticket counter, then the per-block
+// partial sums. The caller zeroes it once, when it allocates it, and keeps
+// it for the later calls on this stream (calls on one stream never
+// overlap; the counter is back at 0 after every launch).
+long long pysdm_coalesce_mirror_scratch_bytes(long long n) {
+  return SCRATCH_HEAD + 4 * 2 * blocks_for(n);
 }
 
-// one substep; returns cudaGetLastError() after the launches (0 = success).
-// mult, mult_out: int64 (n,); ext, ext_out: (n_ext, n) float or double
-// (ext_is_f64); volume: float (n,); scale: float (1,) on the device;
-// partials: float (pysdm_coalesce_mirror_partials(n),); sums: float (3,)
+// one substep in one launch; returns cudaGetLastError() after it (0 =
+// success). mult, mult_out: int64 (n,); ext, ext_out: (n_ext, n) float or
+// double (ext_is_f64); volume: float (n,); scale: float (1,) on the device;
+// scratch: pysdm_coalesce_mirror_scratch_bytes(n) bytes; sums: float (3,)
 // receives the collision rate, rate deficit and coalescence rate.
 int pysdm_coalesce_mirror(const void* mult, const void* ext, int ext_is_f64,
                           int n_ext, const void* volume, int kernel_id,
                           float p0, float p1, const void* scale, long long n,
                           long long K, unsigned int seed, void* mult_out,
-                          void* ext_out, void* partials, void* sums,
+                          void* ext_out, void* scratch, void* sums,
                           void* stream) {
-  const int n_blocks = (int)((n + THREADS - 1) / THREADS);
   cudaStream_t s = (cudaStream_t)stream;
   if (ext_is_f64) {
-    coalesce_mirror_kernel<double><<<n_blocks, THREADS, 0, s>>>(
-        (const int64_t*)mult, (const double*)ext, n_ext,
-        (const float*)volume, kernel_id, p0, p1, (const float*)scale, n, K,
-        seed, (int64_t*)mult_out, (double*)ext_out, (float*)partials);
-  } else {
-    coalesce_mirror_kernel<float><<<n_blocks, THREADS, 0, s>>>(
-        (const int64_t*)mult, (const float*)ext, n_ext, (const float*)volume,
-        kernel_id, p0, p1, (const float*)scale, n, K, seed,
-        (int64_t*)mult_out, (float*)ext_out, (float*)partials);
+    return launch(Args<double>{(const int64_t*)mult, (const double*)ext,
+                               n_ext, (const float*)volume, kernel_id, p0, p1,
+                               (const float*)scale, n, seed,
+                               (int64_t*)mult_out, (double*)ext_out},
+                  K, scratch, sums, s);
   }
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  finish_rates_kernel<<<1, THREADS, 0, s>>>((const float*)partials, n_blocks,
-                                            (float*)sums);
-  return (int)cudaGetLastError();
+  return launch(Args<float>{(const int64_t*)mult, (const float*)ext, n_ext,
+                            (const float*)volume, kernel_id, p0, p1,
+                            (const float*)scale, n, seed, (int64_t*)mult_out,
+                            (float*)ext_out},
+                K, scratch, sums, s);
 }
 
 const char* pysdm_cuda_error_string(int code) {

@@ -67,7 +67,8 @@
 //   middle still overflows in expf (dt_sub = 1e30 s) the outcome is the
 //   same, three evaluations for 42; where it is nearer (a step of 1e12 s)
 //   the TPU kernel reports success with the mass of that middle, up to
-//   tonnes, and this kernel reports the failure (ROADMAP queue 3);
+//   tonnes, and this kernel reports the failure (ROADMAP, "a root beyond
+//   x_max");
 // - the per-cell rows (thd, qv, rhod, dt_sub, active, rho_air, mu_air) are
 //   read through the drop's cell id. The TPU kernel takes them expanded to
 //   drops (seven more rows) and the one-hot matmul that expanded them
@@ -79,7 +80,8 @@
 //   three land within rtol_x |x_old| of the same root but are not
 //   bit-equal. Both JAX rules take an exact zero for "root above" and walk
 //   the lower end up to the upper one, a bracket's width from the root; in
-//   float32 that happens to about one drop in 10^4 (ROADMAP queue 3);
+//   float32 that happens to about one drop in 10^4 (ROADMAP, "exact zero
+//   of minfun");
 // - the formula variants of the parcel slice are switches (diffusion
 //   coordinate, hygroscopicity, drop growth, diffusion kinetics); the
 //   wrapper refuses any other variant set. Constants come by value in

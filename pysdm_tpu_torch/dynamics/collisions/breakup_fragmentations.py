@@ -23,7 +23,8 @@ from ...ops.cuda.breakup import (
 
 _NOT_PORTED = (
     "{} is not ported: it runs only on the JAX package's float64 breakup"
-    " path (ops/breakup.py), ROADMAP queue 1, 'Still to port' item 2"
+    " path (ops/breakup.py), which is not ported (ROADMAP: the float64"
+    " breakup path)"
 )
 
 

@@ -90,7 +90,7 @@ _K5_FUNCTIONS = (
 )
 _NOT_PORTED = (
     "needs the JAX package's float64 breakup path (ops/breakup.py), which"
-    " is not ported (ROADMAP queue 1, 'Still to port' item 2)"
+    " is not ported (ROADMAP: the float64 breakup path)"
 )
 U01_PURPOSES = ("collision_shuffle", "collision_gamma")
 

@@ -10,7 +10,7 @@ Courant fields come from the env state (``courant_0..courant_{D-1}``),
 written there by the EulerianAdvection dynamic.
 
 Multi-device displacement (``distributed_x``, particle migration between
-slabs) comes with slice 6.
+slabs) comes with multi-GPU (ROADMAP).
 """
 
 from collections import namedtuple
@@ -37,7 +37,7 @@ class Displacement:
     ):
         if distributed_x is not None:
             raise NotImplementedError(
-                "distributed_x: multi-device displacement comes with slice 6"
+                "distributed_x: multi-device displacement comes with multi-GPU"
             )
         self.particulator = None
         self.enable_sedimentation = enable_sedimentation

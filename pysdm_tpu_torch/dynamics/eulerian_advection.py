@@ -117,5 +117,5 @@ class MPDATA_1D:
     def __init__(self, **_):
         raise NotImplementedError(
             "MPDATA_1D comes with config #4 (the Shipway and Hill 2012"
-            " column, ROADMAP queue 1)"
+            " column; ROADMAP: the 1D column (config #4))"
         )

@@ -1,6 +1,6 @@
-"""environments (parity: reference PySDM/environments/): ``Box`` (slice 1),
-``Parcel`` (slice 2) and ``Kinematic2D`` (slice 3); the 1D column comes
-with config #4"""
+"""environments (parity: reference PySDM/environments/): ``Box``,
+``Parcel`` and ``Kinematic2D``; the 1D column comes with the 1D column
+(config #4) in ROADMAP"""
 from .box import Box
 from .kinematic_2d import Kinematic2D
 from .parcel import Parcel

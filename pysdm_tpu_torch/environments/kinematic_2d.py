@@ -20,7 +20,8 @@ class Kinematic2D:
     def __init__(self, *, dt, grid, size, rhod_of, mixed_phase=False):
         if mixed_phase:
             raise NotImplementedError(
-                "the mixed-phase kinematic grid comes with slice 5"
+                "the mixed-phase kinematic grid comes with ice, chemistry and"
+                " isotopes (other dynamics)"
             )
         self.dt = dt
         self.mesh = Mesh(grid, size)

@@ -37,7 +37,7 @@ class Parcel:
         if mixed_phase:
             raise NotImplementedError(
                 "the mixed-phase parcel is not ported yet: it comes with"
-                " slice 5"
+                " ice, chemistry and isotopes (other dynamics)"
             )
         self.dt = dt
         self.mass_of_dry_air = mass_of_dry_air

@@ -39,7 +39,7 @@ EXTENSIVE_NAMES = (
 )
 
 # max-merged attributes of the JAX package (freezing records); they come with
-# slice 5
+# ice, chemistry and isotopes (other dynamics)
 MAXIMUM_NAMES = (
     "freezing temperature",
     "temperature of last freezing",
@@ -97,7 +97,7 @@ class AttributeResolver:
             if f.ventilation.variant != "Neglect":
                 raise NotImplementedError(
                     "the Reynolds number of ventilation variants other than"
-                    " Neglect is ROADMAP queue 1 item 3"
+                    " Neglect come with the rest of physics/ (ROADMAP)"
                 )
             return torch.zeros_like(state.ext("signed water mass"))
         if name == "critical volume":

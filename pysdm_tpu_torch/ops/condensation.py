@@ -300,7 +300,7 @@ def drop_solve(
             # the old xa becomes the other end
             same = (ft > 0) == (fxa > 0)
             # an exact zero is the root: the global rule below takes it for
-            # "root above" and walks lo up to hi (ROADMAP queue 3)
+            # "root above" and walks lo up to hi (ROADMAP, "exact zero of minfun")
             at_root = ft == 0
             xc = torch.where(update, torch.where(same, xa, xb), xc)
             fxc = torch.where(update, torch.where(same, fxa, fxb), fxc)

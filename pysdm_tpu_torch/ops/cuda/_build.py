@@ -15,6 +15,8 @@ import pathlib
 import shutil
 import subprocess
 
+import torch
+
 _PACKAGE = pathlib.Path(__file__).resolve().parents[2]
 CSRC = _PACKAGE / "csrc"
 BUILD_DIR = _PACKAGE.parent / "build" / "pysdm_tpu_torch"
@@ -81,3 +83,26 @@ def load(name):
             )
         os.replace(tmp, target)
     return ctypes.CDLL(str(target))
+
+
+def scratch(table, key, n_bytes, device, entries):
+    """a zeroed-once device buffer of ``n_bytes()`` bytes kept in ``table``
+    under ``key`` (the device index, the stream and what fixes the buffer's
+    layout), and the number of launches made with it, this one included:
+    ``[buffer, generation]``. A kernel's one-launch scheme keeps its ticket
+    counter (and flags) there: launches on one stream never overlap, so
+    they can share one buffer, and no launch clears it. ``table`` keeps at
+    most ``entries`` buffers in the order of last use and drops the one used
+    longest ago to make room. A stream's handle that CUDA hands out again
+    after the stream was destroyed finds the old stream's entry: its
+    generations go on rising, so no stale flag passes for a new one."""
+    entry = table.pop(key, None)
+    if entry is None or entry[1] == 2**32 - 1:
+        if len(table) >= entries:
+            del table[next(iter(table))]
+        # allocated under the current stream, so the caching allocator
+        # orders a later reuse of the memory after this stream's launches
+        entry = [torch.zeros(n_bytes(), dtype=torch.uint8, device=device), 0]
+    table[key] = entry
+    entry[1] += 1
+    return entry

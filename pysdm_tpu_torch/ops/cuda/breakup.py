@@ -28,8 +28,13 @@ Extensive rows pass through float32 on every substep, as in the TPU kernel
 (``breakup.py:370``, ``:449``), at every slot and whatever the state's
 dtype; the wrapper hands them back in the state's dtype. gamma is an exact
 int64 division, where the TPU kernel walks an f32 quotient estimate +-5
-steps (ROADMAP queue 3). The port takes these semantics at every N; the JAX
+steps (ROADMAP, "large-quotient γ"). The port takes these semantics at every N; the JAX
 package takes K5 only at N % 32768 == 0.
+
+The kernel takes one thread per pair (``collision.mirror_pairs``), computes
+the pair once and writes both slots, evaluates Ec, Eb, the fragment mass
+and the transfer only where gamma > 0 and sums the rates in the same launch
+(the last block to finish adds the blocks' partials in a fixed order).
 
 The twin follows the TPU kernel's float32 rounding order; its scalar
 constants are float32 tensors, so every division is a true division on the
@@ -47,6 +52,7 @@ from . import _build
 from .collision import (
     _BIG,
     _M32,
+    _SCRATCH_ENTRIES,
     CONSTANT_K,
     GEOMETRIC,
     GOLOVIN,
@@ -91,6 +97,9 @@ BERRY_1967_PARAMS = (1, 1, -27, 1.65, -58, 1.9, 15, 1.13, 16.7, 1, 0.004, 4, 8)
 
 _SEED_PROCESS = 0xA5A5A5A5
 _SEED_FRAGMENT = 0x3C3C3C3C
+# (device index, stream, n) -> [scratch buffer, launches]: K5's ticket
+# counter and per-block partial sums (``_build.scratch``)
+_SCRATCH = {}
 
 
 def _const(value, like):
@@ -477,8 +486,10 @@ def library():
         ctypes.c_uint, ctypes.c_float, vp, vp, vp, vp, vp,
     ]
     lib.pysdm_coalesce_breakup_mirror.restype = ctypes.c_int
-    lib.pysdm_coalesce_breakup_mirror_partials.argtypes = [ctypes.c_longlong]
-    lib.pysdm_coalesce_breakup_mirror_partials.restype = ctypes.c_longlong
+    lib.pysdm_coalesce_breakup_mirror_scratch_bytes.argtypes = [
+        ctypes.c_longlong
+    ]
+    lib.pysdm_coalesce_breakup_mirror_scratch_bytes.restype = ctypes.c_longlong
     lib.pysdm_cuda_error_string.argtypes = [ctypes.c_int]
     lib.pysdm_cuda_error_string.restype = ctypes.c_char_p
     return lib
@@ -497,19 +508,20 @@ def _launch(mult, ext, wm_index, attrs, functions, scale, K, seed, max_multiplic
 
     mult_out = torch.empty_like(mult)
     ext_out = torch.empty_like(ext)
-    partials = torch.empty(
-        lib.pysdm_coalesce_breakup_mirror_partials(n), dtype=torch.float32,
-        device=mult.device,
-    )
     sums = torch.empty(5, dtype=torch.float32, device=mult.device)
     with torch.cuda.device(mult.device):
         stream = torch.cuda.current_stream().cuda_stream
+        scratch = _build.scratch(
+            _SCRATCH, (mult.device.index, stream, n),
+            lambda: lib.pysdm_coalesce_breakup_mirror_scratch_bytes(n),
+            mult.device, _SCRATCH_ENTRIES,
+        )[0]
         err = lib.pysdm_coalesce_breakup_mirror(
             mult.data_ptr(), ext.data_ptr(), int(ext.dtype == torch.float64),
             ext.shape[0], int(wm_index), pointer("volume"), pointer("radius"),
             pointer("relative fall velocity"), ctypes.byref(c_functions),
             scale.data_ptr(), n, int(K), int(seed), float(max_multiplicity),
-            mult_out.data_ptr(), ext_out.data_ptr(), partials.data_ptr(),
+            mult_out.data_ptr(), ext_out.data_ptr(), scratch.data_ptr(),
             sums.data_ptr(), stream,
         )
     if err != 0:

@@ -19,10 +19,15 @@ different random streams.
 
 gamma is exact here (native int64 division). The TPU kernel walks an f32
 quotient estimate +-5 steps, which misses the exact floor when
-floor(xi_j/xi_k) is above ~2^26 and below the cap; see ROADMAP.md, queue 3.
+floor(xi_j/xi_k) is above ~2^26 and below the cap; see ROADMAP.md,
+"large-quotient γ".
 
-Bound on the card: ~44 bytes of device memory per slot per substep for ~60
-flops, so the kernel is memory- and launch-bound at 2^20 slots.
+The kernel takes one thread per pair (``mirror_pairs`` is its map from a
+pair's index to its slots), computes the pair once and writes both slots,
+and sums the rates in the same launch (the last block to finish adds the
+blocks' partials in a fixed order). Bound on the card: bytes, 36 B per slot
+per substep with two float32 extensive rows (each input read once, each
+output written once).
 
 K2 replaces the TPU kernel ``fused_coalesce``
 (``pysdm_tpu/ops/pallas/collision.py:721``, body ``_coalesce_kernel``
@@ -49,6 +54,31 @@ MIRROR_KERNELS = (GOLOVIN, CONSTANT_K, LINEAR)
 
 _BIG = float(2**31 - 128)
 _M32 = 0xFFFFFFFF
+# (device index, stream, n) -> [scratch buffer, launches]: K1's ticket
+# counter and per-block partial sums (``_build.scratch``)
+_SCRATCH = {}
+_SCRATCH_ENTRIES = 64
+
+
+def mirror_pairs(n, K):
+    """the map the mirror kernels (K1, K5) take from a pair's index to its
+    slots, as ``csrc/sdm_pair.cuh`` ``mirror_pair`` and
+    ``mirror_self_slot`` compute it: (leaders, partners, self-paired slots)
+    as int64 tensors. Slot o pairs with (K - o) mod n; pair p has the p-th
+    leader o < (K - o) mod n, the leaders in two runs, [0, (K + 1) // 2)
+    with partner K - o and from K + 1 on, (n - K - 1) // 2 of them, with
+    partner n + K - o. The slots K / 2 and (n + K) / 2, where they are
+    integers, pair with themselves. Nothing on the main path calls it; the
+    tests hold it against the croupier's definition."""
+    first = (K + 1) // 2
+    p = torch.arange(first + (n - K - 1) // 2, dtype=torch.int64)
+    leaders = torch.where(p < first, p, K + 1 + (p - first))
+    partners = torch.where(p < first, K - p, n + K - leaders)
+    selves = torch.tensor(
+        [twice // 2 for twice in (K, n + K) if twice % 2 == 0],
+        dtype=torch.int64,
+    )
+    return leaders, partners, selves
 
 
 def _mul_u32(h, c):
@@ -202,8 +232,8 @@ def library():
         ctypes.c_longlong, ctypes.c_uint, vp, vp, vp, vp, vp,
     ]
     lib.pysdm_coalesce_mirror.restype = ctypes.c_int
-    lib.pysdm_coalesce_mirror_partials.argtypes = [ctypes.c_longlong]
-    lib.pysdm_coalesce_mirror_partials.restype = ctypes.c_longlong
+    lib.pysdm_coalesce_mirror_scratch_bytes.argtypes = [ctypes.c_longlong]
+    lib.pysdm_coalesce_mirror_scratch_bytes.restype = ctypes.c_longlong
     lib.pysdm_cuda_error_string.argtypes = [ctypes.c_int]
     lib.pysdm_cuda_error_string.restype = ctypes.c_char_p
     return lib
@@ -219,19 +249,20 @@ def _launch(mult, ext, volume, kernel_id, params, scale, K, seed):
     volume = volume.contiguous()
     mult_out = torch.empty_like(mult)
     ext_out = torch.empty_like(ext)
-    partials = torch.empty(
-        lib.pysdm_coalesce_mirror_partials(n), dtype=torch.float32,
-        device=mult.device,
-    )
     sums = torch.empty(3, dtype=torch.float32, device=mult.device)
     with torch.cuda.device(mult.device):
         stream = torch.cuda.current_stream().cuda_stream
+        scratch = _build.scratch(
+            _SCRATCH, (mult.device.index, stream, n),
+            lambda: lib.pysdm_coalesce_mirror_scratch_bytes(n), mult.device,
+            _SCRATCH_ENTRIES,
+        )[0]
         err = lib.pysdm_coalesce_mirror(
             mult.data_ptr(), ext.data_ptr(), int(ext.dtype == torch.float64),
             ext.shape[0], volume.data_ptr(), int(kernel_id),
             float(params[0]), float(params[1]), scale.data_ptr(), n, int(K),
             int(seed), mult_out.data_ptr(), ext_out.data_ptr(),
-            partials.data_ptr(), sums.data_ptr(), stream,
+            scratch.data_ptr(), sums.data_ptr(), stream,
         )
     if err != 0:
         msg = lib.pysdm_cuda_error_string(err).decode()

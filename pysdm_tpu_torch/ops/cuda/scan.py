@@ -83,24 +83,12 @@ def library():
 
 def _scratch(lib, device, stream, rows, n):
     """the zeroed-once flag buffer of this device, stream and shape, and the
-    next generation number on it. A stream's handle that CUDA hands out
-    again after the stream was destroyed finds the old stream's entry:
-    its generations go on rising, so no stale flag passes for a new one."""
-    key = (device.index, stream, rows, n)
-    entry = _SCRATCH.pop(key, None)
-    if entry is None or entry[1] == 2**32 - 1:
-        if len(_SCRATCH) >= _SCRATCH_ENTRIES:
-            del _SCRATCH[next(iter(_SCRATCH))]
-        # allocated under the current stream, so the caching allocator
-        # orders a later reuse of the memory after this stream's launches
-        buffer = torch.zeros(
-            lib.pysdm_cumsum_scratch_bytes(rows, n), dtype=torch.uint8,
-            device=device,
-        )
-        entry = [buffer, 0]
-    _SCRATCH[key] = entry
-    entry[1] += 1
-    return entry
+    next generation number on it (``_build.scratch``)"""
+    return _build.scratch(
+        _SCRATCH, (device.index, stream, rows, n),
+        lambda: lib.pysdm_cumsum_scratch_bytes(rows, n), device,
+        _SCRATCH_ENTRIES,
+    )
 
 
 def _launch(x):

@@ -8,7 +8,7 @@ deterministic on every device: the values are sorted by their segment
 own in the backend's float dtype (``torch.segment_reduce``). A float
 ``index_add_`` or ``scatter_add_`` adds in another order from run to run on
 CUDA, and a float32 prefix difference loses the small segments next to
-large ones (ROADMAP queue 3).
+large ones (ROADMAP, "float32 per-cell sums by prefix difference").
 """
 
 import torch

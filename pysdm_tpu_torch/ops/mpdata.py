@@ -15,7 +15,7 @@ reference's examples use: ``n_iters``, ``infinite_gauge``,
 The fields are small (625 cells in the 2D warm rain), so the step is a few
 hundred elementwise launches and no kernel of its own. Halo pads across
 devices (the JAX package's ``('shard', axis)`` boundary conditions) are
-not ported: they come with slice 6 (multi-device).
+not ported: they come with multi-GPU (ROADMAP).
 """
 
 import torch
@@ -33,7 +33,7 @@ def _pad1(arr, axis, bc, depth=1):
     copies (extrapolated)"""
     if isinstance(bc, tuple):
         raise NotImplementedError(
-            f"boundary condition {bc!r}: shard halos come with slice 6"
+            f"boundary condition {bc!r}: shard halos come with multi-GPU"
         )
     n = arr.shape[axis]
     if bc == PERIODIC:

@@ -1,7 +1,7 @@
 """Transition-regime corrections for condensational growth: the
 ``FuchsSutugin`` and ``Neglect`` variants of
 ``pysdm_tpu/physics/diffusion_kinetics.py``. The other variants come with
-ROADMAP queue 1 item 3."""
+the rest of physics/ (ROADMAP)."""
 
 from . import _xp
 

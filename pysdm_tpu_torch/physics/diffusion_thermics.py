@@ -1,7 +1,7 @@
 """Temperature and pressure dependence of vapour diffusivity and thermal
 conductivity: the ``Neglect`` variant of
 ``pysdm_tpu/physics/diffusion_thermics.py``. The other variants come with
-ROADMAP queue 1 item 3."""
+the rest of physics/ (ROADMAP)."""
 
 
 class Neglect:

@@ -2,10 +2,11 @@
 variant per physics family, bound to a frozen constants namespace.
 
 The port binds the families the box, parcel, 2D warm-rain and breakup
-slices read, with the JAX package's defaults (``pysdm_tpu/physics/formulae.py:86-118``). Choosing a
-variant the port does not have yet raises ``NotImplementedError`` naming
-the ROADMAP item or slice that brings it; so does choosing any variant of a
-family the port does not bind yet.
+configurations read, with the JAX package's defaults
+(``pysdm_tpu/physics/formulae.py:86-118``). Choosing a variant the port
+does not have yet raises ``NotImplementedError`` naming, by its title, the
+ROADMAP item that brings it; so does choosing any variant of a family the
+port does not bind yet.
 """
 
 import os
@@ -26,13 +27,15 @@ from .constants import make_constants
 from .particle_shape_and_density import VARIANTS as SHAPE_VARIANTS
 from .trivia import Trivia
 
-_SLICE_5 = "slice 5 (ice, chemistry, isotopes, optics)"
-_PHYSICS = "ROADMAP queue 1 item 3 (the rest of physics/)"
+_OTHER_DYNAMICS = "ROADMAP: ice, chemistry and isotopes (other dynamics)"
+_PHYSICS = "ROADMAP: the rest of physics/"
 
 # family -> (ported variants, default, where the other variants come from)
 _FAMILIES = {
     "trivia": ({"Trivia": Trivia}, "Trivia", None),
-    "particle_shape_and_density": (SHAPE_VARIANTS, "LiquidSpheres", _SLICE_5),
+    "particle_shape_and_density": (
+        SHAPE_VARIANTS, "LiquidSpheres", _OTHER_DYNAMICS,
+    ),
     "diffusion_coordinate": (
         misc_families.DIFFUSION_COORDINATE_VARIANTS, "WaterMassLogarithm",
         _PHYSICS,
@@ -79,7 +82,7 @@ _FAMILIES = {
 
 # families of the JAX package that the port does not bind yet
 _LATER_FAMILIES = {
-    name: _SLICE_5
+    name: _OTHER_DYNAMICS
     for name in (
         "latent_heat_sublimation", "diffusion_ice_kinetics",
         "diffusion_ice_capacity", "freezing_temperature_spectrum",

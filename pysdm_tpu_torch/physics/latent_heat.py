@@ -1,6 +1,6 @@
 """Latent heat of vapourisation: the ``Kirchhoff`` variant of
-``pysdm_tpu/physics/latent_heat.py``. The other variants come with ROADMAP
-queue 1 item 3."""
+``pysdm_tpu/physics/latent_heat.py``. The other variants come with the rest
+of physics/ (ROADMAP)."""
 
 
 class Kirchhoff:

@@ -1,6 +1,7 @@
 """Particle shape & density variants (parity: reference
-``PySDM/physics/particle_shape_and_density/``). The box slice ports
-``LiquidSpheres``; the mixed-phase and ice variants arrive with slice 5."""
+``PySDM/physics/particle_shape_and_density/``). The port has
+``LiquidSpheres``; the mixed-phase and ice variants arrive with ice,
+chemistry and isotopes (other dynamics; ROADMAP)."""
 
 
 class LiquidSpheres:

@@ -1,7 +1,7 @@
 """Saturation vapour pressure: the ``FlatauWalkoCotton`` variant of
 ``pysdm_tpu/physics/saturation_vapour_pressure.py`` (Flatau et al. 1992
-polynomial fits in Horner form). The other variants come with ROADMAP queue
-1 item 3."""
+polynomial fits in Horner form). The other variants come with the rest of
+physics/ (ROADMAP)."""
 
 
 class FlatauWalkoCotton:

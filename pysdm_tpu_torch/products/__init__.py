@@ -1,6 +1,6 @@
 """Products (diagnostics), port of ``pysdm_tpu/products/``: the ones the
-de Jong/Mackay 2023 breakup box reads. The others are ROADMAP queue 1,
-'Still to port' item 3."""
+de Jong/Mackay 2023 breakup box reads. The others come with the rest
+of the products (ROADMAP)."""
 
 from .impl import Product
 from .collision import (

@@ -12,7 +12,14 @@ The collision and coalescence counters add float32 sums of each substep's
 pair rates, which the two packages sum in another order: past 2^24 a sum
 rounds differently, so those counters agree to rtol 1e-5, the kernel
 test's bound for the rate sums.
+
+``test_box_trace_replay`` replays the ``box`` block of
+``tests/data/parity_traces.json`` (16 drops, ConstantK, 8 steps under u01
+injection, which takes the sort croupier) on the port.
 """
+
+import json
+import os
 
 import jax
 import jax.numpy as jnp
@@ -31,7 +38,10 @@ from pysdm_tpu.initialisation import spectra as jax_spectra
 import pysdm_tpu_torch
 from pysdm_tpu_torch.backends import CPU
 from pysdm_tpu_torch.dynamics import Coalescence
-from pysdm_tpu_torch.dynamics.collisions.collision_kernels import Golovin
+from pysdm_tpu_torch.dynamics.collisions.collision_kernels import (
+    ConstantK,
+    Golovin,
+)
 from pysdm_tpu_torch.environments import Box
 from pysdm_tpu_torch.impl.state import ParticleState
 from pysdm_tpu_torch.initialisation.sampling.spectral_sampling import (
@@ -41,6 +51,10 @@ from pysdm_tpu_torch.initialisation.spectra import Exponential
 from pysdm_tpu_torch.physics import si
 
 N_SD = 2**15
+DATA = os.path.join(
+    os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+    "data", "parity_traces.json",
+)
 RATE_COUNTERS = ("collision_rate", "coalescence_rate")
 
 
@@ -203,3 +217,40 @@ def test_port_adaptive_beats_nonadaptive_at_large_dt():
             np.sqrt(np.mean(((measured - analytic) / scale) ** 2))
         )
     assert errs[True] < errs[False]
+
+
+def test_box_trace_replay():
+    """the committed ``box`` trace on the port's CPU float64 backend, as
+    ``tools/make_parity_traces.py`` ``run_box_ours`` drives the JAX
+    package: the shuffle row and the pairwise-repeated gamma draws of each
+    step injected, ConstantK, non-adaptive. The trace's own bounds
+    (``tests/unit/test_parity_traces.py``): multiplicities equal, volumes
+    to rtol 1e-12, at every step."""
+    with open(DATA) as f:
+        block = json.load(f)["box"]
+    case = block["case"]
+    builder = pysdm_tpu_torch.Builder(
+        n_sd=case["n_sd"], backend=CPU(pysdm_tpu_torch.Formulae(**case["formulae"])),
+        environment=Box(dt=case["env"]["dt"], dv=case["env"]["dv"]),
+    )
+    builder.enable_u01_injection()
+    builder.add_dynamic(Coalescence(
+        collision_kernel=ConstantK(a=case["kernel"]["a"]), adaptive=False
+    ))
+    particulator = builder.build({
+        "multiplicity": np.asarray(case["multiplicity"]),
+        "volume": np.asarray(case["volume"]),
+    })
+    assert len(block["expected"]) == case["n_steps"] == 8
+    for step, expected in enumerate(block["expected"]):
+        particulator.inject_u01({
+            "collision_shuffle": np.asarray(case["shuffle_u01"]),
+            "collision_gamma": np.repeat(np.asarray(case["gamma_rand"][step]), 2),
+        })
+        particulator.run(1)
+        np.testing.assert_array_equal(
+            particulator.attributes["multiplicity"], expected["multiplicity"]
+        )
+        np.testing.assert_allclose(
+            particulator.attributes["volume"], expected["volume"], rtol=1e-12
+        )

@@ -239,9 +239,9 @@ def test_counter_without_dtype_takes_the_backends():
 
 def test_multi_cell_and_other_ventilation_are_refused():
     """other ventilation variants are still refused; multi-cell
-    condensation is not any more (slice 3): it registers per-cell
+    condensation is not any more: it registers per-cell
     counters"""
-    with pytest.raises(NotImplementedError, match="queue 1 item 3"):
+    with pytest.raises(NotImplementedError, match="the rest of physics/"):
         pysdm_tpu_torch.Formulae(ventilation="Froessling1938")
     builder = pysdm_tpu_torch.Builder(
         n_sd=4, backend=CPU(pysdm_tpu_torch.Formulae(seed=1)),

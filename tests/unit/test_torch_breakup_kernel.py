@@ -358,7 +358,7 @@ def test_apply_limiters_matches_jax_package():
     ),
 )
 def test_functions_outside_k5_raise(cls):
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1"):
+    with pytest.raises(NotImplementedError, match="the float64 breakup path"):
         cls()
 
 

@@ -7,14 +7,17 @@ Tolerances: multiplicities equal at coalescing, bouncing and idle slots; at
 breakup slots equal on > 99.9% of all slots and within rel 1e-4 elsewhere
 (the float32 transfer runs through expf/logf/log1pf, which the kernel and
 torch's CUDA ops may round an ulp apart); extensive rows to rtol 1e-6 where
-the multiplicities agree; the five sums to rtol 1e-5 (a fixed block tree
-against torch.sum).
+the multiplicities agree; the five sums to rtol 1e-5 (a fixed order over
+pairs, warps and blocks against torch.sum). At every K of a small n, ξ and
+rows bit-equal to the twin. Launches on the same inputs are bit-equal, rate
+sums included, alone or queued on two streams at once.
 """
 
 import numpy as np
 import pytest
 import torch
 
+import chip_smoke
 from pysdm_tpu_torch.dynamics.collisions import breakup_efficiencies as be
 from pysdm_tpu_torch.dynamics.collisions import breakup_fragmentations as bf
 from pysdm_tpu_torch.dynamics.collisions import coalescence_efficiencies as ce
@@ -101,6 +104,32 @@ def test_kernel_matches_twin_on_card(device, n, n_ext, ext_dtype, name):
     np.testing.assert_allclose(got[1][:, same], want[1][:, same], rtol=1e-6)
     for g, w in zip(got[2:], want[2:]):
         np.testing.assert_allclose(g, w, rtol=1e-5)
+
+
+@pytest.mark.parametrize("n", (17, 256))
+@pytest.mark.parametrize("name", ("config2", "mixed"))
+def test_every_K_of_a_small_n_matches_twin_bit_for_bit(device, n, name):
+    """odd n and the slots that pair with themselves are where a map from
+    pair index to slots breaks"""
+    for K in range(n):
+        args = _args(n, K, name, 2, np.float32, device, seed=n + K)
+        got = port.coalesce_breakup_mirror(*args)
+        want = port.coalesce_breakup_mirror_reference(*args)
+        assert torch.equal(got[0], want[0]), K
+        assert torch.equal(got[1].view(torch.int32), want[1].view(torch.int32)), K
+        for g, w in zip(got[2:], want[2:]):
+            np.testing.assert_allclose(g.item(), w.item(), rtol=1e-5)
+
+
+def test_launches_are_deterministic_alone_and_on_two_streams(device):
+    """three launches on the same inputs bit-equal, rate sums included; two
+    inputs' launches queued on two streams at once (each stream has its own
+    ticket counter and partials) bit-equal to the launches alone"""
+    n = 2**18 + 3
+    inputs = [
+        _args(n, K, "config2", 1, np.float32, device, seed=K) for K in (5, 77)
+    ]
+    chip_smoke.check_deterministic(torch, port.coalesce_breakup_mirror, inputs, "K5")
 
 
 def test_kernel_refuses_unknown_ids(device):

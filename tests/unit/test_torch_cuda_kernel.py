@@ -4,14 +4,18 @@ where torch sees no CUDA device; run on a GPU host with
 ``python -m pytest tests -m cuda``.
 
 Tolerances: multiplicities exactly; extensive rows to rtol 1e-6 (float32) or
-1e-12 (float64); rate sums to rtol 1e-5 (the kernel sums per block in a
-fixed tree order, the twin with torch.sum).
+1e-12 (float64), and bit for bit at every K of a small n (the kernel and the
+twin round the same products and sums once each); rate sums to rtol 1e-5
+(the kernel sums per pair, warp and block in a fixed order, the twin with
+torch.sum). Launches on the same inputs are bit-equal, rate sums included,
+alone or queued on two streams at once.
 """
 
 import numpy as np
 import pytest
 import torch
 
+import chip_smoke
 from pysdm_tpu_torch.ops.cuda import collision as port
 
 pytestmark = pytest.mark.cuda
@@ -65,6 +69,40 @@ def test_kernel_matches_twin_on_card(device, n, ext_dtype, kernel_id, params):
     np.testing.assert_allclose(got[1], expected[1], rtol=rtol)
     for g, e in zip(got[2:], expected[2:]):
         np.testing.assert_allclose(g, e, rtol=1e-5)
+
+
+def _on(device, mult, ext, volume, K, kernel_id=port.GOLOVIN, params=(1.5e3, 0.0)):
+    """the wrapper's arguments on ``device``"""
+    return (
+        *(torch.from_numpy(a).to(device) for a in (mult, ext, volume)),
+        kernel_id, params,
+        torch.tensor([2e-3], dtype=torch.float32, device=device), K, 987654321,
+    )
+
+
+@pytest.mark.parametrize("n", (17, 256))
+def test_every_K_of_a_small_n_matches_twin_bit_for_bit(device, n):
+    """odd n and the slots that pair with themselves are where a map from
+    pair index to slots breaks: ξ and rows bit-equal to the twin at every K"""
+    for K in range(n):
+        args = _on(device, *_state(n, K, np.float32, seed=n + K), K)
+        got = port.coalesce_mirror(*args)
+        want = port.coalesce_mirror_reference(*args)
+        assert torch.equal(got[0], want[0]), K
+        assert torch.equal(got[1].view(torch.int32), want[1].view(torch.int32)), K
+        for g, w in zip(got[2:], want[2:]):
+            np.testing.assert_allclose(g.item(), w.item(), rtol=1e-5)
+
+
+def test_launches_are_deterministic_alone_and_on_two_streams(device):
+    """three launches on the same inputs bit-equal, rate sums included; two
+    inputs' launches queued on two streams at once (each stream has its own
+    ticket counter and partials) bit-equal to the launches alone"""
+    n = 2**18 + 3
+    inputs = [
+        _on(device, *_state(n, K, np.float32, seed=K), K) for K in (5, 77)
+    ]
+    chip_smoke.check_deterministic(torch, port.coalesce_mirror, inputs, "K1")
 
 
 def test_wrapper_rejects_mixed_devices(device):

@@ -152,5 +152,5 @@ def test_courant_lookup_clamps_like_the_jax_package():
 
 
 def test_distributed_displacement_is_refused():
-    with pytest.raises(NotImplementedError, match="slice 6"):
+    with pytest.raises(NotImplementedError, match="multi-GPU"):
         pysdm_tpu_torch.dynamics.Displacement(distributed_x={"axis_name": "x"})

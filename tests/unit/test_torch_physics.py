@@ -165,16 +165,25 @@ def test_one_body_serves_floats_numpy_and_tensors(family, variant, name, args):
         )
 
 
-@pytest.mark.parametrize("family, variant, later", (
-    ("saturation_vapour_pressure", "AugustRocheMagnus", "queue 1 item 3"),
-    ("latent_heat_vapourisation", "Lowe2019", "queue 1 item 3"),
-    ("diffusion_kinetics", "PruppacherKlett", "queue 1 item 3"),
-    ("diffusion_thermics", "TracyWelchPorter", "queue 1 item 3"),
-    ("surface_tension", "CompressedFilmOvadnevaite", "queue 1 item 3"),
-    # slice 3 brought the terminal velocity these need; the variants
-    # themselves are queue 1 item 3 (the test keeps its earlier id)
+_REST_OF_PHYSICS = "the rest of physics/"
+
+
+# the ids name the ROADMAP items by their numbers of the time the tests
+# were written; the tests keep them
+@pytest.mark.parametrize("family, variant, later", tuple(
     pytest.param(
-        "ventilation", "Froessling1938", "queue 1 item 3",
+        family, variant, _REST_OF_PHYSICS, id=f"{family}-{variant}-queue 1 item 3"
+    )
+    for family, variant in (
+        ("saturation_vapour_pressure", "AugustRocheMagnus"),
+        ("latent_heat_vapourisation", "Lowe2019"),
+        ("diffusion_kinetics", "PruppacherKlett"),
+        ("diffusion_thermics", "TracyWelchPorter"),
+        ("surface_tension", "CompressedFilmOvadnevaite"),
+    )
+) + (
+    pytest.param(
+        "ventilation", "Froessling1938", _REST_OF_PHYSICS,
         id="ventilation-Froessling1938-slice 3",
     ),
 ))

@@ -10,6 +10,12 @@ evaluation, three loads, a store and their addresses) and of the solve's
 kernel (all variants, every branch), and prints the card's name, power
 limit and largest SM clock beside them.
 
+Last, it builds a probe source beside the outputs that includes
+``collision_breakup.cu`` and adds one kernel per piece of K5's per-pair
+arithmetic (Berry's Ec, the fragment mass, the transfer), each called once
+on loaded arguments, and counts their SASS instructions: what a pair with
+gamma > 0, or one that breaks up, adds to a pair that does neither.
+
 Run from the root of the checkout on a host with the CUDA toolkit:
 ``python tools/kernel_resources.py [--out build/resources]``
 """
@@ -62,6 +68,51 @@ def sass_counts(nvcc, cubin):
     return counts
 
 
+K5_PROBE = r"""
+#include "collision_breakup.cu"
+
+__global__ void probe_berry_1967_ec(const float* a, const float* b, float* out) {
+  const int i = threadIdx.x;
+  out[i] = berry_1967_ec(a[i], b[i]);
+}
+
+__global__ void probe_fragment_mass(PairFunctions f, const float* a,
+                                    const float* b, float* out) {
+  const int i = threadIdx.x;
+  out[i] = fragment_mass(f, a[i], b[i], out[i]);
+}
+
+__global__ void probe_transfer(const float* a, float* out) {
+  const int i = threadIdx.x;
+  const Transfer t = transfer_closed_form(a[i], a[i + 32], a[i + 64],
+                                          a[i + 96], a[i + 128], a[i + 160],
+                                          a[i + 192]);
+  out[i] = t.take;
+  out[i + 32] = t.nmk;
+  out[i + 64] = t.g;
+}
+"""
+
+
+def k5_probe_counts(nvcc, out_dir):
+    """{probe kernel: SASS instructions} of K5's per-pair pieces"""
+    probe = os.path.join(out_dir, "k5_probe.cu")
+    with open(probe, "w", encoding="utf-8") as f:
+        f.write(K5_PROBE)
+    cubin = os.path.join(out_dir, "k5_probe.cubin")
+    proc = subprocess.run(
+        [nvcc, *_flags("collision_breakup", ()), "-I", str(_build.CSRC),
+         "-cubin", "-o", cubin, probe],
+        capture_output=True, text=True,
+    )
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed on {probe}:\n{proc.stderr}")
+    return {
+        name: count for name, count in sass_counts(nvcc, cubin).items()
+        if "probe_" in name
+    }
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--out", default="build/resources")
@@ -80,6 +131,10 @@ def main():
     )
     print("== condensation.cu with the minfun probe: SASS instructions")
     for name, count in sass_counts(nvcc, cubin).items():
+        print(f"  {count:6d}  {name}")
+    print("== K5's per-pair pieces (collision_breakup.cu probes): SASS"
+          " instructions")
+    for name, count in k5_probe_counts(nvcc, args.out).items():
         print(f"  {count:6d}  {name}")
     print(subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit,clocks.max.sm",
