@@ -83,13 +83,35 @@ Run from the root of the checkout: ``python3 chip_smoke.py``. Phases:
    its twin in its place (timing only);
 15. config #2 through its model entry point, ``run_box_breakup`` on the
    card at 2^17: finite spectra, each read twice bit-equal (deterministic
-   sums), the liquid under dv/dlnr conserved, rates.
+   sums), the liquid under dv/dlnr conserved, rates;
+16. config #4, the Shipway and Hill 2012 1D column, through ``Simulation``
+   on the card at the JAX model's defaults (dz = 25 m, dt = 1 s, 145 cells)
+   with 2^12 super-droplets per cell (593,920): run(1) as warm-up, then
+   run(100) timed below cloud; on to t = 400 s, where it must have formed
+   its cloud (max qc > 0.05 g/kg, at least 10 cells above 1e-5 kg/kg, peak
+   supersaturation > 0, ``condensation_success``, multiplicities >= 0),
+   every product of the default ``Simulation`` read twice on that state
+   (bit-equal, but for the two that reset their counter on read); one more
+   step whose first K2 substep, first K3 solve and first K4 scan of each
+   dtype and rank are captured, and each kernel held against its twin on
+   those inputs at the bounds of phases 9, 10 and 8 (``_column_kernels_vs_
+   twins``); the water budget over 30 steps, precipitation included, to
+   5%; then run(50)
+   timed in cloud. Around each timed window the launches of K2, K3 and K4
+   (and K4's rows) are set to 0 and read: K2's must equal the collision
+   substeps, K3's the condensation solves;
+17. the published-profile scenario of ``tests/smoke/test_kinematic_1d.py``
+   (128 super-droplets per cell, dt = 30 s, dz = 60 m, 50 steps, seed 44)
+   on the card in float32, with that test's statistics and bounds.
 
 Every box phase checks multiplicities >= 0, water mass conserved to 1e-6 and
 coalescence having happened. Any failure raises, and the script exits
 non-zero; without a CUDA device, or without the package beside it, it exits
 non-zero before printing any result. The last two lines are one JSON object
-of the kernels and one of the device.
+of the kernels (K2's, K3's and K4's with their launches in the column's two
+timed windows, ``column_launches``, beside those of their main path, and
+their largest differences to their twins on the column's inputs,
+``column_max_abs_err``) and one of the device.
 """
 
 import concurrent.futures
@@ -1728,6 +1750,344 @@ def _breakup_model(k5, gpu):
           f" deficit, coalescence, breakup) {out.rates[-1].tolist()} [{gpu}]")
 
 
+# config #4, the Shipway and Hill 2012 1D column, at the JAX model's defaults
+# (dz = 25 m, dt = 1 s, 3 km and a 625 m particle reservoir: 145 cells) with
+# the warm rain's 2^12 super-droplets per cell
+COLUMN_SD_PER_CELL = 2**12
+COLUMN_BELOW_CLOUD_STEPS = 100
+COLUMN_CLOUD_TIME = 400
+COLUMN_BUDGET_STEPS = 30
+COLUMN_IN_CLOUD_STEPS = 50
+
+
+def shipway_hill(backend, products=None, **settings):
+    """config #4 through the port's entry point; ``backend`` None takes
+    ``Simulation``'s default (the card)"""
+    from pysdm_tpu_torch.models import shipway_and_hill_2012 as model
+
+    settings = model.Settings(**settings)
+    kwargs = {} if backend is None else {"backend_class": backend}
+    return settings, model.Simulation(settings, products=products, **kwargs)
+
+
+def shipway_hill_published_profiles(backend):
+    """the scenario of ``tests/smoke/test_kinematic_1d.py``
+    ``test_shipway_hill_published_profile_bounds`` (the reference's
+    ``test_few_steps.py``: 128 super-droplets per cell, dt = 30 s, dz =
+    60 m, a 660 m reservoir, 50 steps, seed 44); returns the settings and
+    each product's profile above z = 0, averaged over the last 10 steps
+    and, but for the activation rate, smoothed over 5 cells"""
+    import numpy as np
+    from scipy.ndimage import uniform_filter1d
+
+    from pysdm_tpu_torch import products
+    from pysdm_tpu_torch.physics import si
+
+    settings, simulation = shipway_hill(
+        backend,
+        products=(
+            products.SuperDropletCountPerGridbox(name="sd_count"),
+            products.PeakSaturation(name="peak saturation"),
+            products.WaterMixingRatio(
+                name="cloud water mixing ratio",
+                radius_range=(1 * si.um, 50 * si.um),
+            ),
+            products.ActivatingRate(name="activating"),
+            products.AmbientRelativeHumidity(name="RH"),
+        ),
+        n_sd_per_gridbox=128, dt=30 * si.s, dz=60 * si.m, precip=True,
+        rho_times_w_1=2 * si.m / si.s, seed=44,
+    )
+    p = simulation.particulator
+    p.run(40)
+    # flush the reset-on-read accumulators (peak saturation, rates) so the
+    # last-10-step statistics do not carry the spin-up transient
+    for product in p.products.values():
+        product.get()
+    samples = {name: [] for name in p.products}
+    for _ in range(10):
+        p.run(1)
+        for name, product in p.products.items():
+            samples[name].append(np.asarray(product.get()).squeeze().copy())
+    reservoir_cells = int(settings.particle_reservoir_depth // settings.dz)
+    profiles = {}
+    for name, values in samples.items():
+        mean = np.mean(np.stack(values), axis=0)[reservoir_cells:]
+        profiles[name] = (
+            mean if name == "activating" else uniform_filter1d(mean, size=5)
+        )
+    return settings, profiles
+
+
+def column_launches(p, run):
+    """``run()`` with the launch counts of K2, K3 and K4 (and K4's rows)
+    set to 0 just before and read just after, beside the collision
+    substeps, the condensation solves and the host reads it took, and its
+    seconds on the host clock"""
+    from pysdm_tpu_torch.ops.cuda import collision, condensation, scan
+
+    collision_dyn = p.dynamics["Collision"]
+    solver = p.dynamics["Condensation"].solver
+    before = (collision_dyn.substeps_run, solver.substep_solves, _host_reads(p))
+    p.block_until_ready()
+    collision.coalesce_adjacent.launches = 0
+    condensation.masses_new.launches = 0
+    scan.cumsum.launches = 0
+    scan.cumsum.rows = 0
+    t0 = time.perf_counter()
+    run()
+    p.block_until_ready()
+    seconds = time.perf_counter() - t0
+    return {
+        "coalesce_adjacent": collision.coalesce_adjacent.launches,
+        "masses_new": condensation.masses_new.launches,
+        "cumsum": scan.cumsum.launches,
+        "cumsum rows": scan.cumsum.rows,
+        "collision substeps": collision_dyn.substeps_run - before[0],
+        "condensation solves": solver.substep_solves - before[1],
+        "host reads": _host_reads(p) - before[2],
+        "seconds": seconds,
+    }
+
+
+def _column_window(p, steps, label, gpu):
+    """a timed window of the column's main path: launches checked against
+    the substeps and solves, the end-to-end numbers printed"""
+    counts = column_launches(p, lambda: p.run(steps))
+    if (counts["coalesce_adjacent"] != counts["collision substeps"]
+            or counts["collision substeps"] < steps):
+        raise AssertionError(f"phase 16 {label}: {counts}")
+    if (counts["masses_new"] != counts["condensation solves"]
+            or counts["masses_new"] < steps or counts["cumsum"] == 0):
+        raise AssertionError(f"phase 16 {label}: {counts}")
+    wall = counts["seconds"]
+    per_step = {
+        k: v / steps for k, v in counts.items() if k != "seconds"
+    }
+    print(f"phase 16: column {label}, {steps} steps: {wall / steps * 1e3!r}"
+          f" ms/step, {p.mesh.n_cell * steps / wall!r} grid points/s,"
+          f" {p.n_sd * steps / wall!r} droplet-steps/s; per step {per_step};"
+          f" displacement substeps up to"
+          f" {int(p.get_counter('max_n_substeps_displacement')[0])} [{gpu}]")
+    return counts
+
+
+def _column_water(p):
+    """vapour and liquid in the column, kg (float64), after checking
+    multiplicities and masses"""
+    import numpy as np
+
+    return total_water(p) - float(np.sum(p.get_counter("precipitated_mass")))
+
+
+def _column_kernels_vs_twins(p, gpu):
+    """phase 16 at t = 400 s: one more step whose first K2 substep, first K3
+    solve and first K4 scan of each dtype and rank are captured; on those
+    inputs each kernel against its twin on the card at the bounds of
+    phases 9, 10 and 8 (K2: xi equal, rows and rates to rtol 1e-6, also
+    with the gamma draws scaled by 2^-30 so that pairs merge; K3:
+    ``compare_k3_near_saturation``; K4: integers equal to torch.cumsum,
+    floats within 1e-5 of the float64 prefix of |x|). Returns the largest
+    absolute differences to the twins"""
+    import numpy as np
+    import torch
+
+    from pysdm_tpu_torch.dynamics.collisions import collision
+    from pysdm_tpu_torch.ops import segments
+    from pysdm_tpu_torch.ops.cuda import condensation as k3
+    from pysdm_tpu_torch.ops.cuda import scan
+    from pysdm_tpu_torch.ops.cuda.collision import coalesce_adjacent_reference
+
+    captured = {"k2": [], "k3": [], "k4": {}}
+
+    def cloned(args):
+        return [a.clone() if torch.is_tensor(a) else a for a in args]
+
+    def capture_k2(*args):
+        if not captured["k2"]:
+            captured["k2"].append(cloned(args))
+        return real_k2(*args)
+
+    def capture_k3(*args):
+        if not captured["k3"]:
+            captured["k3"].append(cloned(args))
+        return real_k3(*args)
+
+    def capture_k4(x):
+        captured["k4"].setdefault((x.dtype, x.dim()), x.clone())
+        return real_k4(x)
+
+    # K3's wrapper counts its launches on the module's ``masses_new``
+    capture_k3.launches = 0
+
+    real_k2, real_k3, real_k4 = (
+        collision.coalesce_adjacent, k3.masses_new, segments.cumsum
+    )
+    with contextlib.ExitStack() as stack:
+        stack.enter_context(_replaced(collision, "coalesce_adjacent", capture_k2))
+        stack.enter_context(_replaced(k3, "masses_new", capture_k3))
+        stack.enter_context(_replaced(segments, "cumsum", capture_k4))
+        p.run(1)
+        p.block_until_ready()
+    if not (captured["k2"] and captured["k3"] and captured["k4"]):
+        raise AssertionError(f"phase 16: a kernel was not called: {captured}")
+
+    # K2 on the column's first substep of that step
+    mult, ext, kernnorm, rand, is_first = captured["k2"][0]
+    k2_seen = {}
+    for label, draws in (("as drawn", rand), ("draws x 2^-30", rand * 2**-30)):
+        args = (mult, ext, kernnorm, draws, is_first)
+        got = [x.cpu().numpy() for x in real_k2(*args)[:4]]
+        want = [x.cpu().numpy() for x in coalesce_adjacent_reference(*args)[:4]]
+        np.testing.assert_array_equal(got[0], want[0])
+        for g, w in zip(got[1:], want[1:]):
+            np.testing.assert_allclose(g, w, rtol=1e-6)
+        k2_seen[label] = (
+            int((got[0] != mult.cpu().numpy()).sum()),
+            float(np.abs(got[1].astype(np.float64) - want[1]).max()),
+        )
+    if k2_seen["draws x 2^-30"][0] == 0:
+        raise AssertionError(f"phase 16: K2 merged no pair: {k2_seen}")
+    print(f"phase 16: K2 on a column substep ({mult.shape[0]} slots,"
+          f" {int(is_first.sum())} pairs): xi equal to the twin, rows and"
+          f" rates within rtol 1e-6; (slots changed, ext max abs err)"
+          f" {k2_seen} [{gpu}]")
+
+    # K3 on the column's first solve after t = 400 s
+    formulae, settings, *rows = captured["k3"][0]
+
+    def twin_of(rows):
+        return k3.masses_new_reference(formulae, settings, *rows)
+
+    k3_seen = compare_k3_near_saturation(
+        formulae, settings, rows, real_k3(formulae, settings, *rows), twin_of
+    )
+    active = int((rows[9][rows[4].long()] & (rows[3] > 0) & (rows[0] > 0)).sum())
+    print(f"phase 16: K3 on a column solve ({rows[0].shape[0]} drops in"
+          f" {rows[5].shape[0]} cells, {active} of them active): success"
+          f" equal to the twin's and every log-mass inside the twin's"
+          f" interval for +-32 ulps of qv; largest differences {k3_seen}"
+          f" [{gpu}]")
+
+    # K4 on the column's scans, one of each dtype and rank
+    k4_err = 0.0
+    for (dtype, rank), x in captured["k4"].items():
+        got = real_k4(x)
+        if not x.is_floating_point():
+            if not torch.equal(got, scan.cumsum_reference(x)):
+                raise AssertionError(f"phase 16: K4 {dtype} not exact")
+            seen = "exact"
+        else:
+            exact = x.double().cumsum(-1)
+            scale = x.double().abs().cumsum(-1)
+            err = (got.double() - exact).abs()
+            if not (err <= 1e-5 * scale).all():
+                raise AssertionError(
+                    f"phase 16: K4 {dtype} rank {rank}: err {float(err.max())!r}"
+                )
+            twin = (scan.cumsum_reference(x).double() - exact).abs()
+            k4_err = max(k4_err, float(err.max()))
+            seen = (f"max abs err {float(err.max())!r} (torch.cumsum"
+                    f" {float(twin.max())!r}) of a prefix up to"
+                    f" {float(scale.max())!r}")
+        print(f"phase 16: K4 on a column scan {tuple(x.shape)} {dtype}: {seen}")
+    return {"coalesce_adjacent": k2_seen["as drawn"][1],
+            "masses_new": k3_seen["mass"], "cumsum": k4_err}
+
+
+def _column_main_path(gpu):
+    """phase 16: config #4 at full width through ``Simulation`` on the card;
+    returns the launches of K2, K3 and K4 in the two timed windows and
+    their largest differences to their twins on the column's inputs"""
+    import numpy as np
+
+    settings, simulation = shipway_hill(None, n_sd_per_gridbox=COLUMN_SD_PER_CELL)
+    p = simulation.particulator
+    if p.device.type != "cuda":
+        raise AssertionError(f"Simulation built on {p.device}")
+    if (p.mesh.n_cell, p.n_sd) != (145, 145 * COLUMN_SD_PER_CELL):
+        raise AssertionError(f"{p.mesh.n_cell} cells, {p.n_sd} super-droplets")
+    t0 = time.perf_counter()
+    p.run(1)
+    p.block_until_ready()
+    print(f"phase 16: column (config #4) {p.mesh.n_cell} cells x"
+          f" {COLUMN_SD_PER_CELL} ({p.n_sd} super-droplets), dt ="
+          f" {settings.dt} s: first step {time.perf_counter() - t0!r} s")
+    below = _column_window(p, COLUMN_BELOW_CLOUD_STEPS, "below cloud", gpu)
+    p.run(int(COLUMN_CLOUD_TIME / settings.dt) - p.n_steps)
+
+    first = {name: product.get() for name, product in p.products.items()}
+    second = {name: product.get() for name, product in p.products.items()}
+    qc = first["qc"]
+    mult = p.attributes["multiplicity"]
+    if not (qc.max() > 0.05e-3 and (qc > 1e-5).sum() >= 10
+            and first["S_max"].max() > 0
+            and p.get_counter("condensation_success").all()
+            and (mult >= 0).all()):
+        raise AssertionError(
+            f"no cloud at t = {COLUMN_CLOUD_TIME} s: qc max {qc.max()}, cells"
+            f" above 1e-5 {(qc > 1e-5).sum()}, S_max {first['S_max'].max()}"
+        )
+    # the reads reduce in a fixed order: a second read of the same state is
+    # bit-equal, but for the two products that reset their counter on read
+    for name, value in first.items():
+        expected = {"S_max": np.full_like(value, -1.0),
+                    "surf_precip": np.zeros_like(value)}.get(name, value)
+        if not (np.isfinite(value).all()
+                and np.array_equal(second[name], expected)):
+            raise AssertionError(f"phase 16: {name} read twice: {value}, {second[name]}")
+        print(f"phase 16: t = {COLUMN_CLOUD_TIME} s, {name}: shape"
+              f" {value.shape}, min {float(value.min())!r}, max"
+              f" {float(value.max())!r}")
+    print(f"phase 16: cloud at t = {COLUMN_CLOUD_TIME} s: qc max"
+          f" {float(qc.max()) * 1e3!r} g/kg, {int((qc > 1e-5).sum())} cells"
+          f" above 1e-5 kg/kg, S_max {float(first['S_max'].max())!r}; every"
+          f" product read twice bit-equal")
+    errors = _column_kernels_vs_twins(p, gpu)
+
+    # the water budget over the first steps of the cloud: the column is
+    # open, MPDATA's extrapolated bounds let vapour in at the bottom and
+    # out at the top (about 2% of the column's water over 30 steps at the
+    # updraft's peak), hence 5% as in tests/smoke/test_kinematic_1d.py
+    water0, precipitated = _column_water(p), 0.0
+    for _ in range(COLUMN_BUDGET_STEPS):
+        p.run(1)
+        precipitated += float(np.sum(p.get_counter("precipitated_mass")))
+    drift = (_column_water(p) + precipitated - water0) / water0
+    if not abs(drift) < 0.05:
+        raise AssertionError(f"column water drifted by {drift}")
+    print(f"phase 16: water budget over {COLUMN_BUDGET_STEPS} steps in cloud:"
+          f" drift {drift!r}, precipitated {precipitated!r} kg")
+
+    cloud = _column_window(p, COLUMN_IN_CLOUD_STEPS, "in cloud", gpu)
+    if not (p.get_counter("condensation_success").all()
+            and (p.attributes["multiplicity"] >= 0).all()):
+        raise AssertionError("phase 16: condensation failed in cloud")
+    launches = {k: below[k] + cloud[k]
+                for k in ("coalesce_adjacent", "masses_new", "cumsum")}
+    return launches, errors
+
+
+def _column_published_on_card(gpu):
+    """phase 17: the published-profile scenario on the card, float32, with
+    the bounds of ``tests/smoke/test_torch_shipway_hill.py``"""
+    settings, profiles = shipway_hill_published_profiles(None)
+    n = settings.n_sd_per_gridbox
+    sd, peak = profiles["sd_count"], profiles["peak saturation"]
+    qc = profiles["cloud water mixing ratio"] * 1e3  # g/kg
+    activating = profiles["activating"]
+    print(f"phase 17: published-profile scenario on the card: super-droplets"
+          f" per cell {float(sd.min())!r}-{float(sd.max())!r}, peak"
+          f" saturation max {float(peak.max())!r}, qc"
+          f" {float(qc.min())!r}-{float(qc.max())!r} g/kg, activating max"
+          f" {float(activating.max())!r} [{gpu}]")
+    if not (0.5 * n < sd.min() < 1.5 * n and 0.5 * n < sd.max() < 1.5 * n
+            and 1.0001 < peak.max() < 1.001
+            and qc.min() < 1e-10 and 0.1 < qc.max() < 0.4
+            and activating.max() == 0):
+        raise AssertionError("phase 17: a published-profile bound failed")
+
+
 def main():
     import torch
 
@@ -1791,6 +2151,8 @@ def main():
     )
     k5_launches = _breakup_main_path(k5, gpu)
     _breakup_model(k5, gpu)
+    column, column_err = _column_main_path(gpu)
+    _column_published_on_card(gpu)
 
     # least times on the card, from this run's inputs: K1 at N_MAIN with two
     # float32 rows (mult 8 + rows 8 + volume 4 in, mult 8 + rows 8 out per
@@ -1822,6 +2184,8 @@ def main():
         "source": "pysdm_tpu_torch/csrc/condensation.cu",
         "replaces": "pysdm_tpu/ops/pallas/condensation.py:299",
         "launches": k3_launches,
+        "column_launches": column["masses_new"],
+        "column_max_abs_err": column_err["masses_new"],
         "max_abs_err": k3_err,
         "ms": k3_times[N_PARCEL][0],
         "plain_ms": k3_times[N_PARCEL][1],
@@ -1834,6 +2198,8 @@ def main():
         "source": "pysdm_tpu_torch/csrc/collision_adjacent.cu",
         "replaces": "pysdm_tpu/ops/pallas/collision.py:721",
         "launches": warm_launches["coalesce_adjacent"],
+        "column_launches": column["coalesce_adjacent"],
+        "column_max_abs_err": column_err["coalesce_adjacent"],
         "max_abs_err": k2_err,
         "ms": k2_ms,
         "plain_ms": k2_twin_ms,
@@ -1846,6 +2212,8 @@ def main():
         "source": "pysdm_tpu_torch/csrc/scan.cu",
         "replaces": "pysdm_tpu/ops/pallas/scan.py:105",
         "launches": warm_launches["cumsum"],
+        "column_launches": column["cumsum"],
+        "column_max_abs_err": column_err["cumsum"],
         "max_abs_err": k4_err,
         "ms": k4_ms,
         "plain_ms": k4_twin_ms,

@@ -7,7 +7,8 @@ which stays beside it as the reference. It imports ``torch``, ``numpy`` and
 device (see ``backends``).
 
 Ported so far: the 0D box coalescence (Shima et al. 2009) under the mirror
-croupier, the adiabatic parcel, the Arabas et al. 2015 2D warm rain
+croupier, the adiabatic parcel, the Shipway and Hill 2012 1D column
+(``models/shipway_and_hill_2012.py``), the Arabas et al. 2015 2D warm rain
 (``models/arabas_et_al_2015.py``) and the de Jong/Mackay et al. 2023
 breakup box (``models/dejong_mackay_et_al_2023.py``), with five
 hand-written CUDA kernels in ``csrc/``: mirror coalescence, sort-croupier

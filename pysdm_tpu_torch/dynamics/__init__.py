@@ -1,7 +1,7 @@
 """dynamics (process operators): coalescence (box slice), ambient
 thermodynamics and condensation (parcel slice), Eulerian advection and
-displacement (2D warm-rain slice), collision with breakup (breakup box
-slice)"""
+displacement (2D warm-rain slice; the 1D column's MPDATA_1D coupling),
+collision with breakup (breakup box slice)"""
 from .ambient_thermodynamics import AmbientThermodynamics
 from .collisions.collision import Breakup, Collision, Coalescence
 from .condensation import Condensation

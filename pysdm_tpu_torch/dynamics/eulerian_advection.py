@@ -1,7 +1,9 @@
-"""Eulerian advection dynamic and the MPDATA coupling of the 2D prescribed
-flow (port of ``pysdm_tpu/dynamics/eulerian_advection.py``; reference
-``PySDM/dynamics/eulerian_advection.py`` and
-``examples/.../utils/kinematic_2d/mpdata_2d.py``).
+"""Eulerian advection dynamic and the MPDATA couplings of the 2D prescribed
+flow and of the 1D column (port of
+``pysdm_tpu/dynamics/eulerian_advection.py``; reference
+``PySDM/dynamics/eulerian_advection.py``,
+``examples/.../utils/kinematic_2d/mpdata_2d.py`` and
+``examples/.../Shipway_and_Hill_2012/mpdata_1d.py``).
 
 Per-step dataflow (the reference's buffer shuttling):
 - sync (AmbientThermodynamics): ``pred_qv <- mpdata_qv``,
@@ -12,13 +14,14 @@ Per-step dataflow (the reference's buffer shuttling):
 - commit: ``qv <- pred_qv`` and so on.
 
 The 2D flow is fixed at construction, so the advector, the g-factor and
-the courant fields become tensors once, when the step is built.
+the courant fields become tensors once, when the step is built; the 1D
+column's advector changes with t (``MPDATA_1D``).
 """
 
 import numpy as np
 import torch
 
-from ..ops.mpdata import PERIODIC, mpdata_step
+from ..ops.mpdata import EXTRAPOLATED, PERIODIC, mpdata_step
 
 
 class EulerianAdvection:
@@ -112,10 +115,64 @@ class MPDATA_2D:
 
 
 class MPDATA_1D:
-    """the single-column coupling of config #4 (Shipway and Hill 2012)"""
+    """single-column coupling (reference ``mpdata_1d.py``): one advectee
+    (the water-vapour mixing ratio), the time-dependent prescribed advector
+    ``GC(t) = rho_times_w(t) * dt / dz`` at the faces, g-factor = rhod(z),
+    extrapolated boundaries; thd is not advected.
 
-    def __init__(self, **_):
-        raise NotImplementedError(
-            "MPDATA_1D comes with config #4 (the Shipway and Hill 2012"
-            " column; ROADMAP: the 1D column (config #4))"
+    The advector is a Python callable of t, evaluated on the host at the
+    step's mid-point from the host clock (``sim["host"]["t"]``, which the
+    environment's commit advances): the JAX package traces it or calls
+    back to the host, the port reads nothing back from the device. The
+    scalar is broadcast over the nz + 1 faces on the device, and the
+    particle courant field is GC / rhod at the faces."""
+
+    def __init__(
+        self,
+        *,
+        nz,
+        dt,
+        advector_of_t,
+        g_factor_z,
+        g_factor_z_faces,
+        n_iters=2,
+        infinite_gauge=True,
+        nonoscillatory=True,
+        third_order_terms=False,
+    ):
+        self.nz = nz
+        self.dt = dt
+        self.advector_of_t = advector_of_t
+        self.g_factor_z = np.asarray(g_factor_z, dtype=float)
+        self.g_factor_z_faces = np.asarray(g_factor_z_faces, dtype=float)
+        self.opts = dict(
+            n_iters=n_iters,
+            infinite_gauge=infinite_gauge,
+            nonoscillatory=nonoscillatory,
+            third_order_terms=third_order_terms,
+            bcs=(EXTRAPOLATED,),
         )
+
+    def make_step(self, particulator):
+        dt = self.dt
+        adv_fn = self.advector_of_t
+        opts = self.opts
+
+        def tensor(a):
+            return torch.as_tensor(
+                np.asarray(a), dtype=particulator.dtype,
+                device=particulator.device,
+            )
+
+        g = tensor(self.g_factor_z)
+        g_faces = tensor(self.g_factor_z_faces)
+
+        def step(sim):
+            env = dict(sim["env"])
+            gc = torch.full_like(g_faces, float(adv_fn(sim["host"]["t"] + dt / 2)))
+            env["mpdata_qv"] = mpdata_step(env["pred_qv"], (gc,), g, **opts)
+            env["mpdata_thd"] = env["pred_thd"]
+            env["courant_0"] = gc / g_faces
+            return {**sim, "env": env}
+
+        return step

@@ -1,6 +1,6 @@
 """environments (parity: reference PySDM/environments/): ``Box``,
-``Parcel`` and ``Kinematic2D``; the 1D column comes with the 1D column
-(config #4) in ROADMAP"""
+``Parcel``, ``Kinematic1D`` and ``Kinematic2D``"""
 from .box import Box
+from .kinematic_1d import Kinematic1D
 from .kinematic_2d import Kinematic2D
 from .parcel import Parcel

@@ -13,7 +13,9 @@ import torch
 
 from ..impl import arakawa_c
 from ..impl.mesh import Mesh
-from .impl.moist import moist_commit, recalc_thermo
+from .impl.moist import (
+    moist_commit, moist_env_state, moist_sync, recalc_thermo,
+)
 
 
 class Kinematic2D:
@@ -73,37 +75,19 @@ class Kinematic2D:
         def tensor(a):
             return torch.as_tensor(np.asarray(a), dtype=dtype, device=device)
 
-        thd, qv, rhod = tensor(thd0), tensor(qv0), tensor(self.rhod0.ravel())
-        T, p, RH, air_density, air_viscosity = recalc_thermo(
-            self.formulae, thd, qv, rhod
-        )
         nx, nz = self.mesh.grid
-        return {
-            "thd": thd, "qv": qv, "rhod": rhod,
-            "pred_thd": thd, "pred_qv": qv, "pred_rhod": rhod,
-            "mpdata_thd": thd, "mpdata_qv": qv,
-            "T": T, "p": p, "RH": RH,
-            "air_density": air_density, "air_viscosity": air_viscosity,
-            "m_d": rhod * self.mesh.dv,
-            "delta_qv_cond": torch.zeros_like(qv),
-            "courant_0": torch.zeros((nx + 1) * nz, dtype=dtype, device=device),
-            "courant_1": torch.zeros(nx * (nz + 1), dtype=dtype, device=device),
-            "t": torch.zeros((), dtype=dtype, device=device),
-        }
+        return moist_env_state(
+            self.formulae, tensor(thd0), tensor(qv0),
+            tensor(self.rhod0.ravel()), self.mesh.dv,
+            courant_0=torch.zeros((nx + 1) * nz, dtype=dtype, device=device),
+            courant_1=torch.zeros(nx * (nz + 1), dtype=dtype, device=device),
+        )
 
     def make_sync_step(self, particulator):
         f = particulator.formulae
 
         def sync(sim):
-            env = dict(sim["env"])
-            env["pred_qv"] = env["mpdata_qv"]
-            env["pred_thd"] = env["mpdata_thd"]
-            env["pred_rhod"] = env["rhod"]
-            (env["T"], env["p"], env["RH"], env["air_density"],
-             env["air_viscosity"]) = recalc_thermo(
-                f, env["pred_thd"], env["pred_qv"], env["pred_rhod"]
-            )
-            return {**sim, "env": env}
+            return {**sim, "env": moist_sync(f, sim["env"])}
 
         return sync
 

@@ -1,2 +1,3 @@
 """model configurations: the de Jong/Mackay et al. 2023 breakup box (config
-#2) and the Arabas et al. 2015 2D warm rain (config #5)"""
+#2), the Shipway and Hill 2012 1D column (config #4) and the Arabas et al.
+2015 2D warm rain (config #5)"""

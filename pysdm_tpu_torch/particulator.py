@@ -110,6 +110,40 @@ class Particulator:
         self.sim_state["flags"][name] = bool(value)
 
     # -- reductions for products ----------------------------------------
+    def moments(
+        self,
+        *,
+        attr_name,
+        ranks,
+        filter_attr="volume",
+        filter_range=(-np.inf, np.inf),
+        weighting_attribute=None,
+        weighting_rank=0,
+        skip_division_by_m0=False,
+    ):
+        """per-cell moments (numpy): moment 0 (n_cell,) and the moments of
+        ``ranks`` (n_ranks, n_cell) of the particles whose ``filter_attr``
+        lies in [filter_range[0], filter_range[1])"""
+        weight = (
+            self.get_attribute(weighting_attribute)
+            if weighting_attribute
+            else None
+        )
+        m0, mk = moments_ops.moments(
+            multiplicity=self.particles.multiplicity,
+            attr_data=self.get_attribute(attr_name),
+            cell_id=self.particles.cell_id,
+            ranks=tuple(ranks),
+            filter_attr_data=self.get_attribute(filter_attr),
+            min_x=filter_range[0],
+            max_x=filter_range[1],
+            n_cell=self.mesh.n_cell,
+            weighting_attribute=weight,
+            weighting_rank=weighting_rank,
+            skip_division_by_m0=skip_division_by_m0,
+        )
+        return m0.cpu().numpy(), mk.cpu().numpy()
+
     def spectrum_moments(
         self,
         *,

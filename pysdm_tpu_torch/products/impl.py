@@ -25,3 +25,30 @@ class Product:
 
     def _impl(self, **kwargs):
         raise NotImplementedError()
+
+
+class MomentProduct(Product):
+    """products computed from per-cell statistical moments (reference
+    ``products/impl/moment_product.py``)"""
+
+    def _download_moment(
+        self,
+        *,
+        attr,
+        rank,
+        filter_range=(-np.inf, np.inf),
+        filter_attr="volume",
+        weighting_attribute=None,
+        weighting_rank=0,
+        skip_division_by_m0=False,
+    ):
+        m0, mk = self.particulator.moments(
+            attr_name=attr,
+            ranks=(rank,),
+            filter_attr=filter_attr,
+            filter_range=filter_range,
+            weighting_attribute=weighting_attribute,
+            weighting_rank=weighting_rank,
+            skip_division_by_m0=skip_division_by_m0,
+        )
+        return m0, mk[0]

@@ -115,3 +115,72 @@ def test_shard_halos_are_refused():
             torch.ones(4, 4), (torch.zeros(5, 4), torch.zeros(4, 5)),
             bcs=(("shard", "x"), "periodic"),
         )
+
+
+def _column_couplings(dt):
+    """the 1D column's MPDATA_1D coupling of each package, built as each
+    package's Shipway and Hill 2012 model builds it (37 cells of 100 m)"""
+    from pysdm_tpu.dynamics.eulerian_advection import MPDATA_1D as JaxMPDATA1D
+    from pysdm_tpu.models import shipway_and_hill_2012 as jax_model
+    from pysdm_tpu_torch.dynamics.eulerian_advection import MPDATA_1D
+    from pysdm_tpu_torch.models import shipway_and_hill_2012 as port_model
+
+    couplings = []
+    for model, coupling in ((jax_model, JaxMPDATA1D), (port_model, MPDATA_1D)):
+        settings = model.Settings(n_sd_per_gridbox=1, dz=100.0, dt=dt)
+        z0 = -settings.particle_reservoir_depth
+        z_faces = z0 + settings.dz * np.arange(settings.nz + 1)
+        z_centres = z0 + settings.dz * (np.arange(settings.nz) + 0.5)
+        couplings.append((settings, coupling(
+            nz=settings.nz, dt=dt,
+            advector_of_t=lambda t, s=settings: s.rho_times_w(t) * dt / s.dz,
+            g_factor_z=settings.rhod_of_z(z_centres),
+            g_factor_z_faces=settings.rhod_of_z(z_faces),
+        )))
+    return couplings
+
+
+class _Particulator:
+    dtype = torch.float64
+    device = torch.device("cpu")
+
+
+@pytest.mark.parametrize("steps", (1, 50))
+def test_column_coupling_matches_jax_package(steps):
+    """``MPDATA_1D`` of the 1D column against the JAX package's: the
+    time-dependent scalar advector rho*w(t) dt / dz, extrapolated bounds,
+    qv advected and thd passed through, the particle courant field; 50
+    steps of 5 s from t = 475 s cross t_1 = 600 s, where the updraft
+    stops"""
+    dt, t0 = 5.0, 475.0
+    (settings, jax_coupling), (_, port_coupling) = _column_couplings(dt)
+    jax_step = jax_coupling.make_step(None)
+    port_step_fn = port_coupling.make_step(_Particulator())
+    z = -settings.particle_reservoir_depth + settings.dz * (
+        np.arange(settings.nz) + 0.5
+    )
+    qv0 = settings.water_vapour_mixing_ratio(np.maximum(z, 0))
+    thd0 = settings.thd_of_z(z)
+    j_env = {"pred_qv": jnp.asarray(qv0), "pred_thd": jnp.asarray(thd0),
+             "t": jnp.asarray(t0)}
+    t_sim = {"env": {"pred_qv": torch.from_numpy(qv0.copy()),
+                     "pred_thd": torch.from_numpy(thd0.copy())},
+             "host": {"t": t0}}
+    courant_max = 0.0
+    for _ in range(steps):
+        j_env = jax_step({"env": j_env})["env"]
+        t_sim = port_step_fn(t_sim)
+        for key in ("mpdata_qv", "mpdata_thd", "courant_0"):
+            np.testing.assert_allclose(
+                t_sim["env"][key].numpy(), np.asarray(j_env[key]), rtol=1e-12,
+                atol=0, err_msg=key,
+            )
+        courant_max = max(courant_max, float(t_sim["env"]["courant_0"].max()))
+        j_env = {**j_env, "pred_qv": j_env["mpdata_qv"], "t": j_env["t"] + dt}
+        t_sim = {"env": {**t_sim["env"], "pred_qv": t_sim["env"]["mpdata_qv"]},
+                 "host": {"t": t_sim["host"]["t"] + dt}}
+    assert courant_max > 0
+    np.testing.assert_array_equal(t_sim["env"]["mpdata_thd"].numpy(), thd0)
+    if steps == 50:
+        # past t_1 the advector is zero and the field stands still
+        assert float(t_sim["env"]["courant_0"].abs().max()) == 0.0
