@@ -102,7 +102,33 @@ Run from the root of the checkout: ``python3 chip_smoke.py``. Phases:
    substeps, K3's the condensation solves;
 17. the published-profile scenario of ``tests/smoke/test_kinematic_1d.py``
    (128 super-droplets per cell, dt = 30 s, dz = 60 m, 50 steps, seed 44)
-   on the card in float32, with that test's statistics and bounds.
+   on the card in float32, with that test's statistics and bounds;
+18. K1 with the geometric kernels (``Geometric`` and ``SimpleGeometric``,
+   two attribute rows) against its twin on the card at 2^16 and 2^20 on
+   random states as in phase 2 (the same bounds), determinism as there,
+   and Geometric's device time at 2^20 on one input and rotated;
+19. ``shima_et_al_2009.run`` (config #1's physics) at 2^20 on the card:
+   3600 steps, dv/dlnr against the Golovin solution at t = 1200 s (rmse
+   under the JAX test's 0.15), the mass under the spectrum to 5e-2 and the
+   liquid to 1e-6, K1 launches = substeps, ``WallTime`` positive and
+   within the host clock around the call; then ``dejong_azimi.run_box`` and
+   ``bartman_2020_fig_4`` at their defaults on the card with the JAX
+   tests' bounds (``_box_model_entry_points``);
+20. ``berry_1967.run`` at 2^20 on the card (Geometric on K1, Gunn-Kinzer
+   fall velocities): the mean radius grows, liquid to 1e-6, K1 launches =
+   substeps; one more substep captured and K1 held against its twin on it;
+21. ``bulenok_2023_benchmark`` at 2^17 and 2^20, 64 steps, on the card
+   (K5): pair-updates/s, the final mean mass within ``BULENOK_FACTOR`` of
+   eq. 13, multiplicities >= 0, K5 launches = substeps; K5 held against
+   its twin (``compare_k5``) on a substep captured from the 2^20 run;
+22. de Jong and Azimi's ``Settings1D`` (the column without condensation,
+   Golovin b = 5e3, 145 cells x 2^12) through the column's ``Simulation``
+   on the card, 300 steps: K2 launches = collision substeps, K4 launched,
+   a coalescence rate > 0, liquid conserved to 1e-5 with the
+   precipitation counted; every liquid-phase product that applies to such
+   a column read twice, bit-equal but for those that reset on read; then
+   K2 and K4 held against their twins on a captured substep and scan
+   (``_column_kernels_vs_twins``).
 
 Every box phase checks multiplicities >= 0, water mass conserved to 1e-6 and
 coalescence having happened. Any failure raises, and the script exits
@@ -111,7 +137,10 @@ non-zero before printing any result. The last two lines are one JSON object
 of the kernels (K2's, K3's and K4's with their launches in the column's two
 timed windows, ``column_launches``, beside those of their main path, and
 their largest differences to their twins on the column's inputs,
-``column_max_abs_err``) and one of the device.
+``column_max_abs_err``; K2's and K4's launches in phase 22,
+``dejong_column_launches``; K1's Geometric time, bound and difference to
+its twin from phase 18 and its launches in phase 20, ``berry_launches``;
+K5's in phase 21, ``bulenok_launches``) and one of the device.
 """
 
 import concurrent.futures
@@ -184,14 +213,17 @@ def _time_ms(torch, fn, reps):
 
 
 def k1_args(torch, n, ext_dtype, seed, device):
-    """K1's arguments on a random state (``_random_state``), Golovin, a
-    scale that changes 5-95% of the slots"""
+    """K1's arguments on a random state (``_random_state``), Golovin (its
+    one attribute row, the volume), a scale that changes 5-95% of the
+    slots"""
     from pysdm_tpu_torch.ops.cuda.collision import GOLOVIN
 
     K = (n // 3) * 2
     mult, ext, volume = _random_state(torch, n, K, ext_dtype, seed, device)
     scale = torch.tensor([2e-3], dtype=torch.float32, device=device)
-    return (mult, ext, volume, GOLOVIN, (1.5e3, 0.0), scale, K, 3141592653)
+    # the collision kernel's attribute rows: Golovin reads the volume
+    attr = volume[None, :].contiguous()
+    return (mult, ext, attr, GOLOVIN, (1.5e3, 0.0), scale, K, 3141592653)
 
 
 def check_deterministic(torch, fn, inputs, label):
@@ -1880,15 +1912,16 @@ def _column_water(p):
     return total_water(p) - float(np.sum(p.get_counter("precipitated_mass")))
 
 
-def _column_kernels_vs_twins(p, gpu):
-    """phase 16 at t = 400 s: one more step whose first K2 substep, first K3
-    solve and first K4 scan of each dtype and rank are captured; on those
-    inputs each kernel against its twin on the card at the bounds of
-    phases 9, 10 and 8 (K2: xi equal, rows and rates to rtol 1e-6, also
-    with the gamma draws scaled by 2^-30 so that pairs merge; K3:
-    ``compare_k3_near_saturation``; K4: integers equal to torch.cumsum,
-    floats within 1e-5 of the float64 prefix of |x|). Returns the largest
-    absolute differences to the twins"""
+def _column_kernels_vs_twins(p, gpu, label="phase 16"):
+    """phase 16 at t = 400 s (and phase 22): one more step whose first K2
+    substep, first K3 solve (where the column condenses) and first K4 scan
+    of each dtype and rank are captured; on those inputs each kernel
+    against its twin on the card at the bounds of phases 9, 10 and 8 (K2:
+    xi equal, rows and rates to rtol 1e-6, also with the gamma draws scaled
+    by 2^-30 so that pairs merge; K3: ``compare_k3_near_saturation``; K4:
+    integers equal to torch.cumsum, floats within 1e-5 of the float64
+    prefix of |x|). Returns the largest absolute differences to the
+    twins"""
     import numpy as np
     import torch
 
@@ -1929,45 +1962,52 @@ def _column_kernels_vs_twins(p, gpu):
         stack.enter_context(_replaced(segments, "cumsum", capture_k4))
         p.run(1)
         p.block_until_ready()
-    if not (captured["k2"] and captured["k3"] and captured["k4"]):
-        raise AssertionError(f"phase 16: a kernel was not called: {captured}")
+    condenses = "Condensation" in p.dynamics
+    if not (captured["k2"] and captured["k4"]
+            and bool(captured["k3"]) == condenses):
+        raise AssertionError(f"{label}: a kernel was not called: {captured}")
 
     # K2 on the column's first substep of that step
     mult, ext, kernnorm, rand, is_first = captured["k2"][0]
     k2_seen = {}
-    for label, draws in (("as drawn", rand), ("draws x 2^-30", rand * 2**-30)):
+    for case, draws in (("as drawn", rand), ("draws x 2^-30", rand * 2**-30)):
         args = (mult, ext, kernnorm, draws, is_first)
         got = [x.cpu().numpy() for x in real_k2(*args)[:4]]
         want = [x.cpu().numpy() for x in coalesce_adjacent_reference(*args)[:4]]
         np.testing.assert_array_equal(got[0], want[0])
         for g, w in zip(got[1:], want[1:]):
             np.testing.assert_allclose(g, w, rtol=1e-6)
-        k2_seen[label] = (
+        k2_seen[case] = (
             int((got[0] != mult.cpu().numpy()).sum()),
             float(np.abs(got[1].astype(np.float64) - want[1]).max()),
         )
     if k2_seen["draws x 2^-30"][0] == 0:
-        raise AssertionError(f"phase 16: K2 merged no pair: {k2_seen}")
-    print(f"phase 16: K2 on a column substep ({mult.shape[0]} slots,"
+        raise AssertionError(f"{label}: K2 merged no pair: {k2_seen}")
+    print(f"{label}: K2 on a column substep ({mult.shape[0]} slots,"
           f" {int(is_first.sum())} pairs): xi equal to the twin, rows and"
           f" rates within rtol 1e-6; (slots changed, ext max abs err)"
           f" {k2_seen} [{gpu}]")
 
     # K3 on the column's first solve after t = 400 s
-    formulae, settings, *rows = captured["k3"][0]
+    k3_seen = {"mass": None}
+    if condenses:
+        formulae, settings, *rows = captured["k3"][0]
 
-    def twin_of(rows):
-        return k3.masses_new_reference(formulae, settings, *rows)
+        def twin_of(rows):
+            return k3.masses_new_reference(formulae, settings, *rows)
 
-    k3_seen = compare_k3_near_saturation(
-        formulae, settings, rows, real_k3(formulae, settings, *rows), twin_of
-    )
-    active = int((rows[9][rows[4].long()] & (rows[3] > 0) & (rows[0] > 0)).sum())
-    print(f"phase 16: K3 on a column solve ({rows[0].shape[0]} drops in"
-          f" {rows[5].shape[0]} cells, {active} of them active): success"
-          f" equal to the twin's and every log-mass inside the twin's"
-          f" interval for +-32 ulps of qv; largest differences {k3_seen}"
-          f" [{gpu}]")
+        k3_seen = compare_k3_near_saturation(
+            formulae, settings, rows, real_k3(formulae, settings, *rows),
+            twin_of,
+        )
+        active = int(
+            (rows[9][rows[4].long()] & (rows[3] > 0) & (rows[0] > 0)).sum()
+        )
+        print(f"{label}: K3 on a column solve ({rows[0].shape[0]} drops in"
+              f" {rows[5].shape[0]} cells, {active} of them active): success"
+              f" equal to the twin's and every log-mass inside the twin's"
+              f" interval for +-32 ulps of qv; largest differences"
+              f" {k3_seen} [{gpu}]")
 
     # K4 on the column's scans, one of each dtype and rank
     k4_err = 0.0
@@ -1975,7 +2015,7 @@ def _column_kernels_vs_twins(p, gpu):
         got = real_k4(x)
         if not x.is_floating_point():
             if not torch.equal(got, scan.cumsum_reference(x)):
-                raise AssertionError(f"phase 16: K4 {dtype} not exact")
+                raise AssertionError(f"{label}: K4 {dtype} not exact")
             seen = "exact"
         else:
             exact = x.double().cumsum(-1)
@@ -1983,14 +2023,14 @@ def _column_kernels_vs_twins(p, gpu):
             err = (got.double() - exact).abs()
             if not (err <= 1e-5 * scale).all():
                 raise AssertionError(
-                    f"phase 16: K4 {dtype} rank {rank}: err {float(err.max())!r}"
+                    f"{label}: K4 {dtype} rank {rank}: err {float(err.max())!r}"
                 )
             twin = (scan.cumsum_reference(x).double() - exact).abs()
             k4_err = max(k4_err, float(err.max()))
             seen = (f"max abs err {float(err.max())!r} (torch.cumsum"
                     f" {float(twin.max())!r}) of a prefix up to"
                     f" {float(scale.max())!r}")
-        print(f"phase 16: K4 on a column scan {tuple(x.shape)} {dtype}: {seen}")
+        print(f"{label}: K4 on a column scan {tuple(x.shape)} {dtype}: {seen}")
     return {"coalesce_adjacent": k2_seen["as drawn"][1],
             "masses_new": k3_seen["mass"], "cumsum": k4_err}
 
@@ -2088,6 +2128,503 @@ def _column_published_on_card(gpu):
         raise AssertionError("phase 17: a published-profile bound failed")
 
 
+# -- slice 8: the coalescence-only box models -------------------------------
+# Bulenok 2023's mean mass after 64 steps against eq. 13, as a factor either
+# way: on the CPU at 2^10 super-droplets the port ends 3.49x and the JAX
+# package 4.75x above it (the Monte-Carlo spread at large multiplicities;
+# tests/smoke/test_srivastava_1982.py's own run, total number 1e6, ends 10%
+# below), hence 5
+BULENOK_FACTOR = 5.0
+BULENOK_STEPS = 64
+BULENOK_N_SDS = (2**17, 2**20)
+# de Jong and Azimi's column at full width (Settings1D's defaults: dz =
+# 25 m, z_max 3 km and the 625 m reservoir, 145 cells) with the column's
+# 2^12 super-droplets per cell
+DEJONG_COLUMN_STEPS = 300
+
+
+def k1_geometric_args(torch, n, kernel_id, ext_dtype, seed, device):
+    """K1's arguments on ``_random_state``'s state with the attribute rows
+    of a geometric kernel (radii of the volumes, fall velocities of 0-8
+    m/s, areas of the radii) and a scale that gives the median pair about
+    one expected collision"""
+    import numpy as np
+
+    from pysdm_tpu_torch.ops.cuda.collision import (
+        GEOMETRIC,
+        KERNEL_ROWS,
+        kernel_value,
+    )
+
+    K = (n // 3) * 2
+    mult, ext, volume = _random_state(torch, n, K, ext_dtype, seed, device)
+    rng = np.random.default_rng(seed + 1)
+    radius = (volume.double() * 3 / 4 / np.pi) ** (1 / 3)
+    rows = {
+        "radius": radius,
+        "relative fall velocity": torch.from_numpy(
+            rng.uniform(0.0, 8.0, n)
+        ).to(device),
+        "area": 4 * np.pi * radius**2,
+    }
+    attr = torch.stack(
+        [rows[name].float() for name in KERNEL_ROWS[kernel_id]]
+    ).contiguous()
+    params = (np.pi * 0.8, 0.0) if kernel_id == GEOMETRIC else (2e3, 0.0)
+    named = dict(zip(KERNEL_ROWS[kernel_id], attr))
+    partner = torch.remainder(K - torch.arange(n, device=device), n)
+    values = kernel_value(
+        kernel_id, *params, named, {k: v[partner] for k, v in named.items()}
+    )
+    alive = mult[mult > 0].double()
+    scale = 1.0 / float(alive.median() * values.double().median())
+    return (mult, ext, attr, kernel_id, params,
+            torch.tensor([scale], dtype=torch.float32, device=device), K,
+            2718281828)
+
+
+def _k1_geometric_vs_twin(torch, kern, device, gpu):
+    """phase 18: K1 with Geometric and SimpleGeometric against its twin on
+    the card at 2^16 and 2^20 (multiplicities exactly, rows to rtol 1e-6,
+    rate sums to 1e-5), three launches and two streams bit-equal, then
+    Geometric's device time at 2^20 on one input and over a rotation of
+    four; returns (max_abs_err, ms, rotated ms, bytes)"""
+    import numpy as np
+
+    max_abs_err = 0.0
+    for kernel_id, name in ((kern.GEOMETRIC, "Geometric"),
+                            (kern.SIMPLE_GEOMETRIC, "SimpleGeometric")):
+        for n, ext_dtype in ((2**16, np.float64), (N_MAIN, np.float32)):
+            args = k1_geometric_args(torch, n, kernel_id, ext_dtype, n, device)
+            mult = args[0]
+            before = kern.coalesce_mirror.launches
+            got = kern.coalesce_mirror(*args)
+            torch.cuda.synchronize()
+            if kern.coalesce_mirror.launches != before + 1:
+                raise AssertionError("K1's counter did not count the launch")
+            want = kern.coalesce_mirror_reference(*args)
+            got = [x.cpu().numpy() for x in got]
+            want = [x.cpu().numpy() for x in want]
+            np.testing.assert_array_equal(got[0], want[0])
+            changed = float((got[0] != mult.cpu().numpy()).mean())
+            if not 0.05 < changed < 0.95:
+                raise AssertionError(f"phase 18: {name} touched {changed}")
+            rtol = 1e-6 if ext_dtype == np.float32 else 1e-12
+            np.testing.assert_allclose(got[1], want[1], rtol=rtol)
+            for g, w in zip(got[2:], want[2:]):
+                np.testing.assert_allclose(g, w, rtol=1e-5)
+            err = float(np.abs(got[1].astype(np.float64) - want[1]).max())
+            max_abs_err = max(max_abs_err, err)
+            print(f"phase 18: K1 {name} n={n} ext={np.dtype(ext_dtype).name}:"
+                  f" xi equal ({changed!r} of the slots changed), ext max abs"
+                  f" err {err!r}, rates {got[2:]} vs {want[2:]}")
+    args = k1_geometric_args(torch, N_MAIN, kern.GEOMETRIC, np.float32, 7, device)
+    inputs = [args] + [
+        k1_geometric_args(torch, N_MAIN, kern.GEOMETRIC, np.float32, s, device)
+        for s in (11, 12, 13)
+    ]
+    check_deterministic(torch, kern.coalesce_mirror, inputs[:2], "phase 18: K1")
+    kernel_ms = _time_ms(torch, lambda: kern.coalesce_mirror(*args), 200)
+    rotated_ms = _time_rotated_ms(
+        torch, lambda a: kern.coalesce_mirror(*a), inputs, 200
+    )
+    # each input read once, each output written once: mult 8, two float32
+    # rows 8, two attribute rows 8 in; mult 8, rows 8 out
+    n_bytes = N_MAIN * (8 + 8 + 8 + 8 + 8)
+    print(f"phase 18: K1 Geometric n={N_MAIN}: kernel {kernel_ms!r} ms on one"
+          f" input (in the L2), {rotated_ms!r} ms over a rotation of"
+          f" {len(inputs)} inputs; bound {bound_ms(n_bytes)[0]!r} ms"
+          f" ({n_bytes / N_MAIN:.0f} B/slot) [{gpu}]")
+    return max_abs_err, kernel_ms, rotated_ms, n_bytes
+
+
+@contextlib.contextmanager
+def _capturing_builder(model):
+    """``model.Builder`` replaced by a subclass that keeps every
+    particulator it builds and its liquid water at the build (in the
+    yielded list, as pairs)"""
+    built = []
+    base = model.Builder
+
+    class Capturing(base):
+        def build(self, *args, **kwargs):
+            p = super().build(*args, **kwargs)
+            built.append((p, _totals(p)[0]))
+            return p
+
+    with _replaced(model, "Builder", Capturing):
+        yield built
+
+
+def _shima_model(kern, gpu):
+    """phase 19: ``shima_et_al_2009.run`` at 2^20 on the card: dv/dlnr
+    against the Golovin solution at t = 1200 s, mass under the spectrum and
+    liquid mass conserved, K1 launches = substeps, ``WallTime`` inside the
+    host clock around the call"""
+    import numpy as np
+
+    from pysdm_tpu_torch.models import shima_et_al_2009 as model
+
+    settings = model.Settings()
+    settings.n_sd = N_MAIN
+    with _capturing_builder(model) as built:
+        kern.coalesce_mirror.launches = 0
+        t0 = time.perf_counter()
+        vals, wall_time = model.run(settings)
+        host = time.perf_counter() - t0
+    p, liquid0 = built[0]
+    if p.device.type != "cuda":
+        raise AssertionError(f"shima_et_al_2009.run built on {p.device}")
+    substeps = p.dynamics["Collision"].substeps_run
+    launches = kern.coalesce_mirror.launches
+    if launches != substeps or substeps != settings.output_steps[-1]:
+        raise AssertionError(f"phase 19: {launches} K1 launches, {substeps} substeps")
+    if not 0 < wall_time <= host:
+        raise AssertionError(f"phase 19: wall time {wall_time} s, host {host} s")
+    r_mid = np.sqrt(settings.radius_bins_edges[:-1] * settings.radius_bins_edges[1:])
+    analytic = model.golovin_analytic_dvdlnr(
+        r_mid, 1200.0, b=1.5e3, x_0=settings.X0, n_part=settings.n_part,
+        rho=settings.rho,
+    )
+    rmse = float(np.sqrt(np.mean(((vals[1200] - analytic) / analytic.max()) ** 2)))
+    dlnr = np.diff(np.log(settings.radius_bins_edges))
+    spectrum_mass = [float((vals[s] * dlnr).sum()) for s in settings.output_steps]
+    liquid1 = _totals(p)[0]
+    drift = abs(liquid1 - liquid0) / liquid0
+    if not (rmse < 0.15 and np.isfinite(vals[3600]).all()
+            and abs(spectrum_mass[1] / spectrum_mass[0] - 1) < 5e-2
+            and drift < 1e-6):
+        raise AssertionError(
+            f"phase 19: rmse {rmse}, spectrum mass {spectrum_mass}, liquid"
+            f" {liquid0} -> {liquid1}"
+        )
+    print(f"phase 19: shima_et_al_2009.run at n_sd={N_MAIN} on the card:"
+          f" {substeps} steps, {launches} K1 launches, wall time"
+          f" {wall_time!r} s (host clock around the call {host!r} s,"
+          f" {N_MAIN / 2 * substeps / wall_time!r} pair-updates/s); dv/dlnr"
+          f" rmse against Golovin at t = 1200 s {rmse!r} (bound 0.15); mass"
+          f" under the spectrum {spectrum_mass} kg/m^3; liquid drift"
+          f" {drift!r} [{gpu}]")
+
+
+def _box_model_entry_points(kern, gpu):
+    """phase 19, after the 2^20 run: the two other entry points over K1 at
+    their own defaults on the card, with the JAX package's test bounds:
+    ``dejong_azimi.run_box(Settings0D())`` (2^12, adaptive; the number
+    falls, the Cloudy.jl comparison's M0 at t = 0 within 2% and at 60 and
+    120 s within 50%, the volume conserved to 1e-5, float32 masses) and
+    ``bartman_2020_fig_4`` (2^13, dt = 1 s, 10 s and adaptive at 10 s; the
+    adaptive run's spectrum at 3600 s no further from dt = 1 s's than 1.25
+    times the fixed 10 s run's)"""
+    import numpy as np
+
+    from pysdm_tpu_torch.models import dejong_azimi, thesis_benchmarks
+
+    kern.coalesce_mirror.launches = 0
+    out = dejong_azimi.run_box(dejong_azimi.Settings0D())
+    m0, m1 = out.moments[:, 0], out.moments[:, 1]
+    analytic_m0 = np.array([100.0, 4.863406413211965, 0.23652721940076313]) * 1e6
+    if not (kern.coalesce_mirror.launches >= 120 and m0[0] > m0[-1]
+            and abs(m0[0] / analytic_m0[0] - 1) < 0.02
+            and (np.abs(m0[1:] / analytic_m0[1:] - 1) < 0.5).all()
+            and np.abs(m1 / m1[0] - 1).max() < 1e-5):
+        raise AssertionError(f"phase 19: run_box moments {out.moments}")
+    print(f"phase 19: dejong_azimi.run_box(Settings0D()) on the card:"
+          f" {kern.coalesce_mirror.launches} K1 launches; M0"
+          f" {m0.tolist()} m^-3 (Cloudy.jl's Golovin {analytic_m0.tolist()}),"
+          f" M1 drift {float(np.abs(m1 / m1[0] - 1).max())!r} [{gpu}]")
+    kern.coalesce_mirror.launches = 0
+    runs = thesis_benchmarks.bartman_2020_fig_4(dts=(1.0, 10.0, "adaptive"))
+    n_sd = 2**13
+    dt1, dt10, adaptive = (runs[(n_sd, dt)][0] for dt in (1.0, 10.0, "adaptive"))
+    last10 = max(dt10)
+    reference = dt1[max(dt1)]
+    err_adaptive = float(np.abs(adaptive[last10] - reference).sum())
+    err_fixed = float(np.abs(dt10[last10] - reference).sum())
+    if not err_adaptive <= 1.25 * err_fixed:
+        raise AssertionError(f"phase 19: bartman {err_adaptive} {err_fixed}")
+    print(f"phase 19: bartman_2020_fig_4 on the card at {n_sd}:"
+          f" {kern.coalesce_mirror.launches} K1 launches; distance to dt ="
+          f" 1 s at 3600 s: adaptive {err_adaptive!r}, fixed 10 s"
+          f" {err_fixed!r}; wall times"
+          f" {[runs[(n_sd, dt)][1] for dt in (1.0, 10.0, 'adaptive')]} s"
+          f" [{gpu}]")
+
+
+def _berry_model(kern, gpu):
+    """phase 20: ``berry_1967.run`` at 2^20 on the card (Geometric on K1,
+    Gunn-Kinzer fall velocities): the mean radius grows, liquid conserved,
+    K1 launches = substeps; then one substep captured and K1 held against
+    its twin on it. Returns the launches"""
+    import numpy as np
+    import torch
+
+    from pysdm_tpu_torch.dynamics.collisions import collision
+    from pysdm_tpu_torch.models import berry_1967 as model
+
+    settings = model.Settings(steps=[0, 200, 400, 600])
+    settings.n_sd = N_MAIN
+    with _capturing_builder(model) as built:
+        kern.coalesce_mirror.launches = 0
+        t0 = time.perf_counter()
+        vals, p = model.run(settings)
+        p.block_until_ready()
+        host = time.perf_counter() - t0
+    launches = kern.coalesce_mirror.launches
+    substeps = p.dynamics["Collision"].substeps_run
+    liquid0 = built[0][1]
+    if p.device.type != "cuda" or built[0][0] is not p:
+        raise AssertionError(f"berry_1967.run built on {p.device}")
+    if launches != substeps or substeps != settings.output_steps[-1]:
+        raise AssertionError(f"phase 20: {launches} K1 launches, {substeps} substeps")
+    r_mid = np.sqrt(settings.radius_bins_edges[:-1] * settings.radius_bins_edges[1:])
+    mean_r = [float((vals[s] * r_mid).sum() / vals[s].sum())
+              for s in settings.output_steps]
+    liquid1 = _totals(p)[0]
+    if abs(liquid1 - liquid0) > 1e-6 * liquid0:
+        raise AssertionError(f"phase 20: liquid {liquid0} -> {liquid1}")
+
+    captured = []
+
+    def record(*args):
+        captured.append([a.clone() if torch.is_tensor(a) else a for a in args])
+        return kern.coalesce_mirror(*args)
+
+    with _replaced(collision, "coalesce_mirror", record):
+        p.run(1)
+    liquid2 = _totals(p)[0]
+    args = captured[0]
+    got = [x.cpu().numpy() for x in kern.coalesce_mirror(*args)]
+    want = [x.cpu().numpy() for x in kern.coalesce_mirror_reference(*args)]
+    np.testing.assert_array_equal(got[0], want[0])
+    np.testing.assert_allclose(got[1], want[1], rtol=1e-6)
+    for g, w in zip(got[2:], want[2:]):
+        np.testing.assert_allclose(g, w, rtol=1e-5)
+    changed = int((got[0] != args[0].cpu().numpy()).sum())
+    drift = abs(liquid2 - liquid1) / liquid1
+    if not (mean_r[-1] > mean_r[0] and changed > 0 and drift < 1e-6
+            and args[3] == kern.GEOMETRIC):
+        raise AssertionError(
+            f"phase 20: mean radius {mean_r}, {changed} slots changed, liquid"
+            f" {liquid1} -> {liquid2}"
+        )
+    err = float(np.abs(got[1].astype(np.float64) - want[1]).max())
+    print(f"phase 20: berry_1967.run at n_sd={N_MAIN} on the card:"
+          f" {substeps} steps in {host!r} s, {launches} K1 launches"
+          f" (Geometric); number-weighted mean radius of dv/dlnr {mean_r} m;"
+          f" on a captured substep K1 xi equal to the twin ({changed} slots"
+          f" changed), ext max abs err {err!r}; liquid drift over it"
+          f" {drift!r} [{gpu}]")
+    return launches
+
+
+def _bulenok_model(k5, gpu):
+    """phase 21: ``bulenok_2023_benchmark`` at 2^17 and 2^20, 64 steps, on
+    the card (K5): pair-updates/s, the final mean mass within
+    BULENOK_FACTOR of eq. 13, multiplicities >= 0, K5 launches = substeps;
+    K5 against its twin on the 2^20 run's 32nd substep. Returns K5's
+    launches"""
+    import numpy as np
+    import torch
+
+    from pysdm_tpu_torch.dynamics.collisions import collision
+    from pysdm_tpu_torch.models import srivastava_1982, thesis_benchmarks
+
+    captured = []
+
+    def record(*args):
+        if len(captured) < 32:
+            captured.append(
+                [a.clone() if torch.is_tensor(a) else
+                 {k: v.clone() for k, v in a.items()} if isinstance(a, dict)
+                 else a for a in args]
+            )
+        return k5.coalesce_breakup_mirror(*args)
+
+    launches = 0
+    for n_sd in BULENOK_N_SDS:
+        with _capturing_builder(srivastava_1982) as built, contextlib.ExitStack() as stack:
+            if n_sd == BULENOK_N_SDS[-1]:
+                stack.enter_context(
+                    _replaced(collision, "coalesce_breakup_mirror", record)
+                )
+            k5.coalesce_breakup_mirror.launches = 0
+            result = thesis_benchmarks.bulenok_2023_benchmark(
+                n_sds=(n_sd,), n_steps=BULENOK_STEPS
+            )[n_sd]
+        p = built[0][0]
+        substeps = p.dynamics["Collision"].substeps_run
+        count = k5.coalesce_breakup_mirror.launches
+        ratio = result["mean_mass_final"] / result["analytic_final"]
+        mult = p.attributes["multiplicity"]
+        if (p.device.type != "cuda" or count != substeps
+                or substeps != BULENOK_STEPS or (mult < 0).any()
+                or not 1 / BULENOK_FACTOR < ratio < BULENOK_FACTOR):
+            raise AssertionError(
+                f"phase 21: n_sd={n_sd} on {p.device}: {count} K5 launches,"
+                f" {substeps} substeps, mean mass {result}"
+            )
+        launches += count
+        rates = {name: float(p.get_counter(name).sum())
+                 for name in ("coalescence_rate", "breakup_rate",
+                              "breakup_rate_deficit", "collision_rate_deficit")}
+        print(f"phase 21: bulenok_2023_benchmark n_sd={n_sd}, {BULENOK_STEPS}"
+              f" steps: {result['pair_updates_per_s']!r} pair-updates/s,"
+              f" {result['wall_time']!r} s; mean mass / fragment mass"
+              f" {result['mean_mass_final']!r} against eq. 13's"
+              f" {result['analytic_final']!r} (ratio {ratio!r}, bound"
+              f" {BULENOK_FACTOR}); {count} K5 launches; multiplicity max"
+              f" {int(mult.max())}; rates {rates} [{gpu}]")
+    args = captured[-1]
+    got = k5.coalesce_breakup_mirror(*args)
+    processes = {}
+    want = k5.coalesce_breakup_mirror_reference(*args, processes=processes)
+    err, n_diff = compare_k5(
+        got, want, processes, args[0].cpu().numpy(), wm_index=args[2],
+        require_changes=False,
+    )
+    print(f"phase 21: K5 on the 2^20 run's substep {len(captured)}: within"
+          f" compare_k5's bounds of the twin; {int(processes['coalescence'].sum())}"
+          f" coalescence and {int(processes['breakup'].sum())} breakup slots,"
+          f" {n_diff} multiplicities differ, ext max abs err {err!r} [{gpu}]")
+    return launches
+
+
+def _column_products(products):
+    """every liquid-phase product that applies to a column whose particles
+    carry no aerosol (no activation filter, no condensation)"""
+    import numpy as np
+
+    from pysdm_tpu_torch.physics import si
+
+    bins = np.logspace(np.log10(1 * si.um), np.log10(5e3 * si.um), num=65)
+    cloud = (1 * si.um, np.inf)
+    return (
+        products.ParticleVolumeVersusRadiusLogarithmSpectrum(bins, name="dv/dlnr"),
+        products.NumberSizeSpectrum(bins, name="N(r)"),
+        products.ParticleSizeSpectrumPerVolume(bins, name="dN/dr"),
+        products.ParticleSizeSpectrumPerMassOfDryAir(bins, name="dN/dr/rhod"),
+        products.RadiusBinnedNumberAveragedTerminalVelocity(bins, name="vt(r)"),
+        products.TotalParticleConcentration(name="N"),
+        products.TotalParticleSpecificConcentration(name="n"),
+        products.ParticleConcentration(radius_range=(50 * si.um, np.inf), name="N rain"),
+        products.ParticleSpecificConcentration(radius_range=cloud, name="n cloud"),
+        products.MeanRadius(name="mean r"),
+        products.MeanVolumeRadius(name="mean volume r"),
+        products.EffectiveRadius(name="reff"),
+        products.RadiusStandardDeviation(name="sd r"),
+        products.AreaStandardDeviation(name="sd area"),
+        products.VolumeStandardDeviation(name="sd v"),
+        products.WaterMixingRatio(name="qc", radius_range=cloud),
+        products.CloudWaterContent(name="cwc"),
+        products.SpecificCloudWaterContent(name="scwc"),
+        products.LiquidWaterContent(name="lwc"),
+        products.SpecificLiquidWaterContent(name="slwc"),
+        products.ZerothMoment(name="M0"),
+        products.VolumeFirstMoment(name="M1"),
+        products.VolumeSecondMoment(name="M2"),
+        products.RadiusFirstMoment(name="R1"),
+        products.RadiusSixthMoment(name="R6"),
+        products.SuperDropletCountPerGridbox(name="sd count"),
+        products.Time(name="time"),
+        products.CollisionTimestepMin(name="dt coll min"),
+        products.CollisionTimestepMean(name="dt coll mean"),
+        products.CoalescenceRatePerGridbox(name="coalescence rate"),
+        products.AmbientTemperature(name="T"),
+        products.AmbientPressure(name="p"),
+        products.AmbientRelativeHumidity(name="RH"),
+        products.AmbientRelativeHumidityWrtIce(name="RH ice"),
+        products.AmbientDryAirDensity(name="rhod"),
+        products.AmbientDryAirPotentialTemperature(name="thd"),
+        products.AmbientWaterVapourMixingRatio(name="qv"),
+        products.MaxCourantNumber(name="max courant"),
+        products.FlowVelocityComponent(0, name="w"),
+        products.AveragedTerminalVelocity(name="vt", radius_range=cloud),
+        products.SurfacePrecipitation(name="surf_precip"),
+    )
+
+
+# products that read and reset a counter: a second read right after the
+# first sees what accumulated in between, nothing
+_RESET_ON_READ = ("dt coll mean", "coalescence rate", "surf_precip")
+
+
+def _dejong_column(gpu):
+    """phase 22: de Jong and Azimi's ``Settings1D`` through the port's
+    column ``Simulation`` at full width on the card (K2, K4): 300 steps,
+    pairs merging, liquid conserved with the precipitation counted; K2 and
+    K4 held against their twins on one captured substep and scan; every
+    applicable product read twice. Returns the launches of K2 and K4"""
+    import numpy as np
+
+    from pysdm_tpu_torch import products
+    from pysdm_tpu_torch.models import dejong_azimi
+    from pysdm_tpu_torch.models.shipway_and_hill_2012 import Simulation
+    from pysdm_tpu_torch.ops.cuda import collision, scan
+
+    settings = dejong_azimi.Settings1D(n_sd_per_gridbox=COLUMN_SD_PER_CELL)
+    p = Simulation(settings, products=_column_products(products)).particulator
+    if p.device.type != "cuda" or "Condensation" in p.dynamics:
+        raise AssertionError(f"phase 22: on {p.device}, {list(p.dynamics)}")
+    if (p.mesh.n_cell, p.n_sd) != (145, 145 * COLUMN_SD_PER_CELL):
+        raise AssertionError(f"{p.mesh.n_cell} cells, {p.n_sd} super-droplets")
+    liquid0, count0 = _totals(p)
+    dyn = p.dynamics["Collision"]
+    substeps0 = dyn.substeps_run
+    collision.coalesce_adjacent.launches = 0
+    scan.cumsum.launches = 0
+    scan.cumsum.rows = 0
+    precipitated = 0.0
+    t0 = time.perf_counter()
+    for _ in range(DEJONG_COLUMN_STEPS):
+        p.run(1)
+        precipitated += float(np.sum(p.get_counter("precipitated_mass")))
+    p.block_until_ready()
+    wall = time.perf_counter() - t0
+    substeps = dyn.substeps_run - substeps0
+    k2 = collision.coalesce_adjacent.launches
+    k4, k4_rows = scan.cumsum.launches, scan.cumsum.rows
+    liquid1, count1 = _totals(p)
+    first = {name: product.get() for name, product in p.products.items()}
+    second = {name: product.get() for name, product in p.products.items()}
+    coalescence = float(first["coalescence rate"].sum())
+    drift = (liquid1 + precipitated - liquid0) / liquid0
+    # float32 masses on the card: each merge rounds e_k + gamma e_j once
+    if not (k2 == substeps >= DEJONG_COLUMN_STEPS and k4 > 0
+            and coalescence > 0 and count1 < count0 and abs(drift) < 1e-5):
+        raise AssertionError(
+            f"phase 22: K2 {k2}, substeps {substeps}, K4 {k4}, coalescence"
+            f" {coalescence}, droplets {count0} -> {count1}, liquid drift {drift}"
+        )
+    for name, value in first.items():
+        expected = np.zeros_like(value) if name in _RESET_ON_READ else value
+        if name == "dt coll mean":
+            expected = np.full_like(value, np.nan)
+        if name == "dt coll min":
+            # its counter was reset by the first read of "dt coll mean"
+            expected = np.full_like(value, settings.dt)
+        if not np.array_equal(second[name], expected, equal_nan=True):
+            raise AssertionError(f"phase 22: {name} read twice: {value}, {second[name]}")
+        if not np.isfinite(value).any():
+            raise AssertionError(f"phase 22: {name} not finite: {value}")
+    print(f"phase 22: de Jong-Azimi column {p.mesh.n_cell} cells x"
+          f" {COLUMN_SD_PER_CELL}, {DEJONG_COLUMN_STEPS} steps in {wall!r} s"
+          f" ({wall / DEJONG_COLUMN_STEPS * 1e3!r} ms/step,"
+          f" {p.n_sd * DEJONG_COLUMN_STEPS / wall!r} droplet-steps/s):"
+          f" {substeps} collision substeps = {k2} K2 launches, {k4} K4"
+          f" launches of {k4_rows} rows; coalescence rate"
+          f" {coalescence!r} since t = 0; droplets {count0!r} -> {count1!r};"
+          f" liquid drift {drift!r} with {precipitated!r} kg precipitated;"
+          f" {len(first)} products read twice, bit-equal but for the"
+          f" {len(_RESET_ON_READ)} that reset on read [{gpu}]")
+    for name in ("N", "mean r", "reff", "slwc", "max courant", "w"):
+        value = first[name]
+        print(f"phase 22: {name}: shape {value.shape}, min"
+              f" {float(np.nanmin(value))!r}, max {float(np.nanmax(value))!r}")
+    _column_kernels_vs_twins(p, gpu, label="phase 22")
+    return {"coalesce_adjacent": k2, "cumsum": k4}
+
+
 def main():
     import torch
 
@@ -2153,6 +2690,14 @@ def main():
     _breakup_model(k5, gpu)
     column, column_err = _column_main_path(gpu)
     _column_published_on_card(gpu)
+    geo_err, geo_ms, geo_rotated_ms, geo_bytes = _k1_geometric_vs_twin(
+        torch, kern, device, gpu
+    )
+    _shima_model(kern, gpu)
+    _box_model_entry_points(kern, gpu)
+    berry_launches = _berry_model(kern, gpu)
+    bulenok_launches = _bulenok_model(k5, gpu)
+    dejong = _dejong_column(gpu)
 
     # least times on the card, from this run's inputs: K1 at N_MAIN with two
     # float32 rows (mult 8 + rows 8 + volume 4 in, mult 8 + rows 8 out per
@@ -2165,6 +2710,7 @@ def main():
     k4_bound = bound_ms(k4_n * 8)
     k2_bound = bound_ms(k2_bytes)
     k5_bound = bound_ms(k5_bytes, k5_ops)
+    geo_bound = bound_ms(geo_bytes)
 
     print(json.dumps({"kernels": [{
         "name": "coalesce_mirror",
@@ -2172,10 +2718,15 @@ def main():
         "source": "pysdm_tpu_torch/csrc/collision_mirror.cu",
         "replaces": "pysdm_tpu/ops/pallas/collision.py:582",
         "launches": launches,
+        "berry_launches": berry_launches,
         "max_abs_err": max_abs_err,
+        "geometric_max_abs_err": geo_err,
         "ms": kernel_ms,
+        "geometric_ms": geo_ms,
+        "geometric_rotated_ms": geo_rotated_ms,
         "plain_ms": twin_ms,
         "bound_ms": k1_bound[0],
+        "geometric_bound_ms": geo_bound[0],
         "bound_by": k1_bound[1],
         "library_ms": None,
     }, {
@@ -2199,6 +2750,7 @@ def main():
         "replaces": "pysdm_tpu/ops/pallas/collision.py:721",
         "launches": warm_launches["coalesce_adjacent"],
         "column_launches": column["coalesce_adjacent"],
+        "dejong_column_launches": dejong["coalesce_adjacent"],
         "column_max_abs_err": column_err["coalesce_adjacent"],
         "max_abs_err": k2_err,
         "ms": k2_ms,
@@ -2213,6 +2765,7 @@ def main():
         "replaces": "pysdm_tpu/ops/pallas/scan.py:105",
         "launches": warm_launches["cumsum"],
         "column_launches": column["cumsum"],
+        "dejong_column_launches": dejong["cumsum"],
         "column_max_abs_err": column_err["cumsum"],
         "max_abs_err": k4_err,
         "ms": k4_ms,
@@ -2227,6 +2780,7 @@ def main():
         "source": "pysdm_tpu_torch/csrc/collision_breakup.cu",
         "replaces": "pysdm_tpu/ops/pallas/breakup.py:340",
         "launches": k5_launches,
+        "bulenok_launches": bulenok_launches,
         "max_abs_err": k5_err,
         "ms": k5_ms,
         "plain_ms": k5_twin_ms,

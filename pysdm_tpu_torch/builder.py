@@ -172,15 +172,19 @@ class Builder:
 
         # insertion order is semantically significant (reference
         # particulator.py:50-56)
-        step_fns = [
-            dynamic.make_step(particulator)
-            for dynamic in particulator.dynamics.values()
+        named_step_fns = [
+            (name, dynamic.make_step(particulator))
+            for name, dynamic in particulator.dynamics.items()
             if hasattr(dynamic, "make_step")
         ]
         # the environment's predicted -> current commit runs last (the
         # reference's swap-on-notify observer order, particulator.py:58-61)
         if hasattr(self.environment, "make_commit_step"):
-            step_fns.append(self.environment.make_commit_step(particulator))
+            named_step_fns.append(
+                ("EnvCommit", self.environment.make_commit_step(particulator))
+            )
+        particulator._named_step_fns = tuple(named_step_fns)
+        step_fns = [fn for _, fn in named_step_fns]
 
         def full_step(sim):
             for fn in step_fns:

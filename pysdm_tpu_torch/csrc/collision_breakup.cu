@@ -85,7 +85,6 @@ using sdm::BIG;
 using sdm::u32_to_f32;
 using sdm::u64_to_f32;
 
-enum KernelId { GOLOVIN = 0, CONSTANT_K = 1, LINEAR = 2, GEOMETRIC = 3 };
 enum EcId { EC_CONST = 0, EC_BERRY1967 = 1 };
 enum FragId { FRAG_ALWAYS_N = 0, FRAG_CONSTANT_MASS = 1, FRAG_EXPONENTIAL = 2 };
 
@@ -140,23 +139,6 @@ __device__ __forceinline__ float pow4(float x) {
   return mul(x2, x2);
 }
 __device__ __forceinline__ float pow8(float x) { return pow4(mul(x, x)); }
-
-__device__ __forceinline__ float kernel_value(const PairFunctions& f, float va,
-                                              float vb, float ra, float rb,
-                                              float ua, float ub) {
-  switch (f.kernel_id) {
-    case GOLOVIN:
-      return mul(f.k0, add(va, vb));
-    case CONSTANT_K:
-      return add(f.k0, mul(0.0f, va));
-    case LINEAR:
-      return add(f.k0, mul(f.k1, add(va, vb)));
-    default: {  // GEOMETRIC: pi E_c (r + r')^2 |u - u'|
-      const float r_sum = add(ra, rb);
-      return mul(mul(f.k0, mul(r_sum, r_sum)), fabsf(sub(ua, ub)));
-    }
-  }
-}
 
 // Berry 1967 (pysdm_tpu/dynamics/collisions/collision_kernels.py:121-138,
 // coalescence_efficiencies.py:30-37), clipped to [0, 1]
@@ -315,7 +297,9 @@ struct Args {
   int n_ext, wm_index;
   const float* __restrict__ volume;
   const float* __restrict__ radius;
-  const float* __restrict__ vfall;
+  // the row whose pair difference the geometric kernels take: the
+  // relative fall velocity (GEOMETRIC) or the area (SIMPLE_GEOMETRIC)
+  const float* __restrict__ diff_row;
   PairFunctions f;
   const float* __restrict__ scale;
   int64_t n;
@@ -388,8 +372,8 @@ __device__ void pair_update(const Args<T>& x, int64_t o, int64_t po,
   const float vb = x.volume ? x.volume[po] : 0.0f;
   const float ra = x.radius ? x.radius[o] : 0.0f;
   const float rb = x.radius ? x.radius[po] : 0.0f;
-  const float ua = x.vfall ? x.vfall[o] : 0.0f;
-  const float ub = x.vfall ? x.vfall[po] : 0.0f;
+  const float ua = x.diff_row ? x.diff_row[o] : 0.0f;
+  const float ub = x.diff_row ? x.diff_row[po] : 0.0f;
   float eo[ROWS_AHEAD], ep[ROWS_AHEAD];
 #pragma unroll
   for (int r = 0; r < ROWS_AHEAD; ++r) {
@@ -407,7 +391,9 @@ __device__ void pair_update(const Args<T>& x, int64_t o, int64_t po,
     u.o_is_j = a >= b;
     const int64_t mj = u.o_is_j ? a : b, mk = u.o_is_j ? b : a;
     const PairFunctions& f = x.f;
-    const float kn = mul(kernel_value(f, va, vb, ra, rb, ua, ub), x.scale[0]);
+    const float kn = mul(
+        sdm::kernel_value(f.kernel_id, f.k0, f.k1, va, vb, ra, rb, ua, ub),
+        x.scale[0]);
     const float u_gamma = u01_hash(x.seed, (uint32_t)o);
     const float mj_f = u64_to_f32((uint64_t)mj);
     const float mk_f = u64_to_f32((uint64_t)mk);
@@ -542,14 +528,15 @@ long long pysdm_coalesce_breakup_mirror_scratch_bytes(long long n) {
 // one substep in one launch; returns cudaGetLastError() after it (0 =
 // success). mult, mult_out: int64 (n,); ext, ext_out: (n_ext, n) float or
 // double (ext_is_f64), row wm_index the signed water mass; volume, radius,
-// vfall: float (n,) rows, NULL where the functions do not read them; f: the
+// diff_row: float (n,) rows, NULL where the functions do not read them
+// (diff_row: the relative fall velocity or the area, see Args); f: the
 // functions (host memory); scale: float (1,) on the device; scratch:
 // pysdm_coalesce_breakup_mirror_scratch_bytes(n) bytes; sums: float (5,)
 // receives the collision rate, its deficit, the coalescence rate, the
 // breakup rate and the breakup deficit.
 int pysdm_coalesce_breakup_mirror(
     const void* mult, const void* ext, int ext_is_f64, int n_ext,
-    int wm_index, const void* volume, const void* radius, const void* vfall,
+    int wm_index, const void* volume, const void* radius, const void* diff_row,
     const PairFunctions* f, const void* scale, long long n, long long K,
     unsigned int seed, float max_mult, void* mult_out, void* ext_out,
     void* scratch, void* sums, void* stream) {
@@ -557,14 +544,14 @@ int pysdm_coalesce_breakup_mirror(
   if (ext_is_f64) {
     return launch(Args<double>{(const int64_t*)mult, (const double*)ext,
                                n_ext, wm_index, (const float*)volume,
-                               (const float*)radius, (const float*)vfall, *f,
+                               (const float*)radius, (const float*)diff_row, *f,
                                (const float*)scale, n, seed, max_mult,
                                (int64_t*)mult_out, (double*)ext_out},
                   K, scratch, sums, s);
   }
   return launch(Args<float>{(const int64_t*)mult, (const float*)ext, n_ext,
                             wm_index, (const float*)volume,
-                            (const float*)radius, (const float*)vfall, *f,
+                            (const float*)radius, (const float*)diff_row, *f,
                             (const float*)scale, n, seed, max_mult,
                             (int64_t*)mult_out, (float*)ext_out},
                 K, scratch, sums, s);

@@ -7,7 +7,11 @@
 // (pysdm_tpu/ops/pallas/collision.py:582, body _mk_mirror_block_kernel :422)
 // and takes its semantics at every N: slot o pairs with po = (K - o) mod N,
 // u01 comes from the pair-keyed PRF _u01_hash(seed, min(o, po)), and the
-// collision kernel is evaluated here from the volume row.
+// collision kernel is evaluated here (sdm_pair.cuh kernel_value, the body K5
+// evaluates too) from the attribute rows it reads, in the order of their
+// names, as the TPU kernel takes them: "volume" for Golovin, ConstantK and
+// Linear; "radius", "relative fall velocity" for Geometric; "area",
+// "radius" for SimpleGeometric.
 //
 // Design:
 // - one thread per pair, not per slot. Pair p's thread takes the pair's
@@ -24,6 +28,10 @@
 //   cap (a 128-bit product of the cap and xi_k decides; sdm_pair.cuh
 //   capped_quotient). At gamma = 0 k's rows still take e_k + 0 e_j, as the
 //   TPU kernel's do;
+// - one instantiation per collision kernel (a template parameter), so a
+//   launch evaluates its kernel with no branch on the id and loads only
+//   the attribute rows that kernel reads (on an H100, a run-time id and a
+//   run-time second row made Golovin's launch 11% slower at 2^20);
 // - multiplicities are native int64: gamma = min(cap, xi_j / xi_k) is an
 //   exact integer division. The TPU kernel has no 64-bit vector path and
 //   walks an f32 quotient estimate +-5 steps instead;
@@ -43,10 +51,12 @@
 // are added in another order than the twin's.
 //
 // What bounds it on the card: bytes. Each input read once and each output
-// written once, a slot moves 36 B with two float32 extensive rows
-// (multiplicity 8, rows 8 and volume 4 in; multiplicity 8 and rows 8 out),
-// 37.7 MB at 2^20 slots, 11.3 us at 3.35 TB/s, for some 60 flops and at
-// most one 64-bit division a pair. Measured times stand in PERF.md.
+// written once, a slot moves 32 + 4 n_attr B with two float32 extensive rows
+// (multiplicity 8, rows 8 and n_attr attribute rows 4 each in; multiplicity
+// 8 and rows 8 out): 36 B with Golovin's one row (37.7 MB at 2^20 slots,
+// 11.3 us at 3.35 TB/s), 40 B with the geometric kernels' two (41.9 MB,
+// 12.5 us), for some 60 flops and at most one 64-bit division a pair.
+// Measured times stand in PERF.md.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -66,8 +76,6 @@ using sdm::merge_rn;
 using sdm::u32_to_f32;
 using sdm::u64_to_f32;
 
-enum KernelId { GOLOVIN = 0, CONSTANT_K = 1, LINEAR = 2 };
-
 // murmur3 fmix32 applied twice to the pair identity (bit-exact with
 // pysdm_tpu/ops/pallas/collision.py:402-419)
 __device__ __forceinline__ float u01_hash(uint32_t seed, uint32_t pair_id) {
@@ -82,16 +90,26 @@ __device__ __forceinline__ float u01_hash(uint32_t seed, uint32_t pair_id) {
   return __fmul_rn((float)(int32_t)(h >> 8), TWO_M24);
 }
 
-__device__ __forceinline__ float kernel_value(int id, float p0, float p1,
-                                              float va, float vb) {
-  const float vsum = __fadd_rn(va, vb);
-  switch (id) {
-    case GOLOVIN:
-      return __fmul_rn(p0, vsum);
-    case CONSTANT_K:
-      return __fadd_rn(p0, __fmul_rn(0.0f, va));
-    default:  // LINEAR
-      return __fadd_rn(p0, __fmul_rn(p1, vsum));
+// the attribute rows collision kernel KID reads: "volume" for the first
+// three, "radius" and "relative fall velocity" for GEOMETRIC, "area" and
+// "radius" for SIMPLE_GEOMETRIC
+template <int KID>
+__host__ __device__ constexpr int attr_rows() {
+  return KID == sdm::GEOMETRIC || KID == sdm::SIMPLE_GEOMETRIC ? 2 : 1;
+}
+
+// the kernel value from the attribute rows of both slots (x0, x1: the rows
+// in name order)
+template <int KID>
+__device__ __forceinline__ float pair_kernel(float p0, float p1, float x0o,
+                                             float x0p, float x1o, float x1p) {
+  switch (KID) {
+    case sdm::GEOMETRIC:  // radius, relative fall velocity
+      return sdm::kernel_value(KID, p0, p1, 0.0f, 0.0f, x0o, x0p, x1o, x1p);
+    case sdm::SIMPLE_GEOMETRIC:  // area, radius
+      return sdm::kernel_value(KID, p0, p1, 0.0f, 0.0f, x1o, x1p, x0o, x0p);
+    default:  // volume
+      return sdm::kernel_value(KID, p0, p1, x0o, x0p, 0.0f, 0.0f, 0.0f, 0.0f);
   }
 }
 
@@ -100,8 +118,7 @@ struct Args {
   const int64_t* __restrict__ mult;
   const T* __restrict__ ext;
   int n_ext;
-  const float* __restrict__ volume;
-  int kernel_id;
+  const float* __restrict__ attr;  // (attr_rows<KID>(), n)
   float p0, p1;
   const float* __restrict__ scale;
   int64_t n;
@@ -119,13 +136,16 @@ struct Args {
 
 // the pair (o, po), o < po the leader: computed once, both slots written;
 // returns the pair's rate and deficit in s
-template <typename T>
+template <typename T, int KID>
 __device__ void pair_update(const Args<T>& x, int64_t o, int64_t po,
                             float (&s)[2]) {
   // every load first and none behind a branch on loaded data, so that the
   // pair waits for memory once
   const int64_t a = x.mult[o], b = x.mult[po];
-  const float va = x.volume[o], vb = x.volume[po];
+  constexpr bool two_rows = attr_rows<KID>() == 2;
+  const float x0o = x.attr[o], x0p = x.attr[po];
+  const float x1o = two_rows ? x.attr[x.n + o] : 0.0f;
+  const float x1p = two_rows ? x.attr[x.n + po] : 0.0f;
   T eo[ROWS_AHEAD], ep[ROWS_AHEAD];
 #pragma unroll
   for (int r = 0; r < ROWS_AHEAD; ++r) {
@@ -137,8 +157,8 @@ __device__ void pair_update(const Args<T>& x, int64_t o, int64_t po,
   // j = the not-smaller multiplicity; a tie goes to the leader
   const bool o_is_j = a >= b;
   const int64_t mj = o_is_j ? a : b, mk = o_is_j ? b : a;
-  const float kn =
-      __fmul_rn(kernel_value(x.kernel_id, x.p0, x.p1, va, vb), x.scale[0]);
+  const float kn = __fmul_rn(
+      pair_kernel<KID>(x.p0, x.p1, x0o, x0p, x1o, x1p), x.scale[0]);
   const float u = u01_hash(x.seed, (uint32_t)o);
   const float gamma_f = fmaxf(
       ceilf(__fsub_rn(__fmul_rn(u64_to_f32((uint64_t)mj), kn), u)), 0.0f);
@@ -179,7 +199,7 @@ __device__ void pair_update(const Args<T>& x, int64_t o, int64_t po,
 // one thread per pair; thread 0 also copies the slots that pair with
 // themselves. sums: the collision rate and its deficit, then the
 // coalescence rate, which in a coalescence-only substep is the first
-template <typename T>
+template <typename T, int KID>
 __global__ void __launch_bounds__(THREADS)
     coalesce_mirror_kernel(Args<T> x, int64_t K, unsigned* counter,
                            float* partials, float* sums) {
@@ -188,7 +208,7 @@ __global__ void __launch_bounds__(THREADS)
   if (p < sdm::mirror_pair_count(x.n, K)) {
     int64_t o, po;
     sdm::mirror_pair(x.n, K, p, &o, &po);
-    pair_update(x, o, po, s);
+    pair_update<T, KID>(x, o, po, s);
   }
   if (p == 0) {
     for (int r = 0; r < 2; ++r) {
@@ -209,12 +229,37 @@ int64_t blocks_for(int64_t n) {
   return pairs > 0 ? (pairs + THREADS - 1) / THREADS : 1;
 }
 
-template <typename T>
+template <typename T, int KID>
 int launch(Args<T> x, int64_t K, void* scratch, void* sums, cudaStream_t s) {
   char* base = (char*)scratch;
-  coalesce_mirror_kernel<T><<<(unsigned)blocks_for(x.n), THREADS, 0, s>>>(
+  coalesce_mirror_kernel<T, KID><<<(unsigned)blocks_for(x.n), THREADS, 0, s>>>(
       x, K, (unsigned*)base, (float*)(base + SCRATCH_HEAD), (float*)sums);
   return (int)cudaGetLastError();
+}
+
+// the instantiation of collision kernel kernel_id, after checking that
+// n_attr rows are the rows it reads
+template <typename T>
+int launch(Args<T> x, int kernel_id, int n_attr, int64_t K, void* scratch,
+           void* sums, cudaStream_t s) {
+  switch (kernel_id) {
+    case sdm::GOLOVIN:
+      if (n_attr != attr_rows<sdm::GOLOVIN>()) break;
+      return launch<T, sdm::GOLOVIN>(x, K, scratch, sums, s);
+    case sdm::CONSTANT_K:
+      if (n_attr != attr_rows<sdm::CONSTANT_K>()) break;
+      return launch<T, sdm::CONSTANT_K>(x, K, scratch, sums, s);
+    case sdm::LINEAR:
+      if (n_attr != attr_rows<sdm::LINEAR>()) break;
+      return launch<T, sdm::LINEAR>(x, K, scratch, sums, s);
+    case sdm::GEOMETRIC:
+      if (n_attr != attr_rows<sdm::GEOMETRIC>()) break;
+      return launch<T, sdm::GEOMETRIC>(x, K, scratch, sums, s);
+    case sdm::SIMPLE_GEOMETRIC:
+      if (n_attr != attr_rows<sdm::SIMPLE_GEOMETRIC>()) break;
+      return launch<T, sdm::SIMPLE_GEOMETRIC>(x, K, scratch, sums, s);
+  }
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -231,11 +276,15 @@ long long pysdm_coalesce_mirror_scratch_bytes(long long n) {
 
 // one substep in one launch; returns cudaGetLastError() after it (0 =
 // success). mult, mult_out: int64 (n,); ext, ext_out: (n_ext, n) float or
-// double (ext_is_f64); volume: float (n,); scale: float (1,) on the device;
+// double (ext_is_f64); attr: float (n_attr, n), the rows the kernel
+// kernel_id reads in the order of their names (attr_rows, pair_kernel;
+// another kernel_id or row count returns cudaErrorInvalidValue); scale: float
+// (1,) on the device;
 // scratch: pysdm_coalesce_mirror_scratch_bytes(n) bytes; sums: float (3,)
 // receives the collision rate, rate deficit and coalescence rate.
 int pysdm_coalesce_mirror(const void* mult, const void* ext, int ext_is_f64,
-                          int n_ext, const void* volume, int kernel_id,
+                          int n_ext, const void* attr, int n_attr,
+                          int kernel_id,
                           float p0, float p1, const void* scale, long long n,
                           long long K, unsigned int seed, void* mult_out,
                           void* ext_out, void* scratch, void* sums,
@@ -243,16 +292,15 @@ int pysdm_coalesce_mirror(const void* mult, const void* ext, int ext_is_f64,
   cudaStream_t s = (cudaStream_t)stream;
   if (ext_is_f64) {
     return launch(Args<double>{(const int64_t*)mult, (const double*)ext,
-                               n_ext, (const float*)volume, kernel_id, p0, p1,
+                               n_ext, (const float*)attr, p0, p1,
                                (const float*)scale, n, seed,
                                (int64_t*)mult_out, (double*)ext_out},
-                  K, scratch, sums, s);
+                  kernel_id, n_attr, K, scratch, sums, s);
   }
   return launch(Args<float>{(const int64_t*)mult, (const float*)ext, n_ext,
-                            (const float*)volume, kernel_id, p0, p1,
-                            (const float*)scale, n, seed, (int64_t*)mult_out,
-                            (float*)ext_out},
-                K, scratch, sums, s);
+                            (const float*)attr, p0, p1, (const float*)scale,
+                            n, seed, (int64_t*)mult_out, (float*)ext_out},
+                kernel_id, n_attr, K, scratch, sums, s);
 }
 
 const char* pysdm_cuda_error_string(int code) {

@@ -1,8 +1,9 @@
 // Device helpers shared by the SDM pair-update kernels
 // (collision_mirror.cu, collision_breakup.cu, collision_adjacent.cu): the TPU
-// kernels' float32 conversions of multiplicities, the separately rounded
-// merge of an extensive row, the mirror croupier's map from a pair's index
-// to its slots, and the one-launch fixed-order sum of per-pair rates.
+// kernels' float32 conversions of multiplicities, the collision kernels the
+// mirror kernels evaluate in their bodies, the separately rounded merge of
+// an extensive row, the mirror croupier's map from a pair's index to its
+// slots, and the one-launch fixed-order sum of per-pair rates.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -12,6 +13,40 @@ namespace sdm {
 
 constexpr float BIG = 2147483520.0f;  // 2^31 - 128, the TPU kernels' cap
 constexpr float TWO32 = 4294967296.0f;
+
+// the collision kernels K1 and K5 evaluate (ops/cuda/collision.py has the
+// same ids)
+enum KernelId {
+  GOLOVIN = 0,
+  CONSTANT_K = 1,
+  LINEAR = 2,
+  GEOMETRIC = 3,
+  SIMPLE_GEOMETRIC = 4
+};
+
+// the collision kernel of a pair in float32, every operation rounded on its
+// own in the order of pysdm_tpu/dynamics/collisions/collision_kernels.py:
+// k0, k1 the kernel's parameters; v the volumes; r the radii; u the rows
+// whose difference the geometric kernels take: the relative fall velocity
+// for GEOMETRIC (k0 = pi E_c, multiplied in double on the host), the area
+// for SIMPLE_GEOMETRIC (k0 = C)
+__device__ __forceinline__ float kernel_value(int id, float k0, float k1,
+                                              float va, float vb, float ra,
+                                              float rb, float ua, float ub) {
+  switch (id) {
+    case GOLOVIN:
+      return __fmul_rn(k0, __fadd_rn(va, vb));
+    case CONSTANT_K:
+      return __fadd_rn(k0, __fmul_rn(0.0f, va));
+    case LINEAR:
+      return __fadd_rn(k0, __fmul_rn(k1, __fadd_rn(va, vb)));
+    default: {  // GEOMETRIC, SIMPLE_GEOMETRIC: k0 (r + r')^2 |u - u'|
+      const float r_sum = __fadd_rn(ra, rb);
+      return __fmul_rn(__fmul_rn(k0, __fmul_rn(r_sum, r_sum)),
+                       fabsf(__fsub_rn(ua, ub)));
+    }
+  }
+}
 
 // f32(x >> 1) * 2 + f32(x & 1): the TPU kernels' u32 -> f32 conversion
 __device__ __forceinline__ float u32_to_f32(uint32_t x) {

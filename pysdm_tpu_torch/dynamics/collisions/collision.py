@@ -5,10 +5,15 @@ Two croupiers, chosen as the JAX package chooses them:
 - one cell (box, parcel): a substep draws (K, seed), pairs slot o with
   (K - o) mod N (the mirror croupier, ``ops/pairing.py``) and hands the
   whole pair update to one kernel: K1 (``coalesce_mirror``) for
-  coalescence alone, K5 (``coalesce_breakup_mirror``) for bounce,
-  coalescence and breakup (``Collision`` with ``enable_breakup``,
-  ``Breakup``), which evaluates the collision kernel, Ec, Eb and the
-  fragment mass in its body;
+  coalescence alone, which evaluates the collision kernel in its body, K5
+  (``coalesce_breakup_mirror``) for bounce, coalescence and breakup
+  (``Collision`` with ``enable_breakup``, ``Breakup``), which evaluates the
+  collision kernel, Ec, Eb and the fragment mass in its body. Both take the
+  kernels of ``ops/cuda/collision.py`` ``MIRROR_KERNELS``, as the JAX
+  package's Pallas kernels take its ``pallas_safe`` ones; the others
+  (``Parameterized``, ``Hydrodynamic``, ``Electric``), which the JAX package
+  runs on its K1a with kernel values given as a row, raise in ``register``
+  (ROADMAP: K1 with kernel rows given);
 - many cells, u01 injection, or ``croupier="sort"``: a substep sorts the
   whole state by (cell, random bits) (``ops/segments.py``
   ``bucket_shuffle_state``), pairs neighbouring slots of a cell, computes
@@ -58,6 +63,7 @@ from ...ops.cuda.breakup import (
     required_rows,
 )
 from ...ops.cuda.collision import (
+    KERNEL_ROWS,
     MIRROR_KERNELS,
     coalesce_adjacent,
     coalesce_mirror,
@@ -171,8 +177,9 @@ class Collision:
         ):
             raise NotImplementedError(
                 f"{type(self.collision_kernel).__name__} has no K1 body: the"
-                " mirror croupier's kernel evaluates Golovin, ConstantK and"
-                " Linear (croupier='sort' takes any kernel)"
+                " mirror croupier's kernel evaluates Golovin, ConstantK,"
+                " Linear, Geometric and SimpleGeometric (croupier='sort'"
+                " takes any kernel; ROADMAP: K1 with kernel rows given)"
             )
         if self.dt_coal_range[1] > self.particulator.dt:
             self.dt_coal_range = (self.dt_coal_range[0], self.particulator.dt)
@@ -265,11 +272,11 @@ class Collision:
             row_names = required_rows(functions)
             counter_names = _BREAKUP_COUNTERS
         else:
-            row_names = {"volume"}
+            row_names = KERNEL_ROWS[kernel.kernel_id]
             counter_names = _RATE_COUNTERS
         # every attribute a substep reads: the kernel's rows, and the
         # collision kernel's own for the adaptive substep choice
-        attr_names = sorted(row_names | set(kernel.required_attributes))
+        attr_names = sorted(set(row_names) | set(kernel.required_attributes))
 
         def collide(particles, counters, K, seed, scale, attrs):
             self.substeps_run += 1
@@ -283,8 +290,8 @@ class Collision:
             else:
                 mult, ext, *rates = coalesce_mirror(
                     particles.multiplicity, particles.extensive,
-                    rows["volume"], kernel.kernel_id, kernel.cuda_params,
-                    scale, K, seed,
+                    torch.stack([rows[name] for name in row_names]),
+                    kernel.kernel_id, kernel.cuda_params, scale, K, seed,
                 )
             for name, total in zip(counter_names, rates):
                 counters[name] = coll_ops.accumulate_counter(

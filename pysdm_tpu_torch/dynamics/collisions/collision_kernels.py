@@ -5,9 +5,9 @@
 Each kernel has ``pairwise(formulae, attrs_a, attrs_b)`` over tensors. On
 the multi-cell path its values feed K2 as a row; on the single-cell path
 the adaptive substep choice reads them, and the kernel is evaluated again
-in the body of K1 (``Golovin``, ``ConstantK``, ``Linear``) or K5 (those
-and ``Geometric``) from its ``kernel_id`` and two float parameters,
-``cuda_params``.
+in the body of K1 or K5 (``csrc/sdm_pair.cuh`` ``kernel_value``) from its
+``kernel_id``, two float parameters, ``cuda_params``, and the attribute
+rows ``ops/cuda/collision.py`` ``KERNEL_ROWS`` names.
 """
 
 import numpy as np
@@ -17,7 +17,13 @@ from scipy import special
 from ...ops.cuda.breakup import (  # noqa: F401 (the reference's name here)
     berry_1967_linear_collection_efficiency,
 )
-from ...ops.cuda.collision import CONSTANT_K, GEOMETRIC, GOLOVIN, LINEAR
+from ...ops.cuda.collision import (
+    CONSTANT_K,
+    GEOMETRIC,
+    GOLOVIN,
+    LINEAR,
+    SIMPLE_GEOMETRIC,
+)
 
 
 class Golovin:
@@ -96,9 +102,7 @@ class Linear:
 class Geometric:
     """gravitational geometric-sweepout kernel
     (reference ``collision_kernels/geometric.py``):
-    K = E_c * pi * (r + r')^2 * |v_t - v_t'|. K5 evaluates it in its body;
-    K1 has none (coalescence alone takes it on the sort croupier, where K2
-    reads its values as a row)."""
+    K = E_c * pi * (r + r')^2 * |v_t - v_t'|"""
 
     required_attributes = ("radius", "relative fall velocity")
     kernel_id = GEOMETRIC
@@ -123,3 +127,27 @@ class Geometric:
         )
         return np.pi * self.collection_efficiency * r_sum**2 * dv
 
+
+class SimpleGeometric:
+    """geometric kernel without fall velocities
+    (reference ``collision_kernels/simple_geometric.py``):
+    K = C * (r + r')^2 * |A - A'|"""
+
+    required_attributes = ("radius", "area")
+    kernel_id = SIMPLE_GEOMETRIC
+
+    def __init__(self, C):
+        self.C = C
+
+    @property
+    def cuda_params(self):
+        return (self.C, 0.0)
+
+    def register(self, builder):
+        builder.request_attribute("radius")
+        builder.request_attribute("area")
+
+    def pairwise(self, formulae, attrs_a, attrs_b):
+        r_sum = attrs_a["radius"] + attrs_b["radius"]
+        d_area = torch.abs(attrs_a["area"] - attrs_b["area"])
+        return self.C * r_sum**2 * d_area

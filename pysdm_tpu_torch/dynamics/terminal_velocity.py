@@ -1,6 +1,7 @@
-"""Gunn & Kinzer 1949 terminal velocity (port of the table interpolation of
-``pysdm_tpu/dynamics/terminal_velocity.py``; reference
-``PySDM/dynamics/terminal_velocity/gunn_and_kinzer.py``).
+"""Terminal velocity (port of ``pysdm_tpu/dynamics/terminal_velocity.py``):
+the Gunn & Kinzer 1949 table interpolation (reference
+``PySDM/dynamics/terminal_velocity/gunn_and_kinzer.py``) and
+``PowerSeries``.
 
 The 601-point table over [0, 0.6 cm] is built once on the host (a SciPy
 RBF through the published Table 2, Beard's small-radius branch below
@@ -90,3 +91,27 @@ def gunn_kinzer_v_term(radius):
     ab = tab[:, idx.long()].to(radius.dtype)
     value = ab[0] + r_rest * ab[1]
     return torch.where(radius < 0, 0.0, value)
+
+
+class PowerSeries:
+    """a user-specified power law in the radius (reference
+    ``power_series.py``; ``pysdm_tpu/dynamics/terminal_velocity.py:94-115``):
+    sum of prefactor * (volume in um^3)^power, by default 0.2 (v /
+    um^3)^(1/6), in the radius as prefactor * (4/3 pi)^p / 1e-6^(3p) *
+    r^(3p)"""
+
+    def __init__(self, *, prefactors=None, powers=None):
+        prefactors = np.array(prefactors or [2.0e-1])
+        self.powers = np.array(powers or [1 / 6])
+        assert len(prefactors) == len(self.powers)
+        pi43 = 4 / 3 * np.pi
+        self.prefactors = np.array([
+            pref * pi43**p / (1e-6) ** (3 * p)
+            for pref, p in zip(prefactors, self.powers)
+        ])
+
+    def __call__(self, radius):
+        v = 0.0
+        for pref, p in zip(self.prefactors, self.powers):
+            v = v + float(pref) * torch.pow(radius, float(3 * p))
+        return v

@@ -1,14 +1,16 @@
 """Derived-attribute computation (port of ``pysdm_tpu/impl/attributes.py``)
-for the names the box, parcel and 2D warm-rain slices read: multiplicity,
-cell id, cell origin, position in cell, signed water mass, water mass,
-volume, radius, dry radius, kappa, dry volume organic fraction, Reynolds
-number, critical volume and the terminal (relative fall) velocity. Stored
-extensive rows resolve by name. Derived attributes of later slices raise
-``KeyError``.
+for the names the liquid-phase slices read: multiplicity, cell id, cell
+origin, position in cell, signed water mass, water mass, volume, radius,
+area, dry radius, kappa, dry volume organic fraction, Reynolds number,
+critical volume (also "... neglecting temperature variations"), wet to
+critical volume ratio (likewise), critical saturation and the terminal
+(relative fall) velocity of the chosen variant. Stored extensive rows
+resolve by name. Derived attributes of the ice, chemistry and isotope
+slices raise ``KeyError``.
 
-Names that depend on the ambient state (critical volume) read the cell's
-env row at each drop by a gather, ``env_row[cell_id]`` (the JAX package
-rides a one-hot matmul there because TPU gathers are slow).
+Names that depend on the ambient state (critical volume and what reads it)
+read the cell's env row at each drop by a gather, ``env_row[cell_id]`` (the
+JAX package rides a one-hot matmul there because TPU gathers are slow).
 """
 
 import torch
@@ -82,6 +84,8 @@ class AttributeResolver:
             )
         if name == "radius":
             return f.trivia.radius(self.get(state, "volume"))
+        if name == "area":
+            return f.trivia.area(self.get(state, "radius"))
         if name == "dry radius":
             return f.trivia.radius(state.ext("dry volume"))
         if name == "kappa":
@@ -100,7 +104,10 @@ class AttributeResolver:
                     " Neglect come with the rest of physics/ (ROADMAP)"
                 )
             return torch.zeros_like(state.ext("signed water mass"))
-        if name == "critical volume":
+        if name in (
+            "critical volume",
+            "critical volume neglecting temperature variations",
+        ):
             # kappa-Koehler critical wet volume at the ambient cell
             # temperature (reference ``attributes/physics/critical_volume.py``)
             if env is None:
@@ -117,14 +124,48 @@ class AttributeResolver:
                 self.get(state, "kappa"), v_dry / f.constants.PI_4_3, T, sgm
             )
             return f.trivia.volume(r_cr)
+        if name in (
+            "wet to critical volume ratio",
+            "wet to critical volume ratio neglecting temperature variations",
+        ):
+            return self.get(state, "volume") / self.get(
+                state, "critical volume", env
+            )
+        if name == "critical saturation":
+            # saturation at the critical radius (reference
+            # ``attributes/physics/critical_supersaturation.py``)
+            if env is None:
+                raise KeyError("critical saturation requires the env (cell T)")
+            T = _env_at_drops(env["T"], state.cell_id)
+            v_dry = state.ext("dry volume")
+            rd3 = v_dry / f.constants.PI_4_3
+            sgm = f.surface_tension.sigma(
+                T, self.get(state, "critical volume", env), v_dry,
+                self.get(state, "dry volume organic fraction"),
+            )
+            kappa = self.get(state, "kappa")
+            r_cr = f.hygroscopicity.r_cr(kappa, rd3, T, sgm)
+            return f.hygroscopicity.RH_eq(r_cr, T, kappa, rd3, sgm)
         if name in ("terminal velocity", "relative fall velocity"):
             # relative fall velocity equals terminal velocity unless the
             # state keeps a momentum row
-            from ..dynamics.terminal_velocity import gunn_kinzer_v_term
-
             if state.has_ext("relative fall momentum"):
                 return state.ext("relative fall momentum") / self.get(
                     state, "water mass"
                 )
-            return gunn_kinzer_v_term(self.get(state, "radius"))
+            return self.terminal_velocity(state)
         raise KeyError(f"attribute {name!r} is not resolved by the port yet")
+
+    def terminal_velocity(self, state):
+        """the terminal velocity of the Formulae's variant
+        (``pysdm_tpu/impl/attributes.py:290-303``)"""
+        from ..dynamics import terminal_velocity
+
+        radius = self.get(state, "radius")
+        f = self.formulae
+        variant = f.terminal_velocity.variant
+        if variant == "GunnKinzer1949":
+            return terminal_velocity.gunn_kinzer_v_term(radius)
+        if variant == "PowerSeries":
+            return terminal_velocity.PowerSeries()(radius)
+        return f.terminal_velocity.v_term(radius)

@@ -20,7 +20,9 @@ and breakup deficit.
 The collision kernel, Ec, Eb and the fragment mass are evaluated in the
 kernel's body from ids and float parameters (``PairFunctions``); the
 functions of the JAX package's ``pallas_safe`` set have ids:
-kernels ``Golovin``, ``ConstantK``, ``Linear``, ``Geometric``; Ec
+kernels ``Golovin``, ``ConstantK``, ``Linear``, ``Geometric``,
+``SimpleGeometric`` (the body K1 evaluates too, ``csrc/sdm_pair.cuh``
+``kernel_value``); Ec
 ``ConstEc``, ``Berry1967``; Eb ``ConstEb``; fragment mass ``AlwaysN``,
 ``ConstantMass``, ``Exponential`` (and its alias ``ExponFrag``).
 
@@ -53,10 +55,9 @@ from .collision import (
     _BIG,
     _M32,
     _SCRATCH_ENTRIES,
-    CONSTANT_K,
-    GEOMETRIC,
-    GOLOVIN,
-    LINEAR,
+    KERNEL_ROWS,
+    MIRROR_KERNELS,
+    SIMPLE_GEOMETRIC,
     _u01_hash,
     _u32_to_f32,
     _u64_to_f32,
@@ -68,7 +69,7 @@ from .collision import (
 EC_CONST, EC_BERRY1967 = 0, 1
 EB_CONST = 0
 FRAG_ALWAYS_N, FRAG_CONSTANT_MASS, FRAG_EXPONENTIAL = 0, 1, 2
-BREAKUP_KERNELS = (GOLOVIN, CONSTANT_K, LINEAR, GEOMETRIC)
+BREAKUP_KERNELS = MIRROR_KERNELS
 
 # the four functions of a breakup substep: ids and float parameters (a
 # kernel's two; Ec's and Eb's value for the constant ones; a fragmentation
@@ -241,19 +242,6 @@ def transfer_closed_form_f32(gamma_f, mult_j, mult_k, mass_j, mass_k, fm, max_mu
     return take_from_j, new_mult_k, g
 
 
-def _pair_kernel(functions, attrs, attrs_b):
-    p0, p1 = functions.kernel_params
-    if functions.kernel == GEOMETRIC:
-        r_sum = attrs["radius"] + attrs_b["radius"]
-        dv = torch.abs(
-            attrs["relative fall velocity"] - attrs_b["relative fall velocity"]
-        )
-        return _const(p0, r_sum) * (r_sum * r_sum) * dv
-    return kernel_value(
-        functions.kernel, p0, p1, attrs["volume"], attrs_b["volume"]
-    )
-
-
 def _efficiencies(functions, attrs, attrs_b):
     like = next(iter(attrs.values()))
     if functions.ec == EC_BERRY1967:
@@ -291,7 +279,9 @@ def coalesce_breakup_mirror_reference(
     mk = torch.where(a_is_j, b, a)
 
     attrs_b = {name: row[po] for name, row in attrs.items()}
-    kn = _pair_kernel(functions, attrs, attrs_b) * scale
+    kn = kernel_value(
+        functions.kernel, *functions.kernel_params, attrs, attrs_b
+    ) * scale
     Ec, Eb = _efficiencies(functions, attrs, attrs_b)
     pair_id = torch.minimum(o, po)
     u_gamma = _u01_hash(seed, pair_id)
@@ -374,9 +364,7 @@ def coalesce_breakup_mirror_reference(
 
 def required_rows(functions):
     """the float32 attribute rows the functions read"""
-    rows = {"radius", "relative fall velocity"}
-    if functions.kernel != GEOMETRIC:
-        rows = {"volume"}
+    rows = set(KERNEL_ROWS[functions.kernel])
     if functions.ec == EC_BERRY1967:
         rows.add("radius")
     return rows
@@ -502,6 +490,11 @@ def _launch(mult, ext, wm_index, attrs, functions, scale, K, seed, max_multiplic
     mult = mult.contiguous()
     ext = ext.contiguous()
     rows = {name: attrs[name].contiguous() for name in required_rows(functions)}
+    # the row whose pair difference the geometric kernels take
+    diff_row = (
+        "area" if functions.kernel == SIMPLE_GEOMETRIC
+        else "relative fall velocity"
+    )
 
     def pointer(name):
         return rows[name].data_ptr() if name in rows else None
@@ -519,7 +512,7 @@ def _launch(mult, ext, wm_index, attrs, functions, scale, K, seed, max_multiplic
         err = lib.pysdm_coalesce_breakup_mirror(
             mult.data_ptr(), ext.data_ptr(), int(ext.dtype == torch.float64),
             ext.shape[0], int(wm_index), pointer("volume"), pointer("radius"),
-            pointer("relative fall velocity"), ctypes.byref(c_functions),
+            pointer(diff_row), ctypes.byref(c_functions),
             scale.data_ptr(), n, int(K), int(seed), float(max_multiplicity),
             mult_out.data_ptr(), ext_out.data_ptr(), scratch.data_ptr(),
             sums.data_ptr(), stream,

@@ -6,8 +6,10 @@ K1 replaces the TPU kernel ``fused_coalesce_mirror_blocks``
 (``pysdm_tpu/ops/pallas/collision.py:582``, body ``_mk_mirror_block_kernel``
 ``:422``). One substep under the mirror croupier: slot o pairs with
 po = (K - o) mod N; dead slots and fixed points are masked; j is the larger
-multiplicity, ties go to the leader (po > o); with kn = kernel(v_o, v_po) *
-scale and u = ``_u01_hash(seed, min(o, po))``,
+multiplicity, ties go to the leader (po > o); with kn = kernel(o, po) *
+scale, the kernel evaluated on the attribute rows it reads (``KERNEL_ROWS``,
+in the order of their names, as the TPU kernel stacks them), and
+u = ``_u01_hash(seed, min(o, po))``,
 gamma = min(max(ceil(xi_j kn - u), 0) capped at 2^31 - 128, floor(xi_j/xi_k)),
 then the Shima update with the equal split of an exhausted j, and the sums of
 the collision rate, rate deficit and coalescence rate over pair leaders.
@@ -25,9 +27,10 @@ floor(xi_j/xi_k) is above ~2^26 and below the cap; see ROADMAP.md,
 The kernel takes one thread per pair (``mirror_pairs`` is its map from a
 pair's index to its slots), computes the pair once and writes both slots,
 and sums the rates in the same launch (the last block to finish adds the
-blocks' partials in a fixed order). Bound on the card: bytes, 36 B per slot
-per substep with two float32 extensive rows (each input read once, each
-output written once).
+blocks' partials in a fixed order). Bound on the card: bytes, 32 + 4 n_attr
+B per slot per substep with two float32 extensive rows (each input read
+once, each output written once): 36 B with Golovin's one attribute row, 40 B
+with the geometric kernels' two.
 
 K2 replaces the TPU kernel ``fused_coalesce``
 (``pysdm_tpu/ops/pallas/collision.py:721``, body ``_coalesce_kernel``
@@ -46,11 +49,19 @@ import torch
 
 from . import _build
 
-# collision kernels a CUDA kernel evaluates in its body
-# (``dynamics/collisions/collision_kernels.py`` sets ``kernel_id``): K1 the
-# first three, K5 (``ops/cuda/breakup.py``) all four
-GOLOVIN, CONSTANT_K, LINEAR, GEOMETRIC = 0, 1, 2, 3
-MIRROR_KERNELS = (GOLOVIN, CONSTANT_K, LINEAR)
+# collision kernels K1 and K5 (``ops/cuda/breakup.py``) evaluate in their
+# bodies (``csrc/sdm_pair.cuh`` ``kernel_value``;
+# ``dynamics/collisions/collision_kernels.py`` sets ``kernel_id``), and the
+# attribute rows each reads, in the order of their names
+GOLOVIN, CONSTANT_K, LINEAR, GEOMETRIC, SIMPLE_GEOMETRIC = 0, 1, 2, 3, 4
+KERNEL_ROWS = {
+    GOLOVIN: ("volume",),
+    CONSTANT_K: ("volume",),
+    LINEAR: ("volume",),
+    GEOMETRIC: ("radius", "relative fall velocity"),
+    SIMPLE_GEOMETRIC: ("area", "radius"),
+}
+MIRROR_KERNELS = tuple(KERNEL_ROWS)
 
 _BIG = float(2**31 - 128)
 _M32 = 0xFFFFFFFF
@@ -114,22 +125,27 @@ def _u64_to_f32(x):
     return _u32_to_f32(x >> 32) * 2.0**32 + _u32_to_f32(x & _M32)
 
 
-def kernel_value(kernel_id, p0, p1, va, vb):
-    """collision kernel in float32 from the two volume rows, in the order
-    the CUDA kernel rounds it"""
-    p0 = torch.tensor(p0, dtype=torch.float32, device=va.device)
-    p1 = torch.tensor(p1, dtype=torch.float32, device=va.device)
+def kernel_value(kernel_id, p0, p1, attrs, attrs_b):
+    """collision kernel in float32 from the attribute rows of both slots
+    (dicts by name, ``KERNEL_ROWS``), in the order the CUDA kernels round
+    it (``csrc/sdm_pair.cuh`` ``kernel_value``)"""
+    like = attrs[KERNEL_ROWS[kernel_id][0]]
+    p0 = torch.tensor(p0, dtype=torch.float32, device=like.device)
+    p1 = torch.tensor(p1, dtype=torch.float32, device=like.device)
+    if kernel_id in (GEOMETRIC, SIMPLE_GEOMETRIC):
+        diff = "relative fall velocity" if kernel_id == GEOMETRIC else "area"
+        r_sum = attrs["radius"] + attrs_b["radius"]
+        return p0 * (r_sum * r_sum) * torch.abs(attrs[diff] - attrs_b[diff])
+    va, vb = attrs["volume"], attrs_b["volume"]
     if kernel_id == GOLOVIN:
         return p0 * (va + vb)
     if kernel_id == CONSTANT_K:
         return p0 + 0.0 * va
-    if kernel_id == LINEAR:
-        return p0 + p1 * (va + vb)
-    raise ValueError(f"unknown collision kernel id {kernel_id}")
+    return p0 + p1 * (va + vb)  # LINEAR
 
 
 def coalesce_mirror_reference(
-    mult, ext, volume, kernel_id, params, scale, K, seed
+    mult, ext, attr, kernel_id, params, scale, K, seed
 ):
     """plain PyTorch twin of the CUDA kernel (same function, same f32
     rounding order). Returns (mult_new, ext_new, rate, deficit, coal) with
@@ -145,7 +161,9 @@ def coalesce_mirror_reference(
     mj = torch.where(a_is_j, a, b)
     mk = torch.where(a_is_j, b, a)
 
-    kn = kernel_value(kernel_id, *params, volume, volume[po]) * scale
+    attrs = dict(zip(KERNEL_ROWS[kernel_id], attr))
+    attrs_b = {name: row[po] for name, row in attrs.items()}
+    kn = kernel_value(kernel_id, *params, attrs, attrs_b) * scale
     u = _u01_hash(seed, torch.minimum(o, po))
     gamma_f = torch.ceil(_u64_to_f32(mj) * kn - u).clamp_min(0.0)
     gamma_f = torch.where(in_pair, gamma_f, 0.0)
@@ -175,7 +193,7 @@ def coalesce_mirror_reference(
     return mult_new, ext_new, rate, deficit, rate.clone()
 
 
-def _check(mult, ext, volume, scale, K, seed):
+def _check(mult, ext, attr, kernel_id, scale, K, seed):
     n = mult.shape[0]
     device = mult.device
     if mult.dtype != torch.int64 or mult.dim() != 1:
@@ -184,11 +202,17 @@ def _check(mult, ext, volume, scale, K, seed):
         torch.float32, torch.float64
     ):
         raise TypeError("ext: float32/float64 (n_ext, n) expected")
-    if volume.dtype != torch.float32 or volume.shape != (n,):
-        raise TypeError("volume: float32 (n,) expected")
+    if kernel_id not in MIRROR_KERNELS:
+        raise ValueError(f"unknown collision kernel id {kernel_id}")
+    n_attr = len(KERNEL_ROWS[kernel_id])
+    if attr.dtype != torch.float32 or attr.shape != (n_attr, n):
+        raise TypeError(
+            f"attr: float32 ({n_attr}, n) expected, the rows"
+            f" {KERNEL_ROWS[kernel_id]}"
+        )
     if scale.dtype != torch.float32 or scale.shape != (1,):
         raise TypeError("scale: float32 (1,) expected")
-    for name, t in (("ext", ext), ("volume", volume), ("scale", scale)):
+    for name, t in (("ext", ext), ("attr", attr), ("scale", scale)):
         if t.device != device:
             raise ValueError(f"{name} is on {t.device}, mult on {device}")
     if not 0 <= int(K) < n:
@@ -197,24 +221,25 @@ def _check(mult, ext, volume, scale, K, seed):
         raise ValueError(f"seed={seed} is not a uint32")
 
 
-def coalesce_mirror(mult, ext, volume, kernel_id, params, scale, K, seed):
+def coalesce_mirror(mult, ext, attr, kernel_id, params, scale, K, seed):
     """one mirror-croupier coalescence substep. CPU tensors take the plain
     twin; CUDA tensors launch the Hopper kernel (or raise). Returns
     (mult_new, ext_new, rate, deficit, coal) with 0-d float32 rate sums.
 
-    mult: int64 (n,); ext: (n_ext, n) float32/float64; volume: float32 (n,);
-    kernel_id, params: the collision kernel (``GOLOVIN``, ``CONSTANT_K``,
-    ``LINEAR``) and its two float parameters; scale: float32 (1,), the
+    mult: int64 (n,); ext: (n_ext, n) float32/float64; kernel_id, params:
+    the collision kernel (one of ``MIRROR_KERNELS``) and its two float
+    parameters; attr: float32 (n_attr, n), the rows ``KERNEL_ROWS[kernel_id]``
+    in that order; scale: float32 (1,), the
     normalization times the substep's probability scale; K in [0, n); seed:
     uint32."""
-    _check(mult, ext, volume, scale, K, seed)
+    _check(mult, ext, attr, kernel_id, scale, K, seed)
     if mult.device.type == "cpu":
         return coalesce_mirror_reference(
-            mult, ext, volume, kernel_id, params, scale, K, seed
+            mult, ext, attr, kernel_id, params, scale, K, seed
         )
     if mult.device.type != "cuda":
         raise ValueError(f"no kernel for device {mult.device}")
-    return _launch(mult, ext, volume, kernel_id, params, scale, K, seed)
+    return _launch(mult, ext, attr, kernel_id, params, scale, K, seed)
 
 
 coalesce_mirror.launches = 0
@@ -227,7 +252,7 @@ def library():
     lib = _build.load("collision_mirror")
     vp = ctypes.c_void_p
     lib.pysdm_coalesce_mirror.argtypes = [
-        vp, vp, ctypes.c_int, ctypes.c_int, vp, ctypes.c_int,
+        vp, vp, ctypes.c_int, ctypes.c_int, vp, ctypes.c_int, ctypes.c_int,
         ctypes.c_float, ctypes.c_float, vp, ctypes.c_longlong,
         ctypes.c_longlong, ctypes.c_uint, vp, vp, vp, vp, vp,
     ]
@@ -239,14 +264,12 @@ def library():
     return lib
 
 
-def _launch(mult, ext, volume, kernel_id, params, scale, K, seed):
-    if kernel_id not in MIRROR_KERNELS:
-        raise ValueError(f"unknown collision kernel id {kernel_id}")
+def _launch(mult, ext, attr, kernel_id, params, scale, K, seed):
     lib = library()
     n = mult.shape[0]
     mult = mult.contiguous()
     ext = ext.contiguous()
-    volume = volume.contiguous()
+    attr = attr.contiguous()
     mult_out = torch.empty_like(mult)
     ext_out = torch.empty_like(ext)
     sums = torch.empty(3, dtype=torch.float32, device=mult.device)
@@ -259,7 +282,7 @@ def _launch(mult, ext, volume, kernel_id, params, scale, K, seed):
         )[0]
         err = lib.pysdm_coalesce_mirror(
             mult.data_ptr(), ext.data_ptr(), int(ext.dtype == torch.float64),
-            ext.shape[0], volume.data_ptr(), int(kernel_id),
+            ext.shape[0], attr.data_ptr(), attr.shape[0], int(kernel_id),
             float(params[0]), float(params[1]), scale.data_ptr(), n, int(K),
             int(seed), mult_out.data_ptr(), ext_out.data_ptr(),
             scratch.data_ptr(), sums.data_ptr(), stream,

@@ -4,7 +4,14 @@
 The per-step work of the registered dynamics is composed by ``Builder`` into
 one Python function over the simulation-state dict; ``run(steps)`` is a
 Python loop over it. PyTorch runs eagerly, so no compilation step exists.
+Observers (``observers``, each with ``notify()``) are called after every
+step. ``enable_per_dynamic_timing`` runs the dynamics one by one and waits
+for the device after each, so that ``timers`` (read by
+``DynamicWallTime``) hold each dynamic's wall time; without it a step waits
+for nothing.
 """
+
+import time
 
 import numpy as np
 import torch
@@ -43,6 +50,9 @@ class Particulator:
         self.dt = None
         self.dynamics = {}
         self.products = {}
+        self.observers = []
+        self.timers = {}
+        self.per_dynamic_timing = False
         self.n_steps = 0
         # {'particles', 'env', 'counters', 'flags', 'host'}
         self.sim_state = None
@@ -52,14 +62,46 @@ class Particulator:
         self.device_rng = None
         self.u01_injection = False
         self._step_fn = None
+        # (name, step function) of each dynamic and of the environment's
+        # commit, in the order of the composed step
+        self._named_step_fns = ()
         self._resolver = AttributeResolver(self.formulae)
         self.attributes = _AttributeView(self)
 
     def run(self, steps):
-        """advance ``steps`` time steps"""
+        """advance ``steps`` time steps, the observers notified after each;
+        ``timers["total"]`` adds the host's time of the call"""
+        t0 = time.perf_counter()
         for _ in range(steps):
-            self.sim_state = self._step_fn(self.sim_state)
+            if self.per_dynamic_timing:
+                self._timed_step()
+            else:
+                self.sim_state = self._step_fn(self.sim_state)
             self.n_steps += 1
+            for observer in self.observers:
+                observer.notify()
+        self.timers["total"] = self.timers.get("total", 0.0) + (
+            time.perf_counter() - t0
+        )
+
+    def _timed_step(self):
+        """one step, dynamic by dynamic, each timed up to the end of its
+        device work"""
+        sim = self.sim_state
+        for name, fn in self._named_step_fns:
+            t0 = time.perf_counter()
+            sim = fn(sim)
+            self.block_until_ready()
+            self.timers[name] = self.timers.get(name, 0.0) + (
+                time.perf_counter() - t0
+            )
+        self.sim_state = sim
+
+    def enable_per_dynamic_timing(self, enable=True):
+        """time each dynamic of a step apart (``timers``, ``DynamicWallTime``),
+        waiting for the device after each: a profiling mode, as in the JAX
+        package (reference ``impl/wall_timer.py``)"""
+        self.per_dynamic_timing = enable
 
     def block_until_ready(self):
         """wait until the device has finished the queued steps"""

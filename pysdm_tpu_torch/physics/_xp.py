@@ -27,3 +27,9 @@ def power(x, y):
     if isinstance(x, torch.Tensor) or isinstance(y, torch.Tensor):
         return torch.pow(x, y)
     return np.power(x, y)
+
+
+def where(cond, x, y):
+    if isinstance(cond, torch.Tensor):
+        return torch.where(cond, x, y)
+    return np.where(cond, x, y)

@@ -2,8 +2,8 @@
 read (port of the matching parts of ``pysdm_tpu/physics/misc_families.py``):
 particle advection, hydrostatics, air dynamic viscosity, ventilation
 (``Neglect``), surface tension (``Constant``), the diffusion coordinate and
-the terminal velocity (``GunnKinzer1949``, whose table lives in
-``dynamics/terminal_velocity.py``)."""
+the terminal velocity (``GunnKinzer1949``, whose table, and ``PowerSeries``,
+whose power law, live in ``dynamics/terminal_velocity.py``; ``RogersYau``)."""
 
 from . import _xp
 
@@ -35,7 +35,31 @@ class GunnKinzer1949:
     (``dynamics/terminal_velocity.py``)"""
 
 
-TERMINAL_VELOCITY_VARIANTS = {"GunnKinzer1949": GunnKinzer1949}
+class PowerSeries:
+    """a power law in the radius; the attribute resolver evaluates
+    ``dynamics/terminal_velocity.py`` ``PowerSeries``"""
+
+
+class RogersYau:
+    @staticmethod
+    def v_term(const, radius):
+        """eqs 8.5, 8.6, 8.8 in Rogers & Yau 1989"""
+        return _xp.where(
+            radius < const.ROGERS_YAU_TERM_VEL_SMALL_R_LIMIT,
+            const.ROGERS_YAU_TERM_VEL_SMALL_K * radius**2,
+            _xp.where(
+                radius < const.ROGERS_YAU_TERM_VEL_MEDIUM_R_LIMIT,
+                const.ROGERS_YAU_TERM_VEL_MEDIUM_K * radius,
+                const.ROGERS_YAU_TERM_VEL_LARGE_K * _xp.sqrt(radius),
+            ),
+        )
+
+
+TERMINAL_VELOCITY_VARIANTS = {
+    "GunnKinzer1949": GunnKinzer1949,
+    "PowerSeries": PowerSeries,
+    "RogersYau": RogersYau,
+}
 
 
 # --- hydrostatics -----------------------------------------------------------

@@ -1,29 +1,79 @@
-"""Products (diagnostics), port of ``pysdm_tpu/products/``: the ones the
-de Jong/Mackay 2023 breakup box and the Shipway and Hill 2012 column
-read. The others come with the rest of the products (ROADMAP)."""
+"""Products (diagnostics), port of ``pysdm_tpu/products/``: every
+liquid-phase product. The ice (``freezing``), chemistry and optical
+products come with those slices (ROADMAP)."""
 
 from .impl import MomentProduct, Product
-from .ambient_thermodynamics import AmbientRelativeHumidity, AmbientTemperature
+from .size_spectral import (
+    ActivatedEffectiveRadius,
+    ActivatedMeanRadius,
+    ActivatedParticleConcentration,
+    ActivatedParticleSpecificConcentration,
+    AreaStandardDeviation,
+    CloudWaterContent,
+    EffectiveRadius,
+    LiquidWaterContent,
+    MeanRadius,
+    MeanVolumeRadius,
+    NumberSizeSpectrum,
+    ParticleConcentration,
+    ParticleSizeSpectrumPerMassOfDryAir,
+    ParticleSizeSpectrumPerVolume,
+    ParticleSpecificConcentration,
+    ParticleVolumeVersusRadiusLogarithmSpectrum,
+    RadiusBinnedNumberAveragedTerminalVelocity,
+    RadiusFirstMoment,
+    RadiusSixthMoment,
+    RadiusStandardDeviation,
+    SpecificCloudWaterContent,
+    SpecificLiquidWaterContent,
+    TotalParticleConcentration,
+    TotalParticleSpecificConcentration,
+    VolumeFirstMoment,
+    VolumeSecondMoment,
+    VolumeStandardDeviation,
+    WaterMixingRatio,
+    ZerothMoment,
+    make_arbitrary_moment_product,
+)
+from .housekeeping import (
+    CPUTime,
+    DynamicWallTime,
+    SuperDropletCountPerGridbox,
+    Time,
+    WallTime,
+)
 from .collision import (
     BreakupRateDeficitPerGridbox,
     BreakupRatePerGridbox,
     CoalescenceRatePerGridbox,
     CollisionRateDeficitPerGridbox,
     CollisionRatePerGridbox,
+    CollisionTimestepMean,
+    CollisionTimestepMin,
+)
+from .ambient_thermodynamics import (
+    AmbientDryAirDensity,
+    AmbientDryAirPotentialTemperature,
+    AmbientPressure,
+    AmbientRelativeHumidity,
+    AmbientRelativeHumidityWrtIce,
+    AmbientTemperature,
+    AmbientWaterVapourMixingRatio,
+)
+from .displacement import (
+    AveragedTerminalVelocity,
+    FlowVelocityComponent,
+    MaxCourantNumber,
+    SurfacePrecipitation,
 )
 from .condensation import (
+    ActivableFraction,
     ActivatingRate,
+    CondensationTimestepMax,
+    CondensationTimestepMin,
     DeactivatingRate,
     PeakSaturation,
     PeakSupersaturation,
     RipeningRate,
 )
-from .displacement import SurfacePrecipitation
-from .housekeeping import SuperDropletCountPerGridbox
-from .size_spectral import (
-    CloudWaterContent,
-    EffectiveRadius,
-    NumberSizeSpectrum,
-    ParticleVolumeVersusRadiusLogarithmSpectrum,
-    WaterMixingRatio,
-)
+from .parcel import ParcelDisplacement, ParcelLiquidWaterPath

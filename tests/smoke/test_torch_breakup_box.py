@@ -18,6 +18,8 @@ JAX key chain's (K, seed) through ``Collision._draw_mirror``, as
   (Measured: every slot equal after 10 steps, counters exact.)
 """
 
+import functools
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -362,16 +364,27 @@ def test_register_refuses_what_k5_does_not_run(
 
 
 def test_geometric_still_has_no_k1_body():
-    """coalescence alone on the mirror croupier refuses the Geometric kernel
-    as before (K5 evaluates it, K1 does not)"""
-    builder = pysdm_tpu_torch.Builder(
-        n_sd=64, backend=CPU(), environment=Box(dt=1.0, dv=1.0)
-    )
-    builder.add_dynamic(Coalescence(collision_kernel=Geometric()))
-    with pytest.raises(NotImplementedError, match="has no K1 body"):
-        builder.build({
+    """coalescence alone on the mirror croupier: K1 evaluates Geometric in
+    its body since the geometric kernels came into it, so the box builds;
+    a kernel K1 has no body for (one without a ``kernel_id``, as the JAX
+    package's ``Parameterized`` kernels would be) is still refused"""
+
+    class NoBody(Geometric):
+        kernel_id = None
+
+    for kernel, refused in ((Geometric(), False), (NoBody(), True)):
+        builder = pysdm_tpu_torch.Builder(
+            n_sd=64, backend=CPU(), environment=Box(dt=1.0, dv=1.0)
+        )
+        builder.add_dynamic(Coalescence(collision_kernel=kernel))
+        build = functools.partial(builder.build, {
             "multiplicity": np.full(64, 100), "volume": np.full(64, 1e-15),
         })
+        if refused:
+            with pytest.raises(NotImplementedError, match="has no K1 body"):
+                build()
+        else:
+            build().run(1)
 
 
 def _config2_builder(n_sd):

@@ -45,8 +45,8 @@ FRAG_SCALE = 4 / 3 * np.pi * (100e-6) ** 3
 
 
 def _function_set(name):
-    """(JAX functions, port functions, attribute names): config #2's set, or
-    one that bounces and coalesces too"""
+    """(JAX functions, port functions, attribute names): config #2's set,
+    one that bounces and coalesces too, or that one with SimpleGeometric"""
     if name == "config2":
         jax_set = (
             jax_kernels.Geometric(), jax_ec.Berry1967(), jax_eb.ConstEb(1.0),
@@ -57,6 +57,16 @@ def _function_set(name):
             port_frag.Exponential(scale=FRAG_SCALE),
         )
         return jax_set, port_set, ("radius", "relative fall velocity")
+    if name == "simplegeometric":
+        jax_set = (
+            jax_kernels.SimpleGeometric(C=2e3), jax_ec.ConstEc(0.5),
+            jax_eb.ConstEb(0.5), jax_frag.AlwaysN(4),
+        )
+        port_set = (
+            port_kernels.SimpleGeometric(C=2e3), port_ec.ConstEc(0.5),
+            port_eb.ConstEb(0.5), port_frag.AlwaysN(4),
+        )
+        return jax_set, port_set, ("area", "radius")
     jax_set = (
         jax_kernels.ConstantK(a=1e-9), jax_ec.ConstEc(0.5), jax_eb.ConstEb(0.5),
         jax_frag.AlwaysN(4),
@@ -86,7 +96,7 @@ def _state(seed, K, big, n_ext, ext_dtype):
     ).astype(ext_dtype)
     attrs = {
         "radius": r, "relative fall velocity": (r / 50e-6) ** 0.5 * 4.0,
-        "volume": volume,
+        "volume": volume, "area": 4 * np.pi * r**2,
     }
     return mult, ext, attrs
 
@@ -127,6 +137,7 @@ CASES = (
     ("config2", 5, True, 2, np.float32),
     ("mixed", 1, False, 1, np.float64),
     ("mixed", 7, True, 2, np.float32),
+    ("simplegeometric", 3, True, 2, np.float32),
 )
 
 

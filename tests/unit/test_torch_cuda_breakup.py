@@ -36,6 +36,8 @@ FUNCTIONS = {
                          be.ConstEb(0.8), bf.ConstantMass(1e-10)),
     "golovin-nfmax": (ck.Golovin(b=1.5e3), ce.ConstEc(0.2), be.ConstEb(0.7),
                       bf.Exponential(4e-15, vmin=1e-15, nfmax=50)),
+    "simplegeometric": (ck.SimpleGeometric(C=2e3), ce.ConstEc(0.5),
+                        be.ConstEb(0.5), bf.AlwaysN(4)),
 }
 
 
@@ -61,6 +63,7 @@ def _args(n, K, name, n_ext, ext_dtype, device, seed):
     rows = {
         "volume": volume, "radius": radius,
         "relative fall velocity": 4 * (radius / 50e-6) ** 0.5,
+        "area": 4 * np.pi * radius**2,
     }
     functions = port.PairFunctions.of(*FUNCTIONS[name])
     attrs = {

@@ -3,7 +3,10 @@ against its plain PyTorch twin, both on the card. Marked ``cuda``: skipped
 where torch sees no CUDA device; run on a GPU host with
 ``python -m pytest tests -m cuda``.
 
-Tolerances: multiplicities exactly; extensive rows to rtol 1e-6 (float32) or
+The kernel reads the collision kernel's attribute rows in the order of
+their names (``KERNEL_ROWS``): the volume for Golovin, Linear and ConstantK,
+radius and fall velocity for Geometric, area and radius for
+SimpleGeometric. Tolerances: multiplicities exactly; extensive rows to rtol 1e-6 (float32) or
 1e-12 (float64), and bit for bit at every K of a small n (the kernel and the
 twin round the same products and sums once each); rate sums to rtol 1e-5
 (the kernel sums per pair, warp and block in a fixed order, the twin with
@@ -28,7 +31,7 @@ def _device():
     return torch.device("cuda")
 
 
-def _state(n, K, ext_dtype, seed):
+def _state(n, K, ext_dtype, seed, kernel_id=port.GOLOVIN):
     rng = np.random.default_rng(seed)
     mult = rng.integers(1, 2**40, size=n).astype(np.int64)
     partner = (K - np.arange(n)) % n
@@ -36,22 +39,36 @@ def _state(n, K, ext_dtype, seed):
     mult[partner[tie]] = mult[tie]
     mult[rng.uniform(size=n) < 0.05] = 0
     ext = rng.uniform(1e-12, 1e-9, size=(2, n)).astype(ext_dtype)
-    volume = rng.uniform(1e-15, 1e-12, size=n).astype(np.float32)
-    return mult, ext, volume
+    volume = rng.uniform(1e-15, 1e-12, size=n)
+    radius = (volume * 3 / 4 / np.pi) ** (1 / 3)
+    rows = {
+        "volume": volume, "radius": radius,
+        "relative fall velocity": rng.uniform(0.0, 8.0, size=n),
+        "area": 4 * np.pi * radius**2,
+    }
+    attr = np.stack([rows[name] for name in port.KERNEL_ROWS[kernel_id]])
+    return mult, ext, attr.astype(np.float32)
+
+
+# scales of 2e-3 put the median pair near one expected collision with
+# multiplicities up to 2^40 (Golovin's median kernel value is ~1e-9)
+KERNELS = (
+    (port.GOLOVIN, (1.5e3, 0.0)),
+    (port.LINEAR, (2e-10, 1e3)),
+    (port.CONSTANT_K, (1e-9, 0.0)),
+    (port.GEOMETRIC, (np.pi * 0.8, 0.0)),
+    (port.SIMPLE_GEOMETRIC, (1e7, 0.0)),
+)
 
 
 @pytest.mark.parametrize("n", (4096, 2**16 + 3))
 @pytest.mark.parametrize("ext_dtype", (np.float32, np.float64))
-@pytest.mark.parametrize("kernel_id, params", (
-    (port.GOLOVIN, (1.5e3, 0.0)),
-    (port.LINEAR, (2e-10, 1e3)),
-    (port.CONSTANT_K, (1e-9, 0.0)),
-))
+@pytest.mark.parametrize("kernel_id, params", KERNELS)
 def test_kernel_matches_twin_on_card(device, n, ext_dtype, kernel_id, params):
     K = n // 3 * 2
-    mult, ext, volume = _state(n, K, ext_dtype, seed=n)
+    mult, ext, attr = _state(n, K, ext_dtype, seed=n, kernel_id=kernel_id)
     args = [
-        torch.from_numpy(a).to(device) for a in (mult, ext, volume)
+        torch.from_numpy(a).to(device) for a in (mult, ext, attr)
     ]
     scale = torch.tensor([2e-3], dtype=torch.float32, device=device)
     before = port.coalesce_mirror.launches
@@ -71,21 +88,23 @@ def test_kernel_matches_twin_on_card(device, n, ext_dtype, kernel_id, params):
         np.testing.assert_allclose(g, e, rtol=1e-5)
 
 
-def _on(device, mult, ext, volume, K, kernel_id=port.GOLOVIN, params=(1.5e3, 0.0)):
+def _on(device, mult, ext, attr, K, kernel_id=port.GOLOVIN, params=(1.5e3, 0.0)):
     """the wrapper's arguments on ``device``"""
     return (
-        *(torch.from_numpy(a).to(device) for a in (mult, ext, volume)),
+        *(torch.from_numpy(a).to(device) for a in (mult, ext, attr)),
         kernel_id, params,
         torch.tensor([2e-3], dtype=torch.float32, device=device), K, 987654321,
     )
 
 
 @pytest.mark.parametrize("n", (17, 256))
-def test_every_K_of_a_small_n_matches_twin_bit_for_bit(device, n):
+@pytest.mark.parametrize("kernel_id, params", (KERNELS[0], KERNELS[3]))
+def test_every_K_of_a_small_n_matches_twin_bit_for_bit(device, n, kernel_id, params):
     """odd n and the slots that pair with themselves are where a map from
     pair index to slots breaks: ξ and rows bit-equal to the twin at every K"""
     for K in range(n):
-        args = _on(device, *_state(n, K, np.float32, seed=n + K), K)
+        state = _state(n, K, np.float32, seed=n + K, kernel_id=kernel_id)
+        args = _on(device, *state, K, kernel_id, params)
         got = port.coalesce_mirror(*args)
         want = port.coalesce_mirror_reference(*args)
         assert torch.equal(got[0], want[0]), K
@@ -108,7 +127,17 @@ def test_launches_are_deterministic_alone_and_on_two_streams(device):
 def test_wrapper_rejects_mixed_devices(device):
     mult = torch.ones(8, dtype=torch.int64, device=device)
     ext = torch.ones((1, 8), dtype=torch.float32)
-    volume = torch.ones(8, dtype=torch.float32, device=device)
+    volume = torch.ones((1, 8), dtype=torch.float32, device=device)
     scale = torch.ones(1, dtype=torch.float32, device=device)
     with pytest.raises(ValueError, match="ext"):
         port.coalesce_mirror(mult, ext, volume, port.GOLOVIN, (1.0, 0.0), scale, 3, 1)
+
+
+def test_wrapper_rejects_rows_of_another_kernel(device):
+    """Geometric reads two rows; one volume row is refused"""
+    mult = torch.ones(8, dtype=torch.int64, device=device)
+    ext = torch.ones((1, 8), dtype=torch.float32, device=device)
+    volume = torch.ones((1, 8), dtype=torch.float32, device=device)
+    scale = torch.ones(1, dtype=torch.float32, device=device)
+    with pytest.raises(TypeError, match="relative fall velocity"):
+        port.coalesce_mirror(mult, ext, volume, port.GEOMETRIC, (1.0, 0.0), scale, 3, 1)

@@ -74,7 +74,7 @@ def test_unported_formula_family_names_its_slice():
     with pytest.raises(NotImplementedError, match="ice, chemistry and isotopes"):
         pysdm_tpu_torch.Formulae(latent_heat_sublimation="MurphyKoop2005")
     with pytest.raises(NotImplementedError, match="the rest of physics/"):
-        pysdm_tpu_torch.Formulae(terminal_velocity="RogersYau")
+        pysdm_tpu_torch.Formulae(ventilation="Froessling1938")
     with pytest.raises(NotImplementedError, match="the rest of physics/"):
         pysdm_tpu_torch.Formulae(saturation_vapour_pressure="AugustRocheMagnus")
     with pytest.raises(NotImplementedError, match="ice, chemistry and isotopes"):

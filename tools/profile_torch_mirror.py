@@ -7,8 +7,10 @@ A version is a directory that holds ``collision_mirror.cu``,
 the package's nvcc flags into ``build/mirror_versions/<label>/``. Its C
 interface is either the one of the two-launch kernels (per-block partials
 passed in, ``pysdm_coalesce_mirror_partials``) or the one-launch kernels'
-(scratch kept per stream, ``pysdm_coalesce_mirror_scratch_bytes``); the
-tool calls each as its wrapper would. ``--threads`` adds builds of the
+(scratch kept per stream, ``pysdm_coalesce_mirror_scratch_bytes``), and
+K1's takes the volume row alone or the collision kernel's attribute rows
+with their count (``n_attr``, the sources since the geometric kernels came
+into K1); the tool calls each as its wrapper would. ``--threads`` adds builds of the
 package's own sources with another number of threads a block.
 
 For each kernel and shape it checks every version's multiplicities and
@@ -76,6 +78,9 @@ class Version:
                 )
                 if found != 1:
                     raise ValueError(f"{src}/{name}.cu: no THREADS constant")
+            if name == "collision_mirror":
+                # the interface that takes the attribute rows and their count
+                self.attr_rows = "int n_attr" in text
             with open(os.path.join(out, name + ext), "w", encoding="utf-8") as f:
                 f.write(text)
         self.libs = {}
@@ -97,7 +102,8 @@ class Version:
         vp, ll = ctypes.c_void_p, ctypes.c_longlong
         mirror, breakup = self.libs["collision_mirror"], self.libs["collision_breakup"]
         mirror.pysdm_coalesce_mirror.argtypes = [
-            vp, vp, ctypes.c_int, ctypes.c_int, vp, ctypes.c_int,
+            vp, vp, ctypes.c_int, ctypes.c_int, vp,
+            *((ctypes.c_int,) if self.attr_rows else ()), ctypes.c_int,
             ctypes.c_float, ctypes.c_float, vp, ll, ll, ctypes.c_uint, vp, vp,
             vp, vp, vp,
         ]
@@ -131,13 +137,14 @@ class Version:
             )
         return self.buffers[key]
 
-    def k1(self, mult, ext, volume, kernel_id, params, scale, K, seed):
+    def k1(self, mult, ext, attr, kernel_id, params, scale, K, seed):
         n = mult.shape[0]
         mult_out, ext_out = torch.empty_like(mult), torch.empty_like(ext)
         sums = torch.empty(3, dtype=torch.float32, device="cuda")
+        rows = (attr.shape[0],) if self.attr_rows else ()
         err = self.libs["collision_mirror"].pysdm_coalesce_mirror(
             mult.data_ptr(), ext.data_ptr(), int(ext.dtype == torch.float64),
-            ext.shape[0], volume.data_ptr(), int(kernel_id), float(params[0]),
+            ext.shape[0], attr.data_ptr(), *rows, int(kernel_id), float(params[0]),
             float(params[1]), scale.data_ptr(), n, int(K), int(seed),
             mult_out.data_ptr(), ext_out.data_ptr(),
             self.buffer("collision_mirror", n).data_ptr(), sums.data_ptr(),
@@ -160,7 +167,9 @@ class Version:
         err = self.libs["collision_breakup"].pysdm_coalesce_breakup_mirror(
             mult.data_ptr(), ext.data_ptr(), int(ext.dtype == torch.float64),
             ext.shape[0], int(wm_index), pointer("volume"), pointer("radius"),
-            pointer("relative fall velocity"), ctypes.byref(c_functions),
+            pointer("area" if functions.kernel == k5.SIMPLE_GEOMETRIC
+                    else "relative fall velocity"),
+            ctypes.byref(c_functions),
             scale.data_ptr(), n, int(K), int(seed), float(max_mult),
             mult_out.data_ptr(), ext_out.data_ptr(),
             self.buffer("collision_breakup", n).data_ptr(), sums.data_ptr(),
