@@ -128,7 +128,37 @@ Run from the root of the checkout: ``python3 chip_smoke.py``. Phases:
    precipitation counted; every liquid-phase product that applies to such
    a column read twice, bit-equal but for those that reset on read; then
    K2 and K4 held against their twins on a captured substep and scan
-   (``_column_kernels_vs_twins``).
+   (``_column_kernels_vs_twins``);
+23. K3 on a mixed-phase state: 2^17 drops of ``k3_rows``, every fourth
+   frozen (a negative signed mass), against its twin on the card
+   (``compare_k3``), the ice bit-equal to its input and solved in both, the
+   liquid drops bit-equal to the same rows without ice; its time beside the
+   rows all liquid, in turns, and its bound;
+24. ``alpert_and_knopf_2016.simulation`` (time-dependent immersion freezing
+   in a box) with ``TestAlpertKnopf2016``'s settings at 1000 drops and at
+   2^17: the unfrozen fraction within 4 binomial sigma of exp(-J A t) at
+   every output, and monotone;
+25. ``spichtinger_et_al_2023.Simulation`` (homogeneous freezing and
+   deposition on the nucleated ice, K3 on a state with ice) at 2^17,
+   ``Simulation.run`` of 400 steps with K3's and K4's counts set to 0
+   just before and read just after (K3 launches = solves, no K4): the
+   assertions of ``TestSpichtingerEtAl2023`` (RH_ice < 1.1 at the end at
+   the test's 32 super-droplets, run first, and below its peak at 2^17,
+   where neither package ends below 1.1) and the total water to 1e-5; then ms/step, K3
+   launches, host reads, kernels and the device's busy share over 20
+   steps after the burst (``torch.profiler``);
+26. ``abade_and_albuquerque_2024.Simulation`` (singular immersion freezing
+   and deposition beside condensation) at the test's 64 super-droplets and
+   at 2^17, 700 steps: the assertions of ``TestAbadeAndAlbuquerque2024``,
+   toggles included (the liquid cloud before the ice at 64 only: at 2^17
+   a warm-tail INP glaciates the parcel at cloud base);
+27. ``niedermeier_et_al_2014.Simulation`` with
+   ``TestNiedermeier2014``'s settings: ice forms, the parcel cools;
+28. float32 records: the largest |Delta log10 J_hom| between the card's
+   float32 and the CPU's float64 for Koop2000, Koop_Correction and
+   KoopMurray2016 over their admitted ranges, and the drops of the
+   Spichtinger parcel (2^17, 100 steps through the burst) whose freezing
+   probability is positive in float64 and zero in float32.
 
 Every box phase checks multiplicities >= 0, water mass conserved to 1e-6 and
 coalescence having happened. Any failure raises, and the script exits
@@ -137,7 +167,9 @@ non-zero before printing any result. The last two lines are one JSON object
 of the kernels (K2's, K3's and K4's with their launches in the column's two
 timed windows, ``column_launches``, beside those of their main path, and
 their largest differences to their twins on the column's inputs,
-``column_max_abs_err``; K2's and K4's launches in phase 22,
+``column_max_abs_err``; K3's in phase 25, ``spichtinger_launches``, and
+its time and bound on phase 23's mixed-phase rows, ``k3_mixed_phase_ms``
+and ``k3_mixed_phase_bound_ms``; K2's and K4's launches in phase 22,
 ``dejong_column_launches``; K1's Geometric time, bound and difference to
 its twin from phase 18 and its launches in phase 20, ``berry_launches``;
 K5's in phase 21, ``bulenok_launches``) and one of the device.
@@ -551,8 +583,9 @@ def check_k3_regimes(rows, mass, success):
     import numpy as np
 
     cell, old = rows["cell_id"], rows["water_mass"]
-    growing, haze = cell == 0, cell == 1
-    inert = (cell == 2) | (rows["multiplicity"] == 0) | (old == 0)
+    # ice (a negative mass, ``k3_rows_with_ice``) is inert in every cell
+    growing, haze = (cell == 0) & (old > 0), (cell == 1) & (old > 0)
+    inert = (cell == 2) | (rows["multiplicity"] == 0) | (old <= 0)
     non_finite = (cell == 4) & ~inert
     if not (success[growing].all() and (mass[growing] > old[growing]).all()):
         raise AssertionError("K3: the supersaturated drops did not all grow")
@@ -563,6 +596,28 @@ def check_k3_regimes(rows, mass, success):
         raise AssertionError("K3: an inactive, dead or dry drop changed")
     if success[non_finite].any() or (mass[non_finite] != old[non_finite]).any():
         raise AssertionError("K3: a non-finite root was not refused")
+
+
+def k3_rows_with_ice(rows, every=4):
+    """``rows`` with every ``every``-th drop frozen: its signed mass negated,
+    as ``MixedPhaseSpheres`` keeps ice"""
+    import numpy as np
+
+    mixed = dict(rows)
+    water_mass = rows["water_mass"].copy()
+    water_mass[::every] = -np.abs(water_mass[::every])
+    mixed["water_mass"] = water_mass
+    return mixed
+
+
+def check_k3_ice(rows, mass, success):
+    """every drop of ice (a negative mass) keeps its mass bit for bit and
+    counts as solved"""
+    ice = rows["water_mass"] < 0
+    if not success[ice].all():
+        raise AssertionError("K3: a drop of ice failed")
+    if (mass[ice].view("u4") != rows["water_mass"][ice].view("u4")).any():
+        raise AssertionError("K3: a drop of ice changed")
 
 
 def compare_k3(rows, kernel, twin, rtol_x):
@@ -2625,6 +2680,433 @@ def _dejong_column(gpu):
     return {"coalesce_adjacent": k2, "cumsum": k4}
 
 
+ICE_N = 2**17
+SPICHTINGER_STEPS = 400
+ABADE_STEPS = 700
+# the admitted ranges of the homogeneous rates: Delta a_w in Koop et al.
+# 2000 (0.26-0.34), T in Koop & Murray 2016 (a homogeneous freezing window
+# of pure water drops, 224-240 K)
+KOOP_DA_W_ICE = (0.26, 0.34)
+KOOP_MURRAY_T = (224.0, 240.0)
+
+
+def _mixed_formulae():
+    from pysdm_tpu_torch import Formulae
+
+    return Formulae(seed=44, particle_shape_and_density="MixedPhaseSpheres")
+
+
+def _k3_mixed_phase(torch, k3, device, gpu):
+    """phase 23: K3 on a mixed-phase state, ``ICE_N`` drops of which every
+    fourth is ice (``k3_rows_with_ice``), against its twin on the card by
+    ``compare_k3``, the ice bit-equal to its input and solved in both; then
+    the kernel's time on these rows beside the same rows all liquid, in
+    turns. Returns (max_abs_err, mixed ms, liquid ms, bound (ms, by), the
+    minfun evaluations the rows need)"""
+    import numpy as np
+
+    from pysdm_tpu_torch.ops.condensation import DropSolveSettings
+
+    formulae = _mixed_formulae()
+    settings = DropSolveSettings(*K3_SETTINGS)
+    liquid = settle_haze(formulae, k3_rows(ICE_N, seed=ICE_N), device)
+    rows = k3_rows_with_ice(liquid)
+    ice = rows["water_mass"] < 0
+    before = k3.masses_new.launches
+    kernel = k3_call(k3.masses_new, formulae, settings, rows, device)
+    if k3.masses_new.launches != before + 1:
+        raise AssertionError("phase 23: K3's counter did not count the launch")
+    twin = k3_call(k3.masses_new_reference, formulae, settings, rows, device)
+    for mass, success in (kernel, twin):
+        check_k3_ice(rows, mass, success)
+        if not np.isfinite(mass).all():
+            raise AssertionError("phase 23: a non-finite mass")
+    check_k3_regimes(rows, *kernel)
+    abs_err, rel_err = compare_k3(rows, kernel, twin, settings.rtol_x)
+    # the liquid drops of the mixed rows: what the same drops give alone
+    alone = k3_call(k3.masses_new, formulae, settings, liquid, device)
+    for got, want in zip(kernel, alone):
+        if (got[~ice] != want[~ice]).any():
+            raise AssertionError("phase 23: the ice changed a liquid drop")
+    args = {
+        name: [torch.from_numpy(r[k]).to(device) for k in K3_ARGS]
+        for name, r in (("mixed", rows), ("liquid", liquid))
+    }
+    ms = {"mixed": [], "liquid": []}
+    for name in ("liquid", "mixed", "mixed", "liquid"):
+        ms[name].append(_time_ms(
+            torch, lambda: k3.masses_new(formulae, settings, *args[name]), 50
+        ))
+    evaluations = k3_evaluations(k3, formulae, settings, args["mixed"])
+    bound = bound_ms(ICE_N * 29, evaluations * K3_OPS_PER_MINFUN)
+    print(f"phase 23: K3 on {ICE_N} drops, {int(ice.sum())} of them ice:"
+          f" the ice bit-equal and solved in kernel and twin, success equal,"
+          f" mass max abs diff {abs_err!r} kg, max rel diff {rel_err!r}, the"
+          f" liquid drops bit-equal to the same rows without ice; kernel"
+          f" {ms['mixed']} ms, the rows all liquid {ms['liquid']} ms (in"
+          f" turns); {evaluations} minfun evaluations, bound {bound[0]!r} ms"
+          f" ({bound[1]}) [{gpu}]")
+    return (abs_err, min(ms["mixed"]), min(ms["liquid"]), bound, evaluations)
+
+
+def _alpert_knopf(backend, gpu, n_sd_list=(1000, ICE_N)):
+    """phase 24: ``alpert_and_knopf_2016.simulation`` with the settings of
+    ``TestAlpertKnopf2016`` (J_het = 1e7 /m^2/s on 1e-9 m^2, dt = 10 s, 20
+    steps), at 1000 drops and at ``ICE_N``: the unfrozen fraction within 4
+    binomial sigma of exp(-J A t) at every output, and monotone"""
+    import numpy as np
+
+    from pysdm_tpu_torch.initialisation import spectra
+    from pysdm_tpu_torch.models import alpert_and_knopf_2016
+
+    J_het, A, dt, nt = 1e7, 1e-9, 10.0, 20
+    for n_sd in n_sd_list:
+        volume = n_sd * 1e-9  # 1e9 droplets per m^3, as the test's 1000 in 1e-6
+        t0 = time.perf_counter()
+        f_ufz, a_tot = alpert_and_knopf_2016.simulation(
+            constants={"J_HET": J_het}, seed=1, n_sd=n_sd, time_step=dt,
+            volume=volume,
+            spectrum=spectra.Lognormal(norm_factor=n_sd / volume, m_mode=A,
+                                       s_geom=1.0),
+            droplet_volume=1e-18, multiplicity=1, total_time=dt * nt,
+            number_of_real_droplets=n_sd, cooling_rate=0,
+            heterogeneous_ice_nucleation_rate="Constant",
+            initial_temperature=240.0, backend_class=backend,
+        )
+        wall = time.perf_counter() - t0
+        f = np.asarray(f_ufz)
+        expected = np.exp(-J_het * A * dt * np.arange(len(f)))
+        sigma = np.sqrt(expected * (1 - expected) / n_sd)
+        worst = float(np.max(np.abs(f - expected)[1:] / sigma[1:]))
+        if not (worst < 4 and (np.diff(f) <= 0).all() and a_tot[-1] < a_tot[0]):
+            raise AssertionError(
+                f"phase 24: n_sd={n_sd}: unfrozen {f}, expected {expected},"
+                f" {worst} sigma; A_tot {a_tot[0]} -> {a_tot[-1]}"
+            )
+        print(f"phase 24: Alpert & Knopf 2016 box, {n_sd} drops, {nt} steps"
+              f" in {wall!r} s: unfrozen fraction {float(f[-1])!r} against"
+              f" exp(-J A t) {float(expected[-1])!r}, at most {worst!r} binomial"
+              f" sigma off, monotone [{gpu}]")
+
+
+def _total_water(p, m_d):
+    """vapour plus liquid plus ice per dry-air mass, in float64"""
+    import numpy as np
+
+    water = p.attributes["multiplicity"].astype(float) * np.abs(
+        p.attributes["signed water mass"].astype(float)
+    )
+    return float(p.get_env("qv")[0]) + float(water.sum()) / m_d
+
+
+def _device_busy_us(prof, path):
+    """the union of the kernel intervals in ``prof``'s trace (written to
+    ``path``), in microseconds"""
+    prof.export_chrome_trace(path)
+    with open(path, encoding="utf-8") as f:
+        events = json.load(f)["traceEvents"]
+    spans = sorted(
+        (e["ts"], e["ts"] + e["dur"]) for e in events if e.get("cat") == "kernel"
+    )
+    total, end = 0.0, None
+    for a, b in spans:
+        if end is None or a > end:
+            total, end = total + b - a, b
+        elif b > end:
+            total, end = total + b - end, b
+    return total, len(spans)
+
+
+# the JAX test's super-droplets, at which its RH_ice < 1.1 at the end holds
+SPICHTINGER_TEST_N = 32
+
+
+def _spichtinger(backend, gpu, n_sd=ICE_N, steps=SPICHTINGER_STEPS):
+    """phase 25: ``spichtinger_et_al_2023.Simulation`` at ``n_sd`` with w = 5
+    m/s and T0 = 220 K (``TestSpichtingerEtAl2023``), ``Simulation.run`` over
+    ``steps`` steps with K3's and K4's counts set to 0 just before and read
+    just after: the two tests' assertions, the total water to 1e-5. The test's RH_ice < 1.1
+    at the end is a property of its 32 super-droplets (one of which, frozen,
+    is 3% of the drops): at 2^14 the float64 CPU runs end at 1.18 (the JAX
+    package) and 1.26 (the port), with 4.5e7 and 2.7e7 crystals per m^3
+    where 32 super-droplets make 1.3e9, so above ``SPICHTINGER_TEST_N`` the phase asserts that the
+    burst lowered RH_ice from its peak and prints where it ends. At
+    ``ICE_N``, 20 more steps timed and 20 under the profiler (the device's
+    busy share). Returns (K3 launches, the per-step record)"""
+    import os
+
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+
+    from pysdm_tpu_torch.models import spichtinger_et_al_2023 as model
+    from pysdm_tpu_torch.ops.cuda import condensation as k3
+    from pysdm_tpu_torch.ops.cuda import scan
+
+    settings = model.Settings(n_sd=n_sd, w_updraft=5.0, T0=220.0, seed=44, dt=1.0)
+    sim = model.Simulation(settings, backend_class=backend)
+    p = sim.particulator
+    m_d = settings.mass_of_dry_air
+    water0 = _total_water(p, m_d)
+    solver = p.dynamics["Condensation"].solver
+    k3.masses_new.launches = 0
+    scan.cumsum.launches = 0
+    solves0, reads0 = solver.substep_solves, solver.host_reads
+    t0 = time.perf_counter()
+    out = sim.run(n_steps=steps, steps_per_output=20)
+    p.block_until_ready()
+    wall = time.perf_counter() - t0
+    launches, k4 = k3.masses_new.launches, scan.cumsum.launches
+    solves, reads = solver.substep_solves - solves0, solver.host_reads - reads0
+    if p.device.type == "cuda" and not (launches == solves >= steps):
+        raise AssertionError(f"phase 25: {launches} K3 launches, {solves} solves")
+    if k4 != 0:
+        raise AssertionError(f"phase 25: a one-cell parcel launched K4 {k4} times")
+    drift = (_total_water(p, m_d) - water0) / water0
+    n_max = settings.N_dv_solution_droplet
+    checks = {
+        "RH_ice starts at 1": abs(out["RH_ice"][0] - 1) < 1e-6,
+        "peak RH_ice in 1.4-1.7": 1.4 < np.nanmax(out["RH_ice"]) < 1.7,
+        "RH_ice ends below 1.1": (
+            out["RH_ice"][-1] < 1.1 if n_sd == SPICHTINGER_TEST_N
+            else out["RH_ice"][-1] < np.nanmax(out["RH_ice"])
+        ),
+        "no ice at first": out["n_i"][0] == 0,
+        "ice crystals above 1e6 /m^3": out["n_i"][-1] > 1e6,
+        "crystals within the droplets": out["n_i"][-1] <= n_max * 1.01,
+        "qi never falls": (np.diff(out["qi"][out["qi"] > 0]) >= -1e-18).all(),
+        "qi at the end": out["qi"][-1] > 0,
+        "total water to 1e-5": abs(drift) < 1e-5,
+        "condensation succeeded": p.get_counter("condensation_success").all(),
+    }
+    failed = [name for name, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError(f"phase 25: {failed}: {out}, drift {drift}")
+    record = {
+        "ms_per_step": wall / steps * 1e3,
+        "k3_launches_per_step": launches / steps,
+        "host_reads_per_step": reads / steps,
+    }
+    print(f"phase 25: Spichtinger et al. 2023 parcel, {n_sd} super-droplets,"
+          f" Simulation.run of {steps} steps (21 product reads) in {wall!r} s:"
+          f" {record['ms_per_step']!r} ms/step, {launches} K3 launches ="
+          f" solves ({record['k3_launches_per_step']!r}/step), no K4,"
+          f" {record['host_reads_per_step']!r} host reads/step; peak RH_ice"
+          f" {float(np.nanmax(out['RH_ice']))!r}, at the end"
+          f" {float(out['RH_ice'][-1])!r}, at t = 0"
+          f" {float(out['RH_ice'][0])!r}; n_i {float(out['n_i'][-1])!r}"
+          f" /m^3, qi {float(out['qi'][-1])!r} kg/kg, total water drift"
+          f" {drift!r} [{gpu}]")
+    if p.device.type != "cuda" or n_sd != ICE_N:
+        return launches, record
+    p.run(1)
+    p.block_until_ready()
+    launches0, reads0 = k3.masses_new.launches, solver.host_reads
+    t0 = time.perf_counter()
+    p.run(20)
+    p.block_until_ready()
+    record["ms_per_step_without_products"] = (time.perf_counter() - t0) / 20 * 1e3
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        p.run(20)
+        p.block_until_ready()
+        wall_prof = time.perf_counter() - t0
+    os.makedirs(os.path.join("build", "profiles"), exist_ok=True)
+    busy, kernels = _device_busy_us(
+        prof, os.path.join("build", "profiles", "trace_spichtinger.json")
+    )
+    record["kernels_per_step"] = kernels / 20
+    record["busy_share"] = busy / (record["ms_per_step_without_products"] * 20e3)
+    record["busy_share_profiled"] = busy / (wall_prof * 1e6)
+    print(f"phase 25: after the burst, 20 steps: {record['ms_per_step_without_products']!r}"
+          f" ms/step, {(k3.masses_new.launches - launches0) / 40!r} K3 launches/step,"
+          f" {(solver.host_reads - reads0) / 40!r} host reads/step,"
+          f" {record['kernels_per_step']!r} kernels/step, the device busy"
+          f" {busy / 20!r} us/step: {record['busy_share']!r} of the unprofiled"
+          f" and {record['busy_share_profiled']!r} of the profiled wall time [{gpu}]")
+    return launches, record
+
+
+# the JAX test's super-droplets, at which its liquid cloud forms before the
+# ice
+ABADE_TEST_N = 64
+
+
+def _abade(backend, gpu, n_sd=ICE_N, steps=ABADE_STEPS):
+    """phase 26: ``abade_and_albuquerque_2024.Simulation`` at ``n_sd``
+    (dt = 10 s, seed 44), ``Simulation.run`` of ``steps`` steps, outputs
+    every 50: the assertions of ``TestAbadeAndAlbuquerque2024`` (a liquid
+    cloud, then glaciation between -15 and -35 C, the vapour depleted), K3
+    launches = solves, no K4; and the test's toggles (no freezing, no
+    deposition: no ice) over 50 steps. The liquid cloud (peak above 1e-4
+    kg/kg) is asserted at the test's ``ABADE_TEST_N`` super-droplets only:
+    at 2^17 the sampled freezing temperatures reach the spectrum's warm
+    tail (an INP freezing at ~260 K, at cloud base), and the first
+    crystal's explicit log-coordinate step takes the cell's whole vapour
+    excess over ice saturation (the deposition's limiter), so the parcel
+    glaciates without a liquid cloud; the peak is printed. Returns the K3
+    launches"""
+    import numpy as np
+
+    from pysdm_tpu_torch.models import abade_and_albuquerque_2024 as model
+    from pysdm_tpu_torch.ops.cuda import condensation as k3
+    from pysdm_tpu_torch.ops.cuda import scan
+
+    sim = model.Simulation(
+        model.Settings(n_sd=n_sd, timestep=10.0, seed=44), backend_class=backend
+    )
+    p = sim.particulator
+    solver = p.dynamics["Condensation"].solver
+    k3.masses_new.launches = 0
+    scan.cumsum.launches = 0
+    solves0, reads0 = solver.substep_solves, solver.host_reads
+    t0 = time.perf_counter()
+    out = sim.run(nt=steps, steps_per_output_interval=50)["products"]
+    p.block_until_ready()
+    wall = time.perf_counter() - t0
+    launches = k3.masses_new.launches
+    solves = solver.substep_solves - solves0
+    if p.device.type == "cuda" and not (launches == solves >= steps):
+        raise AssertionError(f"phase 26: {launches} K3 launches, {solves} solves")
+    if scan.cumsum.launches != 0:
+        raise AssertionError("phase 26: a one-cell parcel launched K4")
+    water, ice, T = out["water"], out["ice"], out["T"]
+    first_ice = int(np.argmax(ice > 0))
+    checks = {
+        "no cloud at first": water[0] < 1e-8,
+        "a liquid cloud": water.max() > 1e-4 or n_sd != ABADE_TEST_N,
+        "ice grows past the liquid peak": ice[np.argmax(water)] < ice[-1],
+        "ice above 1e-3": ice[-1] > 1e-3,
+        "the liquid gone": water[-1] < 1e-6,
+        "vapour depleted": out["vapour"][-1] < 0.3 * out["vapour"][0],
+        "freezing onset in 238-260 K": 238 < T[first_ice] < 260,
+    }
+    failed = [name for name, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError(f"phase 26: {failed}: {out}")
+    toggled = model.Simulation(
+        model.Settings(n_sd=n_sd, timestep=10.0, enable_immersion_freezing=False,
+                       enable_vapour_deposition_on_ice=False),
+        backend_class=backend,
+    ).run(nt=50, steps_per_output_interval=25)["products"]
+    if not (toggled["ice"] == 0).all():
+        raise AssertionError("phase 26: ice without freezing")
+    print(f"phase 26: Abade & Albuquerque 2024 parcel, {n_sd} super-droplets,"
+          f" {steps} steps in {wall!r} s ({wall / steps * 1e3!r} ms/step),"
+          f" {launches} K3 launches = solves, {(solver.host_reads - reads0) / steps!r}"
+          f" host reads/step: liquid peak {float(water.max())!r} kg/kg, ice"
+          f" {float(ice[-1])!r} kg/kg at the end, liquid {float(water[-1])!r},"
+          f" first ice at T = {float(T[first_ice])!r} K; the toggles' run"
+          f" made no ice [{gpu}]")
+    return launches
+
+
+def _niedermeier(backend, gpu):
+    """phase 27: ``niedermeier_et_al_2014.Simulation`` with the settings of
+    ``TestNiedermeier2014::test_immersion_freezing_produces_ice`` (J_het =
+    1e12, T0 = 250 K, dt = 5 s, 5 CCN bins and 4 IN super-particles, 300
+    steps): no ice at first, ice at the end, the parcel cooled. Returns the
+    K3 launches"""
+    import numpy as np
+
+    from pysdm_tpu_torch import Formulae
+    from pysdm_tpu_torch.models import niedermeier_et_al_2014 as model
+    from pysdm_tpu_torch.ops.cuda import condensation as k3
+
+    settings = model.Settings(
+        formulae=Formulae(
+            seed=44, particle_shape_and_density="MixedPhaseSpheres",
+            heterogeneous_ice_nucleation_rate="Constant",
+            constants={"J_HET": 1e12},
+        ),
+        initial_temperature=250.0, timestep=5.0, ccn_sampling_n=5,
+        in_sampling_n=4,
+    )
+    sim = model.Simulation(settings, backend_class=backend)
+    k3.masses_new.launches = 0
+    t0 = time.perf_counter()
+    out = sim.run()
+    wall = time.perf_counter() - t0
+    launches = k3.masses_new.launches
+    iwc, T = np.asarray(out["ice water content"]), np.asarray(out["T"])
+    if sim.particulator.device.type == "cuda" and launches < sim.steps:
+        raise AssertionError(f"phase 27: {launches} K3 launches")
+    if not (iwc[0] == 0.0 and iwc[-1] > 0.0 and T[-1] < T[0]):
+        raise AssertionError(f"phase 27: iwc {iwc[0]} -> {iwc[-1]}, T {T[0]} -> {T[-1]}")
+    print(f"phase 27: Niedermeier et al. 2014 parcel, {sim.particulator.n_sd}"
+          f" super-particles, {sim.steps} steps in {wall!r} s, {launches} K3"
+          f" launches: ice water content {float(iwc[-1])!r} kg/m^3 at the end,"
+          f" T {float(T[0])!r} -> {float(T[-1])!r} K [{gpu}]")
+    return launches
+
+
+def _float32_ice_records(backend, gpu, n_sd=ICE_N, steps=100):
+    """phase 28: float32 on the card against float64 on the CPU: the
+    largest |Delta log10 J_hom| of the three Koop variants over their
+    admitted ranges (``KOOP_DA_W_ICE``, ``KOOP_MURRAY_T``); and, along the
+    first ``steps`` steps of the Spichtinger parcel at ``n_sd`` (through
+    the burst), the drops whose freezing probability 1 - exp(-J_hom V dt)
+    is positive in float64 and zero in float32"""
+    import numpy as np
+    import torch
+
+    from pysdm_tpu_torch import Formulae
+    from pysdm_tpu_torch.models import spichtinger_et_al_2023 as model
+    from pysdm_tpu_torch.ops import freezing as frz_ops
+
+    device = backend(Formulae()).device
+    records = {}
+    for variant in ("Koop2000", "Koop_Correction", "KoopMurray2016"):
+        f = Formulae(homogeneous_ice_nucleation_rate=variant)
+        da = np.linspace(*KOOP_DA_W_ICE, 4001)
+        T = np.linspace(*KOOP_MURRAY_T, 4001)
+        j = [
+            f.homogeneous_ice_nucleation_rate.j_hom(
+                torch.as_tensor(T, dtype=dtype, device=dev),
+                torch.as_tensor(da, dtype=dtype, device=dev),
+            ).double().cpu().numpy()
+            for dtype, dev in ((torch.float32, device), (torch.float64, "cpu"))
+        ]
+        if not (np.isfinite(j[0]).all() and (j[0] > 0).all()):
+            raise AssertionError(f"phase 28: {variant}: J_hom not finite")
+        records[variant] = float(np.max(np.abs(np.log10(j[0]) - np.log10(j[1]))))
+    settings = model.Settings(n_sd=n_sd, w_updraft=5.0, T0=220.0, seed=44, dt=1.0)
+    p = model.Simulation(settings, backend_class=backend).particulator
+    f = p.formulae
+    zero_in_f32, positive, worst_step = 0, 0, (0, 0)
+    for step in range(steps):
+        p.run(1)
+        env = {k: torch.as_tensor(p.get_env(k)) for k in ("T", "RH")}
+        mass = torch.as_tensor(p.attributes["signed water mass"])
+        probs = []
+        for dtype, dev in ((torch.float32, device), (torch.float64, "cpu")):
+            T, RH = (env[k].to(dtype=dtype, device=dev) for k in ("T", "RH"))
+            m = mass.to(dtype=dtype, device=dev)
+            a_w_ice, RH_ice = frz_ops.a_w_ice_and_rh_ice(f, T, RH)
+            da = (RH_ice - 1.0) * a_w_ice
+            rate = f.homogeneous_ice_nucleation_rate.j_hom(
+                T, f.homogeneous_ice_nucleation_rate.d_a_w_ice_maximum(da)
+            ) * f.particle_shape_and_density.mass_to_volume(m.abs())
+            prob = 1.0 - f.trivia.poissonian_avoidance_function(rate, settings.dt)
+            candidate = (m > 0) & f.homogeneous_ice_nucleation_rate.d_a_w_ice_within_range(da)
+            probs.append(torch.where(candidate, prob, 0.0).double().cpu().numpy())
+        lost = int(((probs[0] == 0) & (probs[1] > 0)).sum())
+        zero_in_f32 += lost
+        positive += int((probs[1] > 0).sum())
+        worst_step = max(worst_step, (lost, step + 1))
+    records["zero_in_float32"] = zero_in_f32
+    records["positive_in_float64"] = positive
+    print(f"phase 28: float32 on {device} against float64 on the CPU: largest"
+          f" |Delta log10 J_hom| over Delta a_w in {KOOP_DA_W_ICE}:"
+          f" Koop2000 {records['Koop2000']!r}, Koop_Correction"
+          f" {records['Koop_Correction']!r}; over T in {KOOP_MURRAY_T} K:"
+          f" KoopMurray2016 {records['KoopMurray2016']!r}. Spichtinger parcel,"
+          f" {n_sd} drops, steps 1-{steps}: {zero_in_f32} drop-steps with a"
+          f" freezing probability positive in float64 and zero in float32,"
+          f" of {positive} positive (most, {worst_step[0]}, at step"
+          f" {worst_step[1]}) [{gpu}]")
+    return records
+
+
 def main():
     import torch
 
@@ -2698,6 +3180,17 @@ def main():
     berry_launches = _berry_model(kern, gpu)
     bulenok_launches = _bulenok_model(k5, gpu)
     dejong = _dejong_column(gpu)
+    from pysdm_tpu_torch.backends import GPU
+
+    (k3_mixed_err, k3_mixed_ms, k3_mixed_liquid_ms, k3_mixed_bound,
+     _) = _k3_mixed_phase(torch, k3, device, gpu)
+    _alpert_knopf(GPU, gpu)
+    _spichtinger(GPU, gpu, n_sd=SPICHTINGER_TEST_N)
+    spichtinger_launches, _ = _spichtinger(GPU, gpu)
+    _abade(GPU, gpu, n_sd=ABADE_TEST_N)
+    _abade(GPU, gpu)
+    _niedermeier(GPU, gpu)
+    _float32_ice_records(GPU, gpu)
 
     # least times on the card, from this run's inputs: K1 at N_MAIN with two
     # float32 rows (mult 8 + rows 8 + volume 4 in, mult 8 + rows 8 out per
@@ -2737,8 +3230,12 @@ def main():
         "launches": k3_launches,
         "column_launches": column["masses_new"],
         "column_max_abs_err": column_err["masses_new"],
-        "max_abs_err": k3_err,
+        "spichtinger_launches": spichtinger_launches,
+        "max_abs_err": max(k3_err, k3_mixed_err),
         "ms": k3_times[N_PARCEL][0],
+        "k3_mixed_phase_ms": k3_mixed_ms,
+        "k3_mixed_phase_all_liquid_ms": k3_mixed_liquid_ms,
+        "k3_mixed_phase_bound_ms": k3_mixed_bound[0],
         "plain_ms": k3_times[N_PARCEL][1],
         "bound_ms": k3_bound[0],
         "bound_by": k3_bound[1],

@@ -114,17 +114,15 @@ class Builder:
                 raise ValueError(f"duplicate product name: {product.name}")
             particulator.products[product.name] = product
 
-        extensive = {}
+        extensive, maximum = {}, {}
         for name, value in attributes.items():
             cname = canonical_ext_name(name)
-            if cname in MAXIMUM_NAMES:
-                raise NotImplementedError(
-                    f"{name!r}: max-merged attributes come with ice, chemistry"
-                    " and isotopes (other dynamics)"
-                )
-            if cname not in EXTENSIVE_NAMES:
+            if cname in EXTENSIVE_NAMES:
+                extensive[cname] = np.asarray(value, dtype=np.float64)
+            elif cname in MAXIMUM_NAMES:
+                maximum[cname] = np.asarray(value, dtype=np.float64)
+            else:
                 raise ValueError(f"unknown base attribute: {name}")
-            extensive[cname] = np.asarray(value, dtype=np.float64)
         if "signed water mass" not in extensive:
             raise ValueError("water mass / volume must be initialised")
         # requested extensive attributes not user-initialised default to zero
@@ -132,6 +130,19 @@ class Builder:
             cname = canonical_ext_name(name)
             if cname in EXTENSIVE_NAMES and cname not in extensive:
                 extensive[cname] = np.zeros(multiplicity.shape[0])
+        # the max-merged records the dynamics and products ask for start at
+        # NaN, "not recorded yet" (``pysdm_tpu/builder.py:163-176``)
+        if "cooling rate" in self.requested_attributes:
+            self.requested_attributes.add("cooling rate prev T")
+        for name in self.requested_attributes:
+            if name in MAXIMUM_NAMES and name not in maximum:
+                if name == "freezing temperature":
+                    raise ValueError(
+                        "freezing temperature must be initialised"
+                        " (spectro-glacial sampling)"
+                    )
+                maximum[name] = np.full(multiplicity.shape[0], np.nan)
+        particulator._resolver.dt = particulator.dt
 
         ext_names = tuple(extensive)
         particulator.rng = torch.Generator(device="cpu").manual_seed(
@@ -145,6 +156,10 @@ class Builder:
                 multiplicity=multiplicity,
                 extensive=np.stack([extensive[k] for k in ext_names]),
                 ext_names=ext_names,
+                maximum=(
+                    np.stack(list(maximum.values())) if maximum else None
+                ),
+                max_names=tuple(maximum),
                 cell_id=cell_id,
                 cell_origin=cell_origin,
                 position_in_cell=position_in_cell,
@@ -183,6 +198,19 @@ class Builder:
             named_step_fns.append(
                 ("EnvCommit", self.environment.make_commit_step(particulator))
             )
+        if "cooling rate" in self.requested_attributes:
+            # each drop's cell T after the step, which the next step's
+            # "cooling rate" compares with (the reference's CoolingRate
+            # observer, ``attributes/ice/cooling_rate.py:23-29``)
+            def record_prev_T(sim):
+                particles = sim["particles"]
+                particles = particles.set_max(
+                    "cooling rate prev T",
+                    sim["env"]["T"][particles.cell_id.long()],
+                )
+                return {**sim, "particles": particles}
+
+            named_step_fns.append(("CoolingRatePrevT", record_prev_T))
         particulator._named_step_fns = tuple(named_step_fns)
         step_fns = [fn for _, fn in named_step_fns]
 

@@ -237,6 +237,16 @@ class Collision:
         return tensor.item()
 
     def make_step(self, particulator):
+        max_names = particulator.sim_state["particles"].max_names
+        if max_names:
+            # the JAX package max-merges these rows in its XLA coalescence
+            # (``pysdm_tpu/ops/collisions.py:252``, ``coalesce(max_s=...)``)
+            raise NotImplementedError(
+                f"collisions of a state with max-merged rows {max_names} are"
+                " not ported yet: they come with coalescence with max-merged"
+                " rows (ROADMAP; morrison_and_grabowski_2007,"
+                " arabas_et_al_2025)"
+            )
         if self._uses_mirror():
             return self._make_mirror_step(particulator)
         return self._make_sorted_step(particulator)

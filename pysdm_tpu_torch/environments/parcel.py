@@ -8,6 +8,10 @@ The env state is a dict of tensors of shape (1,) in the sim-state;
 recompute the predicted T, p, RH), ``make_commit_step`` the end-of-step
 predicted-to-current swap.
 
+``mixed_phase`` is stored only, as in the JAX package: the freezing and
+deposition steps compute the water activity of ice and the RH over ice
+from the cell's T and RH themselves.
+
 The parcel's clock lives on the host, in ``sim["host"]["t"]``: w(t) is a
 Python callable evaluated there, so a step never reads the device to learn
 t (the JAX package traces w, or falls back to ``jax.pure_callback``). The
@@ -34,11 +38,6 @@ class Parcel:
         z0: float = 0.0,
         mixed_phase=False,
     ):
-        if mixed_phase:
-            raise NotImplementedError(
-                "the mixed-phase parcel is not ported yet: it comes with"
-                " ice, chemistry and isotopes (other dynamics)"
-            )
         self.dt = dt
         self.mass_of_dry_air = mass_of_dry_air
         self.p0 = p0

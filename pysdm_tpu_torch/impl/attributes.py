@@ -3,10 +3,12 @@ for the names the liquid-phase slices read: multiplicity, cell id, cell
 origin, position in cell, signed water mass, water mass, volume, radius,
 area, dry radius, kappa, dry volume organic fraction, Reynolds number,
 critical volume (also "... neglecting temperature variations"), wet to
-critical volume ratio (likewise), critical saturation and the terminal
-(relative fall) velocity of the chosen variant. Stored extensive rows
-resolve by name. Derived attributes of the ice, chemistry and isotope
-slices raise ``KeyError``.
+critical volume ratio (likewise), critical saturation, the terminal
+(relative fall) velocity of the chosen variant and the cooling rate. Stored
+extensive and max-merged rows resolve by name ("immersed surface area",
+"freezing temperature", "temperature of last freezing", "cooling rate prev
+T"). Derived attributes of the chemistry and isotope slices raise
+``KeyError``.
 
 Names that depend on the ambient state (critical volume and what reads it)
 read the cell's env row at each drop by a gather, ``env_row[cell_id]`` (the
@@ -40,8 +42,9 @@ EXTENSIVE_NAMES = (
     "moles_H2O2",
 )
 
-# max-merged attributes of the JAX package (freezing records); they come with
-# ice, chemistry and isotopes (other dynamics)
+# max-merged attributes (the freezing records): the singular freezing
+# temperature; the ambient T at a drop's last freezing, NaN while it is
+# unfrozen; the ambient T of the previous step, behind "cooling rate"
 MAXIMUM_NAMES = (
     "freezing temperature",
     "temperature of last freezing",
@@ -63,6 +66,7 @@ class AttributeResolver:
 
     def __init__(self, formulae):
         self.formulae = formulae
+        self.dt = None  # set by Builder.build (the cooling rate needs it)
 
     def get(self, state, name, env=None):
         f = self.formulae
@@ -78,6 +82,8 @@ class AttributeResolver:
             return state.ext("signed water mass").abs()
         if state.has_ext(name):
             return state.ext(name)
+        if state.has_max(name):
+            return state.max_attr(name)
         if name == "volume":
             return f.particle_shape_and_density.mass_to_volume(
                 state.ext("signed water mass")
@@ -146,6 +152,14 @@ class AttributeResolver:
             kappa = self.get(state, "kappa")
             r_cr = f.hygroscopicity.r_cr(kappa, rd3, T, sgm)
             return f.hygroscopicity.RH_eq(r_cr, T, kappa, rd3, sgm)
+        if name == "cooling rate":
+            # (T_prev - T_now) / dt, positive while cooling; NaN before the
+            # first step has recorded T_prev (reference
+            # ``attributes/ice/cooling_rate.py``)
+            if env is None:
+                raise KeyError("cooling rate requires the env (cell T)")
+            prev_T = state.max_attr("cooling rate prev T")
+            return (prev_T - _env_at_drops(env["T"], state.cell_id)) / self.dt
         if name in ("terminal velocity", "relative fall velocity"):
             # relative fall velocity equals terminal velocity unless the
             # state keeps a momentum row

@@ -3,9 +3,10 @@
 
 There is no permutation index and no compaction: particle death is
 multiplicity 0, masked out of every reduction. The port keeps the JAX
-package's layout (extensive rows ``(n_ext, n_sd)``, the spatial rows
-``(n_dims, n_sd)``) so that states cross between the two packages as NumPy
-arrays (``from_numpy`` / ``to_numpy``).
+package's layout (extensive rows ``(n_ext, n_sd)``, max-merged rows
+``(n_max, n_sd)``, the spatial rows ``(n_dims, n_sd)``) so that states
+cross between the two packages as NumPy arrays (``from_numpy`` /
+``to_numpy``).
 """
 
 import dataclasses
@@ -21,7 +22,11 @@ class ParticleState:
     cell_id: torch.Tensor  # (n_sd,) int32
     cell_origin: torch.Tensor  # (n_dims, n_sd) int32, (0, n_sd) for 0D
     position_in_cell: torch.Tensor  # (n_dims, n_sd) float, (0, n_sd) for 0D
+    # (n_max, n_sd) float, max-merged under coalescence (the freezing
+    # records)
+    maximum: torch.Tensor
     ext_names: tuple = ()
+    max_names: tuple = ()
 
     @property
     def n_sd(self):
@@ -43,14 +48,26 @@ class ParticleState:
         extensive[self.ext_names.index(name)] = value
         return self.replace(extensive=extensive)
 
+    def max_attr(self, name):
+        return self.maximum[self.max_names.index(name)]
+
+    def has_max(self, name):
+        return name in self.max_names
+
+    def set_max(self, name, value):
+        """a copy with max-merged row ``name`` replaced by ``value``"""
+        maximum = self.maximum.clone()
+        maximum[self.max_names.index(name)] = value
+        return self.replace(maximum=maximum)
+
     def replace(self, **changes):
         return dataclasses.replace(self, **changes)
 
     @classmethod
     def from_numpy(
         cls, *, multiplicity, extensive, ext_names, cell_id=None,
-        cell_origin=None, position_in_cell=None, dtype=torch.float64,
-        mult_dtype=torch.int64, device="cpu",
+        cell_origin=None, position_in_cell=None, maximum=None, max_names=(),
+        dtype=torch.float64, mult_dtype=torch.int64, device="cpu",
     ):
         """build a state from host arrays, e.g. ``np.asarray`` of the JAX
         package's ``ParticleState`` fields"""
@@ -65,6 +82,9 @@ class ParticleState:
             cell_origin = np.zeros((0, n_sd), np.int32)
         if position_in_cell is None:
             position_in_cell = np.zeros((0, n_sd))
+        maximum = np.array(
+            np.zeros((0, n_sd)) if maximum is None else maximum
+        ).reshape(len(max_names), n_sd)
         return cls(
             multiplicity=torch.as_tensor(
                 multiplicity, dtype=mult_dtype, device=device
@@ -80,6 +100,8 @@ class ParticleState:
                 np.array(position_in_cell), dtype=dtype, device=device
             ),
             ext_names=tuple(ext_names),
+            maximum=torch.as_tensor(maximum, dtype=dtype, device=device),
+            max_names=tuple(max_names),
         )
 
     def to_numpy(self):
@@ -91,13 +113,16 @@ class ParticleState:
             "cell_id": self.cell_id.cpu().numpy(),
             "cell_origin": self.cell_origin.cpu().numpy(),
             "position_in_cell": self.position_in_cell.cpu().numpy(),
+            "maximum": self.maximum.cpu().numpy(),
+            "max_names": self.max_names,
         }
 
 
 def sim_state_from_numpy(sim, particulator):
     """the port's sim-state from the JAX package's whole ``sim_state`` as
     host arrays (e.g. ``jax.device_get(jax_particulator.sim_state)``):
-    particles, env, counters and flags, on the particulator's device, with
+    particles (their max-merged rows included), env, counters and flags,
+    on the particulator's device, with
     its float dtype for particles and env and each counter in the dtype the
     port registered it with (the JAX package's dtype for a counter the port
     has not registered); the environment's host-side scalars are read from
@@ -113,6 +138,8 @@ def sim_state_from_numpy(sim, particulator):
             cell_id=particles.cell_id,
             cell_origin=particles.cell_origin,
             position_in_cell=particles.position_in_cell,
+            maximum=particles.maximum,
+            max_names=particles.max_names,
             dtype=dtype,
             mult_dtype=particulator.mult_dtype,
             device=device,

@@ -2,4 +2,7 @@
 config #1; Berry 1967; Srivastava 1982; de Jong and Azimi, with its 1D
 column), the thesis benchmarks (Bartman 2020, Bulenok 2023), the de
 Jong/Mackay et al. 2023 breakup box (config #2), the Shipway and Hill 2012
-1D column (config #4) and the Arabas et al. 2015 2D warm rain (config #5)"""
+1D column (config #4), the Arabas et al. 2015 2D warm rain (config #5), and
+the ice models: the Alpert & Knopf 2016 freezing box and the Spichtinger et
+al. 2023, Abade & Albuquerque 2024 and Niedermeier et al. 2014 mixed-phase
+parcels (with the Ervens & Feingold 2012 CCN spectrum)"""

@@ -9,7 +9,10 @@ its cell, Koehler, Fuchs-Sutugin, Fk and Fd, the sign-directed bracket and
 a bracketing root search (Chandrupatla's inverse quadratic interpolation
 with a bisection safeguard), returning (mass_new, success). The per-cell
 rows are read through the drop's cell id; the drop is active when its cell
-is, its multiplicity is above zero and its water mass is positive. Each
+is, its multiplicity is above zero and its water mass is positive: a drop
+of ice (a negative signed mass, ``MixedPhaseSpheres``) keeps its mass, bit
+for bit, and counts as solved, in the kernel and in the twin, and neither
+takes a logarithm of its mass. Each
 drop stops when its own bracket is within rtol_x |x_old| + 1e-30 or minfun
 is exactly 0 at the point evaluated (the TPU kernel bisects and stops per
 32768-drop block, the JAX XLA path when all drops have converged, and both
@@ -43,7 +46,10 @@ SUPPORTED = {
     "ventilation": ("Neglect",),
     "surface_tension": ("Constant",),
     "state_variable_triplet": ("LibcloudphPlusPlus",),
-    "particle_shape_and_density": ("LiquidSpheres",),
+    # for a positive mass, MixedPhaseSpheres' volume and radius are
+    # LiquidSpheres' (``tests/unit/test_torch_ice_physics.py``); a drop of
+    # ice (mass <= 0) is inactive and keeps its mass
+    "particle_shape_and_density": ("LiquidSpheres", "MixedPhaseSpheres"),
 }
 
 

@@ -65,11 +65,12 @@ def reconstruct_cell_rows(particles, sorted_cell, n_cell, mesh=None):
 
 
 def _permute_rows(particles, order):
-    """multiplicity, extensive rows and position in cell gathered through
-    ``order`` (cell rows are rebuilt by the caller)"""
+    """multiplicity, extensive and max-merged rows and position in cell
+    gathered through ``order`` (cell rows are rebuilt by the caller)"""
     return particles.replace(
         multiplicity=particles.multiplicity[order],
         extensive=particles.extensive[:, order],
+        maximum=particles.maximum[:, order],
         position_in_cell=particles.position_in_cell[:, order],
     )
 

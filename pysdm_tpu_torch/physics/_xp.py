@@ -33,3 +33,43 @@ def where(cond, x, y):
     if isinstance(cond, torch.Tensor):
         return torch.where(cond, x, y)
     return np.where(cond, x, y)
+
+
+def _unary(torch_fn, np_fn):
+    def fn(x):
+        return torch_fn(x) if isinstance(x, torch.Tensor) else np_fn(x)
+
+    return fn
+
+
+sinh = _unary(torch.sinh, np.sinh)
+arcsinh = _unary(torch.asinh, np.arcsinh)
+arctanh = _unary(torch.atanh, np.arctanh)
+
+
+def maximum(x, bound):
+    """the larger of ``x`` and the scalar ``bound``, elementwise"""
+    if isinstance(x, torch.Tensor):
+        return x.clamp(min=bound)
+    return np.maximum(x, bound)
+
+
+def minimum(x, bound):
+    """the smaller of ``x`` and the scalar ``bound``, elementwise"""
+    if isinstance(x, torch.Tensor):
+        return x.clamp(max=bound)
+    return np.minimum(x, bound)
+
+
+def integer_power(x, n):
+    """x ** n for an integer n >= 1 by the multiplications, in the order,
+    of XLA's ``integer_pow`` (binary exponentiation), so that a polynomial
+    in x rounds as the JAX package's does"""
+    acc = None
+    while n > 0:
+        if n & 1:
+            acc = x if acc is None else acc * x
+        n >>= 1
+        if n > 0:
+            x = x * x
+    return acc

@@ -1,12 +1,13 @@
 """Formulae engine (API parity with ``pysdm_tpu/physics/formulae.py``): one
 variant per physics family, bound to a frozen constants namespace.
 
-The port binds the families the box, parcel, 2D warm-rain and breakup
-configurations read, with the JAX package's defaults
-(``pysdm_tpu/physics/formulae.py:86-118``). Choosing a variant the port
-does not have yet raises ``NotImplementedError`` naming, by its title, the
-ROADMAP item that brings it; so does choosing any variant of a family the
-port does not bind yet.
+The port binds the families the liquid-phase configurations and the ice
+slice read, with the JAX package's defaults
+(``pysdm_tpu/physics/formulae.py:86-118``); the nucleation families and
+the bulk phase partitioning default to ``Null``, as there. Choosing a
+variant the port does not have yet raises ``NotImplementedError`` naming,
+by its title, the ROADMAP item that brings it; so does choosing any variant
+of a family the port does not bind yet (the isotope and optical families).
 """
 
 import os
@@ -14,10 +15,12 @@ import time
 from types import SimpleNamespace
 
 from . import (
+    diffusion_ice,
     diffusion_kinetics,
     diffusion_thermics,
     drop_growth,
     hygroscopicity,
+    ice_nucleation,
     latent_heat,
     misc_families,
     saturation_vapour_pressure,
@@ -27,14 +30,17 @@ from .constants import make_constants
 from .particle_shape_and_density import VARIANTS as SHAPE_VARIANTS
 from .trivia import Trivia
 
-_OTHER_DYNAMICS = "ROADMAP: ice, chemistry and isotopes (other dynamics)"
 _PHYSICS = "ROADMAP: the rest of physics/"
+_ISOTOPES = "ROADMAP: chemistry and isotopes (other dynamics)"
+_OPTICAL = "ROADMAP: the optical products (the rest of products/)"
+
+_NULL = {"Null": misc_families.Null}
 
 # family -> (ported variants, default, where the other variants come from)
 _FAMILIES = {
     "trivia": ({"Trivia": Trivia}, "Trivia", None),
     "particle_shape_and_density": (
-        SHAPE_VARIANTS, "LiquidSpheres", _OTHER_DYNAMICS,
+        SHAPE_VARIANTS, "LiquidSpheres", _PHYSICS,
     ),
     "diffusion_coordinate": (
         misc_families.DIFFUSION_COORDINATE_VARIANTS, "WaterMassLogarithm",
@@ -46,6 +52,9 @@ _FAMILIES = {
     "latent_heat_vapourisation": (
         latent_heat.VAPOURISATION_VARIANTS, "Kirchhoff", _PHYSICS,
     ),
+    "latent_heat_sublimation": (
+        latent_heat.SUBLIMATION_VARIANTS, "MurphyKoop2005", _PHYSICS,
+    ),
     "hygroscopicity": (
         hygroscopicity.VARIANTS, "KappaKoehlerLeadingTerms", _PHYSICS,
     ),
@@ -54,6 +63,12 @@ _FAMILIES = {
         misc_families.SURFACE_TENSION_VARIANTS, "Constant", _PHYSICS,
     ),
     "diffusion_kinetics": (diffusion_kinetics.VARIANTS, "FuchsSutugin", _PHYSICS),
+    "diffusion_ice_kinetics": (
+        diffusion_ice.KINETICS_VARIANTS, "Standard", None,
+    ),
+    "diffusion_ice_capacity": (
+        diffusion_ice.CAPACITY_VARIANTS, "Spherical", None,
+    ),
     "diffusion_thermics": (diffusion_thermics.VARIANTS, "Neglect", _PHYSICS),
     "ventilation": (misc_families.VENTILATION_VARIANTS, "Neglect", _PHYSICS),
     "state_variable_triplet": (
@@ -73,6 +88,19 @@ _FAMILIES = {
         misc_families.AIR_DYNAMIC_VISCOSITY_VARIANTS, "ZografosEtAl1987",
         _PHYSICS,
     ),
+    "freezing_temperature_spectrum": (
+        _NULL | ice_nucleation.FREEZING_TEMPERATURE_SPECTRUM_VARIANTS, "Null",
+        None,
+    ),
+    "heterogeneous_ice_nucleation_rate": (
+        _NULL | ice_nucleation.HETEROGENEOUS_RATE_VARIANTS, "Null", None,
+    ),
+    "homogeneous_ice_nucleation_rate": (
+        _NULL | ice_nucleation.HOMOGENEOUS_RATE_VARIANTS, "Null", None,
+    ),
+    "bulk_phase_partitioning": (
+        _NULL | misc_families.BULK_PHASE_PARTITIONING_VARIANTS, "Null", None,
+    ),
     # the names only: fragment sampling lives in
     # dynamics/collisions/breakup_fragmentations.py, as in the JAX package
     "fragmentation_function": (
@@ -82,19 +110,18 @@ _FAMILIES = {
 
 # families of the JAX package that the port does not bind yet
 _LATER_FAMILIES = {
-    name: _OTHER_DYNAMICS
-    for name in (
-        "latent_heat_sublimation", "diffusion_ice_kinetics",
-        "diffusion_ice_capacity", "freezing_temperature_spectrum",
-        "heterogeneous_ice_nucleation_rate",
-        "homogeneous_ice_nucleation_rate",
-        "isotope_equilibrium_fractionation_factors",
-        "isotope_kinetic_fractionation_factors",
-        "isotope_meteoric_water_line", "isotope_ratio_evolution",
-        "isotope_diffusivity_ratios", "isotope_relaxation_timescale",
-        "isotope_temperature_inference", "isotope_ventilation_ratio",
-        "optical_albedo", "optical_depth", "bulk_phase_partitioning",
-    )
+    **{
+        name: _ISOTOPES
+        for name in (
+            "isotope_equilibrium_fractionation_factors",
+            "isotope_kinetic_fractionation_factors",
+            "isotope_meteoric_water_line", "isotope_ratio_evolution",
+            "isotope_diffusivity_ratios", "isotope_relaxation_timescale",
+            "isotope_temperature_inference", "isotope_ventilation_ratio",
+        )
+    },
+    "optical_albedo": _OPTICAL,
+    "optical_depth": _OPTICAL,
 }
 
 

@@ -3,7 +3,8 @@ read (port of the matching parts of ``pysdm_tpu/physics/misc_families.py``):
 particle advection, hydrostatics, air dynamic viscosity, ventilation
 (``Neglect``), surface tension (``Constant``), the diffusion coordinate and
 the terminal velocity (``GunnKinzer1949``, whose table, and ``PowerSeries``,
-whose power law, live in ``dynamics/terminal_velocity.py``; ``RogersYau``)."""
+whose power law, live in ``dynamics/terminal_velocity.py``; ``RogersYau``)
+and the bulk phase partitioning (``KaulEtAl2015``)."""
 
 from . import _xp
 
@@ -193,3 +194,30 @@ FRAGMENTATION_FUNCTION_VARIANTS = {
         "Feingold1988", "Gaussian", "LowList1982Nf", "SLAMS", "Straub2010Nf",
     )
 }
+
+
+# --- bulk_phase_partitioning -------------------------------------------------
+class KaulEtAl2015:
+    """bulk liquid fraction against temperature (reference
+    ``physics/bulk_phase_partitioning/kaul_et_al_2015.py``, Kaul et al. 2015
+    eq. 1)"""
+
+    @staticmethod
+    def liquid_fraction(const, T):
+        return _xp.minimum(
+            _xp.power(
+                _xp.maximum(
+                    (T - const.bulk_phase_partitioning_T_cold)
+                    / (
+                        const.bulk_phase_partitioning_T_warm
+                        - const.bulk_phase_partitioning_T_cold
+                    ),
+                    0.0,
+                ),
+                const.bulk_phase_partitioning_exponent,
+            ),
+            1.0,
+        )
+
+
+BULK_PHASE_PARTITIONING_VARIANTS = {"KaulEtAl2015": KaulEtAl2015}

@@ -1,5 +1,5 @@
 """Shared helper formulae ("trivia"), the part of
-``pysdm_tpu/physics/trivia.py`` that the box and parcel slices read.
+``pysdm_tpu/physics/trivia.py`` that the liquid-phase and ice slices read.
 
 Each body is arithmetic on its arguments or goes through ``_xp``, so the
 same function serves Python floats, NumPy arrays (set-up) and torch tensors
@@ -62,3 +62,40 @@ class Trivia:
     @staticmethod
     def sqrt_re_times_cbrt_sc(const, Re, Sc):
         return _xp.power(Re, const.ONE_HALF) * _xp.power(Sc, const.ONE_THIRD)
+
+    @staticmethod
+    def unfrozen(const, signed_water_mass):
+        return signed_water_mass > 0
+
+    @staticmethod
+    def unfrozen_and_saturated(const, signed_water_mass, relative_humidity):
+        return (signed_water_mass > 0) & (relative_humidity > 1)
+
+    @staticmethod
+    def unfrozen_and_ice_saturated(const, signed_water_mass, relative_humidity_ice):
+        return (signed_water_mass > 0) & (relative_humidity_ice > 1)
+
+    @staticmethod
+    def frozen_and_above_freezing_point(const, signed_water_mass, temperature):
+        return (signed_water_mass < 0) & (temperature > const.T0)
+
+    @staticmethod
+    def erfinv_approx(const, c):
+        """Vedder 1987 eqs. 11-12 approximation of the inverse error function"""
+        return (
+            2
+            * _xp.sqrt(const.VEDDER_1987_A)
+            * _xp.sinh(
+                _xp.arcsinh(
+                    _xp.arctanh(c)
+                    / 2
+                    / const.VEDDER_1987_b
+                    / _xp.power(const.VEDDER_1987_A, const.ONE_AND_A_HALF)
+                )
+                / 3
+            )
+        )
+
+    @staticmethod
+    def poissonian_avoidance_function(const, r, dt):
+        return _xp.exp(-r * dt)

@@ -1,6 +1,6 @@
 """Products (diagnostics), port of ``pysdm_tpu/products/``: every
-liquid-phase product. The ice (``freezing``), chemistry and optical
-products come with those slices (ROADMAP)."""
+liquid-phase product and the ice (``freezing``) products. The chemistry
+and optical products come with those slices (ROADMAP)."""
 
 from .impl import MomentProduct, Product
 from .size_spectral import (
@@ -77,3 +77,15 @@ from .condensation import (
     RipeningRate,
 )
 from .parcel import ParcelDisplacement, ParcelLiquidWaterPath
+from .freezing import (
+    CoolingRate,
+    FreezableSpecificConcentration,
+    FrozenFraction,
+    FrozenParticleConcentration,
+    FrozenParticleSpecificConcentration,
+    IceNucleiConcentration,
+    IceWaterContent,
+    SpecificIceNucleiConcentration,
+    SpecificIceWaterContent,
+    TotalUnfrozenImmersedSurfaceArea,
+)

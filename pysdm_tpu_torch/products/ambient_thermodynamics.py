@@ -45,7 +45,10 @@ class AmbientRelativeHumidity(_EnvProduct):
 
 
 class AmbientRelativeHumidityWrtIce(_EnvProduct):
-    """RH with respect to ice: RH * pvs_water(T) / pvs_ice(T)"""
+    """RH with respect to ice: RH * pvs_water(T) / pvs_ice(T), evaluated on
+    the host in float64 whatever the state's float type (the saturation
+    polynomials in float32 put RH_ice 3.3e-5 off at 220 K where the
+    float32 state's own T and RH give it to 1e-8)"""
 
     env_key = "RH"
 
@@ -54,11 +57,11 @@ class AmbientRelativeHumidityWrtIce(_EnvProduct):
 
     def _impl(self, **kwargs):
         p = self.particulator
-        T = np.asarray(p.get_env("T"))
+        T = np.asarray(p.get_env("T"), dtype=np.float64)
         svp = p.formulae.saturation_vapour_pressure
         value = (
-            np.asarray(p.get_env("RH")) * np.asarray(svp.pvs_water(T))
-            / np.asarray(svp.pvs_ice(T))
+            np.asarray(p.get_env("RH"), dtype=np.float64)
+            * np.asarray(svp.pvs_water(T)) / np.asarray(svp.pvs_ice(T))
         )
         return value * 100 if self.unit == "%" else value
 

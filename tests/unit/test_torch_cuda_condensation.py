@@ -41,6 +41,11 @@ VARIANT_SETS = {
     "kinetics_Neglect": {"diffusion_kinetics": "Neglect"},
     "WaterMass": {"diffusion_coordinate": "WaterMass"},
     "sgm_w_overridden": {"constants": {"sgm_w": 0.05}},
+    # every fourth drop frozen (``chip_smoke.k3_rows_with_ice``): the ice
+    # bit-equal to its input and solved, in kernel and twin
+    "MixedPhaseSpheres_with_ice": {
+        "particle_shape_and_density": "MixedPhaseSpheres",
+    },
 }
 # the variant sets under which ``chip_smoke.check_k3_regimes`` holds (at
 # rtol_x < 1e-2: with 1e-2 a haze drop may stop 1e-2 |x_old| from x_old).
@@ -48,7 +53,10 @@ VARIANT_SETS = {
 # finite. Not under KappaKoehler: its haze (wet radius twice the dry, RH
 # 0.6) is unbracketable in the JAX package too, in float64 as in float32
 # (ROADMAP queue 3), so kernel and twin report the same failures.
-REGIMES_HOLD = ("defaults", "Fick", "kinetics_Neglect", "sgm_w_overridden")
+REGIMES_HOLD = (
+    "defaults", "Fick", "kinetics_Neglect", "sgm_w_overridden",
+    "MixedPhaseSpheres_with_ice",
+)
 
 
 @pytest.fixture(name="device")
@@ -64,6 +72,8 @@ def test_kernel_matches_twin_on_card(device, variants, rtol_x):
     formulae = Formulae(seed=44, **VARIANT_SETS[variants])
     settings = DropSolveSettings(rtol_x, *chip_smoke.K3_SETTINGS[1:])
     rows = chip_smoke.settle_haze(formulae, chip_smoke.k3_rows(N), device)
+    if variants == "MixedPhaseSpheres_with_ice":
+        rows = chip_smoke.k3_rows_with_ice(rows)
     before = k3.masses_new.launches
     kernel = chip_smoke.k3_call(k3.masses_new, formulae, settings, rows, device)
     assert k3.masses_new.launches == before + 1
@@ -71,6 +81,8 @@ def test_kernel_matches_twin_on_card(device, variants, rtol_x):
         k3.masses_new_reference, formulae, settings, rows, device
     )
     chip_smoke.compare_k3(rows, kernel, twin, rtol_x)
+    chip_smoke.check_k3_ice(rows, *kernel)
+    chip_smoke.check_k3_ice(rows, *twin)
     if variants in REGIMES_HOLD and rtol_x < 1e-2:
         chip_smoke.check_k3_regimes(rows, *kernel)
 

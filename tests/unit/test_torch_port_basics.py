@@ -71,14 +71,14 @@ def test_formula_matches_jax_package(family, name, args):
 
 
 def test_unported_formula_family_names_its_slice():
-    with pytest.raises(NotImplementedError, match="ice, chemistry and isotopes"):
-        pysdm_tpu_torch.Formulae(latent_heat_sublimation="MurphyKoop2005")
+    with pytest.raises(NotImplementedError, match="chemistry and isotopes"):
+        pysdm_tpu_torch.Formulae(isotope_meteoric_water_line="Dansgaard1964")
     with pytest.raises(NotImplementedError, match="the rest of physics/"):
         pysdm_tpu_torch.Formulae(ventilation="Froessling1938")
     with pytest.raises(NotImplementedError, match="the rest of physics/"):
         pysdm_tpu_torch.Formulae(saturation_vapour_pressure="AugustRocheMagnus")
-    with pytest.raises(NotImplementedError, match="ice, chemistry and isotopes"):
-        pysdm_tpu_torch.Formulae(particle_shape_and_density="MixedPhaseSpheres")
+    with pytest.raises(NotImplementedError, match="the rest of physics/"):
+        pysdm_tpu_torch.Formulae(particle_shape_and_density="PorousSpheroid")
     with pytest.raises(ValueError):
         pysdm_tpu_torch.Formulae(no_such_family="x")
 
