@@ -158,7 +158,36 @@ Run from the root of the checkout: ``python3 chip_smoke.py``. Phases:
    float32 and the CPU's float64 for Koop2000, Koop_Correction and
    KoopMurray2016 over their admitted ranges, and the drops of the
    Spichtinger parcel (2^17, 100 steps through the burst) whose freezing
-   probability is positive in float64 and zero in float32.
+   probability is positive in float64 and zero in float32;
+29. K1a (mirror coalescence with the kernel x norm and u01 rows given)
+   against its twin on the card, multiplicities and rows bit for bit: on
+   Berry 1967's state with Hydrodynamic's rows at 2^13 and 2^20 and on
+   random states at 2^20 (float32 and float64 rows); three launches
+   bit-equal, and two streams; its device time and its twin's at both
+   widths, and over a rotation of eight inputs at 2^20;
+30. ``berry_1967.run`` with ``Hydrodynamic`` and with ``Electric`` at the
+   model's 2^13 super-droplets over its 1800 steps on the card: K1a
+   launches = substeps, the liquid to 1e-6, the mean radius grows; ms/step,
+   host reads, device kernels and busy share over 5 profiled steps; K1a
+   held to its twin on a captured substep;
+31. de Jong/Mackay 2023's box with Straub 2010's Ec and fragments (the
+   float64 breakup path) at 2^17, adaptive, 100 steps, through
+   ``run_box_breakup``, again with ``handle_all_breakups``, and through a
+   builder on the sort croupier: the liquid to 1e-6, rates finite and
+   non-negative, breakups; ms/step, substeps and host reads a step, device
+   kernels and busy share; on the sort croupier K4's launches in the run
+   (its count set to 0 just before and read just after) and K4 against
+   its twin on every scan of one more step; the number at 50 and 100 s
+   against a float64 CPU run at the same seed within
+   ``STRAUB_NUMBER_RTOL``;
+32. ``bieli_et_al_2022.run`` at 2^12 for its three Ec: M1 to 1e-6, M0
+   falls at Ec = 1, M0 and M2 against a float64 CPU run within
+   ``BIELI_MOMENT_RTOL``; ms/step, device kernels and busy share;
+33. the box of ``tests/smoke/test_box_breakup.py``'s pure breakup (2^10,
+   ConstantK, four fragments) with ``handle_all_breakups`` over its 10
+   steps on the card: the loop's iterations, host reads and ms of each
+   step, the water mass to 1e-6, the multiplicity grown; again with the
+   loop reading after every iteration, the same multiplicities.
 
 Every box phase checks multiplicities >= 0, water mass conserved to 1e-6 and
 coalescence having happened. Any failure raises, and the script exits
@@ -172,7 +201,10 @@ its time and bound on phase 23's mixed-phase rows, ``k3_mixed_phase_ms``
 and ``k3_mixed_phase_bound_ms``; K2's and K4's launches in phase 22,
 ``dejong_column_launches``; K1's Geometric time, bound and difference to
 its twin from phase 18 and its launches in phase 20, ``berry_launches``;
-K5's in phase 21, ``bulenok_launches``) and one of the device.
+K5's in phase 21, ``bulenok_launches``; K4's on phase 31's sort croupier,
+``straub_sort_launches``; K1a's at Berry's 2^13, its main path's width,
+with its 2^20 times), before them one line of the float64 paths' records
+(phases 31-33), and one of the device.
 """
 
 import concurrent.futures
@@ -1967,6 +1999,40 @@ def _column_water(p):
     return total_water(p) - float(np.sum(p.get_counter("precipitated_mass")))
 
 
+def _k4_on_scans(real_k4, scans, label):
+    """K4 (``real_k4``) on each of ``scans``, tensors captured from a main
+    path, against its twin: integers equal to torch.cumsum, floats within
+    1e-5 of the float64 prefix of |x| (phase 8's bound). Returns (the
+    largest absolute error of a float scan, a line for each scan)"""
+    import torch
+
+    from pysdm_tpu_torch.ops.cuda import scan
+
+    k4_err, seen = 0.0, []
+    for x in scans:
+        got = real_k4(x)
+        if not x.is_floating_point():
+            if not torch.equal(got, scan.cumsum_reference(x)):
+                raise AssertionError(f"{label}: K4 {x.dtype} not exact")
+            seen.append(f"{tuple(x.shape)} {x.dtype}: exact")
+            continue
+        exact = x.double().cumsum(-1)
+        scale = x.double().abs().cumsum(-1)
+        err = (got.double() - exact).abs()
+        if not (err <= 1e-5 * scale).all():
+            raise AssertionError(
+                f"{label}: K4 {x.dtype} {tuple(x.shape)}: err {float(err.max())!r}"
+            )
+        twin = (scan.cumsum_reference(x).double() - exact).abs()
+        k4_err = max(k4_err, float(err.max()))
+        seen.append(
+            f"{tuple(x.shape)} {x.dtype}: max abs err {float(err.max())!r}"
+            f" (torch.cumsum {float(twin.max())!r}) of a prefix up to"
+            f" {float(scale.max())!r}"
+        )
+    return k4_err, seen
+
+
 def _column_kernels_vs_twins(p, gpu, label="phase 16"):
     """phase 16 at t = 400 s (and phase 22): one more step whose first K2
     substep, first K3 solve (where the column condenses) and first K4 scan
@@ -1983,7 +2049,6 @@ def _column_kernels_vs_twins(p, gpu, label="phase 16"):
     from pysdm_tpu_torch.dynamics.collisions import collision
     from pysdm_tpu_torch.ops import segments
     from pysdm_tpu_torch.ops.cuda import condensation as k3
-    from pysdm_tpu_torch.ops.cuda import scan
     from pysdm_tpu_torch.ops.cuda.collision import coalesce_adjacent_reference
 
     captured = {"k2": [], "k3": [], "k4": {}}
@@ -2065,27 +2130,9 @@ def _column_kernels_vs_twins(p, gpu, label="phase 16"):
               f" {k3_seen} [{gpu}]")
 
     # K4 on the column's scans, one of each dtype and rank
-    k4_err = 0.0
-    for (dtype, rank), x in captured["k4"].items():
-        got = real_k4(x)
-        if not x.is_floating_point():
-            if not torch.equal(got, scan.cumsum_reference(x)):
-                raise AssertionError(f"{label}: K4 {dtype} not exact")
-            seen = "exact"
-        else:
-            exact = x.double().cumsum(-1)
-            scale = x.double().abs().cumsum(-1)
-            err = (got.double() - exact).abs()
-            if not (err <= 1e-5 * scale).all():
-                raise AssertionError(
-                    f"{label}: K4 {dtype} rank {rank}: err {float(err.max())!r}"
-                )
-            twin = (scan.cumsum_reference(x).double() - exact).abs()
-            k4_err = max(k4_err, float(err.max()))
-            seen = (f"max abs err {float(err.max())!r} (torch.cumsum"
-                    f" {float(twin.max())!r}) of a prefix up to"
-                    f" {float(scale.max())!r}")
-        print(f"{label}: K4 on a column scan {tuple(x.shape)} {dtype}: {seen}")
+    k4_err, seen = _k4_on_scans(real_k4, captured["k4"].values(), label)
+    for line in seen:
+        print(f"{label}: K4 on a column scan {line}")
     return {"coalesce_adjacent": k2_seen["as drawn"][1],
             "masses_new": k3_seen["mass"], "cumsum": k4_err}
 
@@ -2817,6 +2864,39 @@ def _device_busy_us(prof, path):
     return total, len(spans)
 
 
+def _profile_steps(p, steps, name):
+    """``2 steps`` more steps of ``p``: ``steps`` timed on the host clock
+    (ending in a synchronise), then ``steps`` under ``torch.profiler``, the
+    trace in ``build/profiles/trace_<name>.json``: {ms/step unprofiled,
+    device kernels a step, the device's busy time a step (us), that busy
+    time over the unprofiled and over the profiled wall time}"""
+    import os
+
+    from torch.profiler import ProfilerActivity, profile
+
+    p.block_until_ready()
+    t0 = time.perf_counter()
+    p.run(steps)
+    p.block_until_ready()
+    ms = (time.perf_counter() - t0) / steps * 1e3
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        p.run(steps)
+        p.block_until_ready()
+        wall_prof = time.perf_counter() - t0
+    os.makedirs(os.path.join("build", "profiles"), exist_ok=True)
+    busy, kernels = _device_busy_us(
+        prof, os.path.join("build", "profiles", f"trace_{name}.json")
+    )
+    return {
+        "ms_per_step": ms,
+        "kernels_per_step": kernels / steps,
+        "busy_us_per_step": busy / steps,
+        "busy_share": busy / steps / (ms * 1e3),
+        "busy_share_profiled": busy / (wall_prof * 1e6),
+    }
+
+
 # the JAX test's super-droplets, at which its RH_ice < 1.1 at the end holds
 SPICHTINGER_TEST_N = 32
 
@@ -2833,10 +2913,7 @@ def _spichtinger(backend, gpu, n_sd=ICE_N, steps=SPICHTINGER_STEPS):
     burst lowered RH_ice from its peak and prints where it ends. At
     ``ICE_N``, 20 more steps timed and 20 under the profiler (the device's
     busy share). Returns (K3 launches, the per-step record)"""
-    import os
-
     import numpy as np
-    from torch.profiler import ProfilerActivity, profile
 
     from pysdm_tpu_torch.models import spichtinger_et_al_2023 as model
     from pysdm_tpu_torch.ops.cuda import condensation as k3
@@ -2899,29 +2976,16 @@ def _spichtinger(backend, gpu, n_sd=ICE_N, steps=SPICHTINGER_STEPS):
     if p.device.type != "cuda" or n_sd != ICE_N:
         return launches, record
     p.run(1)
-    p.block_until_ready()
     launches0, reads0 = k3.masses_new.launches, solver.host_reads
-    t0 = time.perf_counter()
-    p.run(20)
-    p.block_until_ready()
-    record["ms_per_step_without_products"] = (time.perf_counter() - t0) / 20 * 1e3
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        p.run(20)
-        p.block_until_ready()
-        wall_prof = time.perf_counter() - t0
-    os.makedirs(os.path.join("build", "profiles"), exist_ok=True)
-    busy, kernels = _device_busy_us(
-        prof, os.path.join("build", "profiles", "trace_spichtinger.json")
-    )
-    record["kernels_per_step"] = kernels / 20
-    record["busy_share"] = busy / (record["ms_per_step_without_products"] * 20e3)
-    record["busy_share_profiled"] = busy / (wall_prof * 1e6)
+    prof = _profile_steps(p, 20, "spichtinger")
+    record["ms_per_step_without_products"] = prof["ms_per_step"]
+    for key in ("kernels_per_step", "busy_share", "busy_share_profiled"):
+        record[key] = prof[key]
     print(f"phase 25: after the burst, 20 steps: {record['ms_per_step_without_products']!r}"
           f" ms/step, {(k3.masses_new.launches - launches0) / 40!r} K3 launches/step,"
           f" {(solver.host_reads - reads0) / 40!r} host reads/step,"
           f" {record['kernels_per_step']!r} kernels/step, the device busy"
-          f" {busy / 20!r} us/step: {record['busy_share']!r} of the unprofiled"
+          f" {prof['busy_us_per_step']!r} us/step: {record['busy_share']!r} of the unprofiled"
           f" and {record['busy_share_profiled']!r} of the profiled wall time [{gpu}]")
     return launches, record
 
@@ -3107,6 +3171,625 @@ def _float32_ice_records(backend, gpu, n_sd=ICE_N, steps=100):
     return records
 
 
+# the general collision path (phases 29-32): Berry 1967's own width and
+# length, config #2's bench width for the Straub box, Bieli's own width
+BERRY_ROWS_N = 2**13
+BERRY_ROWS_STEPS = 1800
+STRAUB_N = 2**17
+STRAUB_STEPS = 100
+PROFILED_STEPS = 10
+# card against a float64 CPU run of the port at the same seed (the two
+# draw other random numbers): the number of the Straub box at 50 and 100 s,
+# three times the larger difference of two CPU seeds at 2^17 (2.6% and
+# 4.5%); Bieli's M0 and M2 after 59 steps, five standard deviations of the
+# difference of two runs, from 16 CPU seeds at 2^12 (std 0.9-1.8% in M0,
+# 4.0-4.5% in M2, the largest drops' noise)
+STRAUB_NUMBER_RTOL = 0.15
+BIELI_MOMENT_RTOL = {"M0": 0.13, "M2": 0.32}
+
+
+def k1a_args(torch, n, seed, device, kernel="Hydrodynamic"):
+    """K1a's arguments on Berry 1967's state at ``n`` super-droplets (its
+    ``run`` with no step, on the card): the multiplicities and the extensive
+    rows, the Berry kernel's values at a random K times the normalization
+    (``mirror_normalization_factor``, dt = 1 s) as the float32 kernel x
+    norm row, and a u01 row"""
+    import numpy as np
+
+    from pysdm_tpu_torch.dynamics.collisions import collision_kernels
+    from pysdm_tpu_torch.models import berry_1967
+    from pysdm_tpu_torch.ops.pairing import MirrorPairing
+
+    settings = berry_1967.Settings(steps=[0])
+    settings.n_sd = n
+    _, p = berry_1967.run(settings)
+    rng = np.random.default_rng(seed)
+    K = int(rng.integers(0, n))
+    particles = p.sim_state["particles"]
+    pairing = MirrorPairing(K, n, particles.alive)
+    attrs = {
+        name: p.get_attribute(name)
+        for name in ("radius", "relative fall velocity")
+    }
+    values = getattr(collision_kernels, kernel)().pairwise(
+        p.formulae, attrs, {k: pairing.partner(v) for k, v in attrs.items()}
+    )
+    norm = settings.dt / settings.dv * n
+    kernnorm = (values * norm).to(torch.float32)
+    u01 = torch.as_tensor(rng.uniform(size=n), dtype=torch.float32, device=device)
+    return (particles.multiplicity, particles.extensive, kernnorm, u01, K)
+
+
+def k1a_random_args(torch, n, ext_dtype, seed, device):
+    """K1a's arguments on a random state (``_random_state``: multiplicities
+    up to 2^40, dead slots, ties), kernel x norm rows that give up to ~8
+    collisions a pair"""
+    import numpy as np
+
+    K = (n // 3) * 2
+    mult, ext, _ = _random_state(torch, n, K, ext_dtype, seed, device)
+    rng = np.random.default_rng(seed + 1)
+    kernnorm = torch.as_tensor(
+        rng.uniform(0.0, 8.0, n) / 2**40, dtype=torch.float32, device=device
+    )
+    u01 = torch.as_tensor(rng.uniform(size=n), dtype=torch.float32, device=device)
+    return (mult, ext, kernnorm, u01, K)
+
+
+def k1a_bytes(args):
+    """the bytes K1a must move: the multiplicities and the extensive rows
+    read and written, the kernel x norm and u01 rows read"""
+    mult, ext, kernnorm, u01, _ = args
+    return (
+        2 * mult.numel() * mult.element_size()
+        + 2 * ext.numel() * ext.element_size()
+        + kernnorm.numel() * kernnorm.element_size()
+        + u01.numel() * u01.element_size()
+    )
+
+
+def _check_k1a(torch, kern, args, label):
+    """K1a against its twin on ``args``: multiplicities and extensive rows
+    bit-equal, the three rate sums to rtol 1e-5 (another summation order);
+    returns (max_abs_err of the rows, slots changed)"""
+    import numpy as np
+
+    before = kern.coalesce_mirror_rows.launches
+    got = kern.coalesce_mirror_rows(*args)
+    torch.cuda.synchronize()
+    if kern.coalesce_mirror_rows.launches != before + 1:
+        raise AssertionError(f"{label}: the launch counter did not count")
+    want = kern.coalesce_mirror_rows_reference(*args)
+    if not (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])):
+        raise AssertionError(f"{label}: K1a differs from its twin")
+    for g, w in zip(got[2:], want[2:]):
+        np.testing.assert_allclose(g.item(), w.item(), rtol=1e-5)
+    err = float((got[1].double() - want[1].double()).abs().max())
+    return err, int((got[0] != args[0]).sum())
+
+
+def _k1a_vs_twin(torch, kern, device, gpu):
+    """phase 29: K1a against its twin on the card, bit for bit in
+    multiplicities and rows: on Berry 1967's state with Hydrodynamic's
+    kernel x norm row at 2^13 (the model's width, the main path's shape)
+    and 2^20, and on random states at 2^20 with float32 and float64 rows;
+    two launches on the same inputs bit-equal, and on two streams at once;
+    then the device time of kernel and twin on the Hydrodynamic rows at
+    both widths, at 2^20 also over a rotation of eight inputs. Returns
+    (max_abs_err, {n: (ms, twin ms, bytes)}, rotated ms at 2^20)"""
+    import numpy as np
+
+    max_abs_err = 0.0
+    berry_args = {}
+    for n in (BERRY_ROWS_N, N_MAIN):
+        args = berry_args[n] = k1a_args(torch, n, n, device)
+        err, changed = _check_k1a(torch, kern, args, f"phase 29 n={n}")
+        max_abs_err = max(max_abs_err, err)
+        print(f"phase 29: K1a on Berry 1967's state with Hydrodynamic's rows,"
+              f" n={n}: xi and rows bit-equal to the twin, {changed} slots"
+              f" changed, {int((args[2] > 0).sum())} slots with a kernel"
+              f" value above 0")
+    for ext_dtype in (np.float32, np.float64):
+        random_args = k1a_random_args(torch, N_MAIN, ext_dtype, 7, device)
+        err, changed = _check_k1a(torch, kern, random_args, "phase 29 random")
+        max_abs_err = max(max_abs_err, err)
+        if not changed > N_MAIN // 20:
+            raise AssertionError(f"phase 29: {changed} slots changed")
+        print(f"phase 29: K1a on a random state, n={N_MAIN},"
+              f" ext={np.dtype(ext_dtype).name}: bit-equal to the twin,"
+              f" {changed} slots changed")
+    inputs = [berry_args[N_MAIN]] + [
+        k1a_random_args(torch, N_MAIN, np.float32, seed, device)
+        for seed in range(1, 8)
+    ]
+    check_deterministic(torch, kern.coalesce_mirror_rows, inputs[:2], "phase 29: K1a")
+    times = {}
+    for n, args in berry_args.items():
+        times[n] = (
+            _time_ms(torch, lambda a=args: kern.coalesce_mirror_rows(*a), 200),
+            _time_ms(
+                torch, lambda a=args: kern.coalesce_mirror_rows_reference(*a), 10
+            ),
+            k1a_bytes(args),
+        )
+    rotated_ms = _time_rotated_ms(
+        torch, lambda a: kern.coalesce_mirror_rows(*a), inputs, 200
+    )
+    rows = berry_args[N_MAIN][1]
+    print(f"phase 29: K1a with Hydrodynamic rows ({rows.shape[0]} {rows.dtype}"
+          f" extensive rows): " + "; ".join(
+              f"n={n}: {t[0]!r} ms, plain twin {t[1]!r} ms, bound"
+              f" {bound_ms(t[2])[0]!r} ms ({t[2]} B)" for n, t in times.items()
+          ) + f"; at n={N_MAIN} over a rotation of {len(inputs)} inputs"
+          f" {rotated_ms!r} ms [{gpu}]")
+    return max_abs_err, times, rotated_ms
+
+
+def _berry_kernels_model(kern, gpu):
+    """phase 30: ``berry_1967.run`` with ``settings.kernel`` set to
+    ``Hydrodynamic`` and to ``Electric`` at the model's own 2^13
+    super-droplets and 1800 steps on the card, K1a's count set to 0 just
+    before each run and read just after: K1a launches = substeps = 1800,
+    the liquid conserved to 1e-6, the number-weighted mean radius of
+    dv/dlnr grows; ms/step, host reads and device kernels a step (profiled
+    over 5 more steps); K1a held to its twin on a captured substep of each.
+    Returns K1a's launches over both runs"""
+    import numpy as np
+    import torch
+
+    from pysdm_tpu_torch.dynamics.collisions import collision, collision_kernels
+    from pysdm_tpu_torch.models import berry_1967 as model
+
+    launches_total = 0
+    for kernel in ("Hydrodynamic", "Electric"):
+        settings = model.Settings(steps=[0, 600, 1200, BERRY_ROWS_STEPS])
+        settings.n_sd = BERRY_ROWS_N
+        settings.kernel = getattr(collision_kernels, kernel)()
+        with _capturing_builder(model) as built:
+            kern.coalesce_mirror_rows.launches = 0
+            t0 = time.perf_counter()
+            vals, p = model.run(settings)
+            p.block_until_ready()
+            wall = time.perf_counter() - t0
+            launches = kern.coalesce_mirror_rows.launches
+        dyn = p.dynamics["Collision"]
+        liquid0, liquid1 = built[0][1], _totals(p)[0]
+        r_mid = np.sqrt(settings.radius_bins_edges[:-1] * settings.radius_bins_edges[1:])
+        mean_r = [float((vals[s] * r_mid).sum() / vals[s].sum())
+                  for s in settings.output_steps]
+        checks = {
+            "on the card": p.device.type == "cuda" and built[0][0] is p,
+            "route": dyn.route() == "rows",
+            "K1a launches = substeps": launches == dyn.substeps_run == BERRY_ROWS_STEPS,
+            "liquid": abs(liquid1 - liquid0) <= 1e-6 * liquid0,
+            "growth": mean_r[-1] > mean_r[0],
+            "rates": float(p.get_counter("coalescence_rate").sum()) > 0,
+        }
+        failed = [name for name, ok in checks.items() if not ok]
+        if failed:
+            raise AssertionError(
+                f"phase 30: {kernel}: {failed}: {launches} launches,"
+                f" {dyn.substeps_run} substeps, liquid {liquid0} ->"
+                f" {liquid1}, mean radius {mean_r}"
+            )
+        launches_total += launches
+        reads0 = dyn.host_reads
+        prof = _profile_steps(p, PROFILED_STEPS, f"berry_{kernel}")
+        ms, kernels, busy = (
+            prof["ms_per_step"], prof["kernels_per_step"], prof["busy_share"]
+        )
+        reads = dyn.host_reads - reads0
+        captured = []
+
+        def record(*args):
+            captured.append([a.clone() if torch.is_tensor(a) else a for a in args])
+            return kern.coalesce_mirror_rows(*args)
+
+        with _replaced(collision, "coalesce_mirror_rows", record):
+            p.run(1)
+        err, changed = _check_k1a(torch, kern, captured[0], "phase 30")
+        print(f"phase 30: berry_1967.run with {kernel} at n_sd={BERRY_ROWS_N}"
+              f" on the card: {BERRY_ROWS_STEPS} steps in {wall!r} s"
+              f" ({wall / BERRY_ROWS_STEPS * 1e3!r} ms/step with the build"
+              f" and 4 product reads), {launches} K1a launches = substeps;"
+              f" {PROFILED_STEPS} more steps: {ms!r} ms/step, {reads} host"
+              f" reads in {2 * PROFILED_STEPS} steps, {kernels!r} device"
+              f" kernels/step, busy {busy!r}; mean radius of dv/dlnr {mean_r} m; liquid"
+              f" drift {(liquid1 - liquid0) / liquid0!r}; coalescence rate"
+              f" {float(p.get_counter('coalescence_rate').sum())!r}; a"
+              f" captured substep bit-equal to the twin ({changed} slots"
+              f" changed) [{gpu}]")
+    return launches_total
+
+
+def straub_settings(model, n_sd, handle_all_breakups=False):
+    """de Jong/Mackay 2023's ``Settings0D`` with Straub 2010's fragments
+    (vmin = (1 um)^3, nfmax = 100) and coalescence efficiency, the paper's
+    Straub configuration, at ``n_sd``; with ``handle_all_breakups`` the
+    formulae are rebuilt with it"""
+    from pysdm_tpu_torch import Formulae
+    from pysdm_tpu_torch.dynamics.collisions.breakup_fragmentations import (
+        Straub2010Nf,
+    )
+    from pysdm_tpu_torch.dynamics.collisions.coalescence_efficiencies import (
+        Straub2010Ec,
+    )
+
+    settings = model.Settings0D(
+        fragmentation=Straub2010Nf(vmin=(1e-6) ** 3, nfmax=100)
+    )
+    settings.coal_eff = Straub2010Ec()
+    settings.n_sd = n_sd
+    if handle_all_breakups:
+        settings.formulae = Formulae(
+            seed=settings.seed, fragmentation_function="Straub2010Nf",
+            handle_all_breakups=True,
+        )
+    return settings
+
+
+def build_straub_box(n_sd, backend, croupier=None):
+    """the Straub box (``straub_settings``) built as ``build_breakup_box``
+    builds config #2, with ``Collision(..., croupier=croupier)``"""
+    from pysdm_tpu_torch import Builder
+    from pysdm_tpu_torch.dynamics import Collision
+    from pysdm_tpu_torch.environments import Box
+    from pysdm_tpu_torch.initialisation.sampling.spectral_sampling import (
+        ConstantMultiplicity,
+    )
+    from pysdm_tpu_torch.models import dejong_mackay_et_al_2023 as model
+
+    s = straub_settings(model, n_sd)
+    builder = Builder(
+        n_sd=n_sd, backend=backend(s.formulae), environment=Box(dv=s.dv, dt=s.dt)
+    )
+    builder.add_dynamic(Collision(
+        collision_kernel=s.kernel, coalescence_efficiency=s.coal_eff,
+        breakup_efficiency=s.break_eff, fragmentation_function=s.fragmentation,
+        adaptive=s.adaptive, croupier=croupier,
+    ))
+    attributes = {}
+    attributes["volume"], attributes["multiplicity"] = ConstantMultiplicity(
+        s.spectrum
+    ).sample(n_sd)
+    return builder.build(attributes)
+
+
+def _rates_ok(p, label):
+    """every rate counter finite and non-negative; returns their sums"""
+    import numpy as np
+
+    rates = {}
+    for name in ("collision_rate", "collision_rate_deficit", "coalescence_rate",
+                 "breakup_rate", "breakup_rate_deficit"):
+        value = p.get_counter(name).astype(float)
+        if not (np.isfinite(value).all() and (value >= 0).all()):
+            raise AssertionError(f"{label}: {name} {value}")
+        rates[name] = float(value.sum())
+    return rates
+
+
+def _k4_on_sort_croupier_step(p, launches, rows, gpu):
+    """phase 31 on the sort croupier, after the counted run (``launches``
+    and ``rows`` of K4 in it): one more step with every scan it gives K4
+    captured, then K4 on each against its twin (``_k4_on_scans``). Returns
+    K4's record of this path"""
+    import torch
+
+    from pysdm_tpu_torch.ops import segments
+
+    captured = []
+    real_k4 = segments.cumsum
+
+    def capture_k4(x):
+        captured.append(x.clone())
+        return real_k4(x)
+
+    dyn = p.dynamics["Collision"]
+    substeps = dyn.substeps_run
+    with _replaced(segments, "cumsum", capture_k4):
+        p.run(1)
+    substeps = dyn.substeps_run - substeps
+    if not captured:
+        raise AssertionError("phase 31: the sort croupier's step gave K4 nothing")
+    err, seen = _k4_on_scans(real_k4, captured, "phase 31 sort croupier")
+    shapes = sorted({line.split(":")[0] for line in seen})
+    print(f"phase 31: K4 on the sort croupier: {launches} launches ({rows}"
+          f" rows) in the counted run; one more step ({substeps} substeps)"
+          f" gave it {len(captured)} scans of {shapes}, each within 1e-5 of"
+          f" its float64 prefix (integers equal to torch.cumsum), max abs"
+          f" err {err!r} [{gpu}]")
+    return {
+        "launches": launches,
+        "rows": rows,
+        "max_abs_err": err,
+        "scans_in_one_step": len(captured),
+        "n": max(x.shape[-1] for x in captured),
+        "dtypes": sorted({str(x.dtype) for x in captured}),
+        "int_scans": sum(not torch.is_floating_point(x) for x in captured),
+    }
+
+
+def _straub_on_card(gpu):
+    """phase 31: de Jong/Mackay 2023's box with Straub 2010 (the float64
+    breakup path) at config #2's 2^17 super-droplets, adaptive, through
+    ``run_box_breakup`` for 100 steps, again with ``handle_all_breakups``,
+    and through a builder on the sort croupier: the liquid conserved to
+    1e-6, rates finite and non-negative, breakups; ms/step, host reads and
+    device kernels a step; on the sort croupier K4's count set to 0 just
+    before the run and read just after, and K4 held to its twin on the
+    scans of one more step (``_k4_on_sort_croupier_step``); then the first
+    run's spectra against a float64 CPU run of the port at the same seed,
+    statistically: number and liquid under dv/dlnr at 50 and 100 s, the
+    number within ``STRAUB_NUMBER_RTOL`` (the spread of two CPU seeds is
+    below a third of it). Returns ({variant: record}, K4's record)"""
+    import numpy as np
+
+    from pysdm_tpu_torch.backends import CPU, GPU
+    from pysdm_tpu_torch.models import dejong_mackay_et_al_2023 as model
+    from pysdm_tpu_torch.ops.cuda import scan
+
+    records = {}
+    outs = {}
+    for variant in ("closed form", "handle_all_breakups", "sort croupier"):
+        steps = [0, STRAUB_STEPS // 2, STRAUB_STEPS]
+        with _capturing_builder(model) as built:
+            t0 = time.perf_counter()
+            if variant == "sort croupier":
+                p = build_straub_box(STRAUB_N, GPU, croupier="sort")
+                built.append((p, _totals(p)[0]))
+                scan.cumsum.launches = 0
+                scan.cumsum.rows = 0
+                p.run(STRAUB_STEPS)
+                k4_launches = scan.cumsum.launches
+                k4_rows = scan.cumsum.rows
+                out = None
+            else:
+                settings = straub_settings(
+                    model, STRAUB_N, variant == "handle_all_breakups"
+                )
+                out = model.run_box_breakup(settings, steps=steps, return_nv=True)
+                p = out.core
+            p.block_until_ready()
+            wall = time.perf_counter() - t0
+        dyn = p.dynamics["Collision"]
+        liquid0, liquid1 = built[0][1], _totals(p)[0]
+        rates = _rates_ok(p, f"phase 31 {variant}")
+        if out is not None:
+            # the rate products reset their counters on each read: the
+            # model's reads at the output steps hold the sums
+            read = out.rates.sum(axis=0)
+            if not (np.isfinite(out.rates).all() and (out.rates >= 0).all()):
+                raise AssertionError(f"phase 31: {variant}: rates {out.rates}")
+            rates.update(zip(
+                ("collision_rate", "collision_rate_deficit",
+                 "coalescence_rate", "breakup_rate"), map(float, read),
+            ))
+        checks = {
+            "on the card": p.device.type == "cuda",
+            "route": dyn.route() == "float64",
+            "liquid": abs(liquid1 - liquid0) <= 1e-6 * liquid0,
+            "breakups": rates["breakup_rate"] > 0 and rates["coalescence_rate"] > 0,
+            "spectra": out is None or (
+                np.isfinite(out.y).all() and np.isfinite(out.y2).all()
+            ),
+        }
+        if variant == "sort croupier":
+            checks["K4 launched"] = k4_launches > 0
+        failed = [name for name, ok in checks.items() if not ok]
+        if failed:
+            raise AssertionError(
+                f"phase 31: {variant}: {failed}: liquid {liquid0} -> {liquid1},"
+                f" rates {rates}"
+            )
+        reads, substeps = dyn.host_reads, dyn.substeps_run
+        if variant == "sort croupier":
+            k4 = _k4_on_sort_croupier_step(p, k4_launches, k4_rows, gpu)
+        prof = _profile_steps(
+            p, PROFILED_STEPS, "straub_" + variant.replace(" ", "_")
+        )
+        ms, kernels, busy = (
+            prof["ms_per_step"], prof["kernels_per_step"], prof["busy_share"]
+        )
+        records[variant] = {
+            "ms_per_step": wall / STRAUB_STEPS * 1e3,
+            "host_reads_per_step": reads / STRAUB_STEPS,
+            "substeps": substeps,
+            "substeps_per_step": substeps / STRAUB_STEPS,
+            "ms_per_step_after": ms,
+            "kernels_per_step_after": kernels,
+            "busy_share_after": busy,
+            "substeps_per_step_after": (dyn.substeps_run - substeps)
+            / (2 * PROFILED_STEPS),
+        }
+        outs[variant] = out
+        print(f"phase 31: Straub box, {variant}, n_sd={STRAUB_N}, adaptive,"
+              f" {STRAUB_STEPS} steps on the card in {wall!r} s with the"
+              f" build: {records[variant]['ms_per_step']!r} ms/step,"
+              f" {records[variant]['substeps_per_step']!r} substeps and"
+              f" {records[variant]['host_reads_per_step']!r} host reads a"
+              f" step; {PROFILED_STEPS} more steps: {ms!r} ms/step,"
+              f" {records[variant]['substeps_per_step_after']!r} substeps,"
+              f" {kernels!r} device kernels and busy {busy!r} a step; liquid"
+              f" drift {(liquid1 - liquid0) / liquid0!r}; rates {rates} [{gpu}]")
+    settings = straub_settings(model, STRAUB_N)
+    t0 = time.perf_counter()
+    cpu = model.run_box_breakup(
+        settings, steps=[0, STRAUB_STEPS // 2, STRAUB_STEPS],
+        backend_class=CPU, return_nv=True,
+    )
+    cpu_wall = time.perf_counter() - t0
+    dlnr = np.diff(np.log(settings.radius_bins_edges))
+    card = outs["closed form"]
+    number = [o.y2.sum(axis=1) for o in (card, cpu)]
+    liquid = [(o.y * dlnr).sum(axis=1) for o in (card, cpu)]
+    rel = np.abs(number[0] / number[1] - 1)
+    if not ((rel[1:] < STRAUB_NUMBER_RTOL).all()
+            and np.allclose(liquid[0], liquid[1], rtol=1e-5)):
+        raise AssertionError(
+            f"phase 31: card against CPU float64: number {number}, liquid"
+            f" {liquid}"
+        )
+    print(f"phase 31: the card's closed-form run against a float64 CPU run"
+          f" ({cpu_wall!r} s) at seed 44: number at 0, 50, 100 s"
+          f" {number[0].tolist()} against {number[1].tolist()} m^-3"
+          f" (relative difference {rel.tolist()}, bound"
+          f" {STRAUB_NUMBER_RTOL}), liquid under dv/dlnr {liquid[0].tolist()}"
+          f" against {liquid[1].tolist()} kg/m^3 [{gpu}]")
+    return records, k4
+
+
+def _bieli_on_card(gpu):
+    """phase 32: ``bieli_et_al_2022.run`` at its own 2^12 super-droplets
+    and 60 steps on the card for each of its three Ec (0.8, 0.9, 1.0),
+    Feingold 1988 fragments on the float64 breakup path: M1 conserved to
+    1e-6 and, at Ec = 1, M0 falls (the JAX test's bounds); each run's M0
+    and M2 at the end against a float64 CPU run at the same seed within
+    ``BIELI_MOMENT_RTOL`` (statistically: the two draw other random
+    numbers); ms/step, host reads and device kernels a step.
+    Returns {Ec: record}"""
+    import numpy as np
+
+    from pysdm_tpu_torch.backends import CPU
+    from pysdm_tpu_torch.models import bieli_et_al_2022 as model
+
+    records = {}
+    for coal_eff_index in range(3):
+        settings = model.Settings()
+        coal_eff = settings.coal_effs[coal_eff_index]
+        with _capturing_builder(model) as built:
+            t0 = time.perf_counter()
+            out = model.run(settings, coal_eff=coal_eff)
+            wall = time.perf_counter() - t0
+        p = built[0][0]
+        cpu = model.run(model.Settings(), coal_eff=coal_eff, backend_class=CPU)
+        moments = {k: np.asarray(v) for k, v in out.items()}
+        rates = _rates_ok(p, "phase 32")
+        rel = {k: abs(moments[k][-1] / cpu[k][-1] - 1) for k in ("M0", "M2")}
+        checks = {
+            "on the card": p.device.type == "cuda",
+            "route": p.dynamics["Collision"].route() == "float64",
+            "M1": np.abs(moments["M1"] / moments["M1"][0] - 1).max() < 1e-6,
+            "M0 falls": coal_eff.Ec < 1 or moments["M0"][-1] < moments["M0"][0],
+            "finite": all(np.isfinite(v).all() for v in moments.values()),
+            "against the CPU": all(
+                rel[k] < BIELI_MOMENT_RTOL[k] for k in rel
+            ),
+            # Ec = 1 coalesces every collision
+            "breakups": coal_eff.Ec == 1 or rates["breakup_rate"] > 0,
+        }
+        failed = [name for name, ok in checks.items() if not ok]
+        if failed:
+            raise AssertionError(
+                f"phase 32: Ec={coal_eff.Ec}: {failed}: {moments}, CPU"
+                f" {cpu}, rates {rates}"
+            )
+        prof = _profile_steps(p, PROFILED_STEPS, f"bieli_{coal_eff.Ec}")
+        ms, kernels, busy = (
+            prof["ms_per_step"], prof["kernels_per_step"], prof["busy_share"]
+        )
+        steps = settings.output_steps[-1]
+        records[coal_eff.Ec] = {
+            "ms_per_step": wall / steps * 1e3,
+            "host_reads_per_step": p.dynamics["Collision"].host_reads / steps,
+            "ms_per_step_after": ms,
+            "kernels_per_step_after": kernels,
+            "busy_share_after": busy,
+        }
+        print(f"phase 32: bieli_et_al_2022.run, Ec = {coal_eff.Ec},"
+              f" n_sd={settings.n_sd}, {steps} steps (three moments read"
+              f" each) on the card in {wall!r} s with the build:"
+              f" {records[coal_eff.Ec]['ms_per_step']!r} ms/step, host reads"
+              f" {records[coal_eff.Ec]['host_reads_per_step']!r}/step;"
+              f" {PROFILED_STEPS} more steps without reads: {ms!r} ms/step,"
+              f" {kernels!r} device kernels and busy {busy!r} a step; M0, M1, M2 at the end"
+              f" {[float(moments[k][-1]) for k in ('M0', 'M1', 'M2')]}, float64"
+              f" CPU {[float(cpu[k][-1]) for k in ('M0', 'M1', 'M2')]}"
+              f" (relative differences {rel}); rates {rates} [{gpu}]")
+    return records
+
+
+def _pure_breakup_handle_all(gpu, steps=10):
+    """phase 33: ``tests/smoke/test_box_breakup.py``'s pure-breakup box
+    (``_pure_breakup_box``) with ``handle_all_breakups`` on the card, step
+    by step: the loop's iterations, host reads and ms of each step; the
+    water mass to 1e-6, the multiplicity grown, breakups. Then the same
+    box again with the loop reading after every iteration
+    (``ops/breakup.py`` ``_MAX_UNCHECKED = 1``, as the JAX package's
+    ``while_loop``): the same multiplicities, and its ms a step beside.
+    Returns the per-step records"""
+    import numpy as np
+
+    from pysdm_tpu_torch.ops import breakup
+
+    records = {}
+    for label, cap in (("default", breakup._MAX_UNCHECKED), ("every", 1)):
+        with _replaced(breakup, "_MAX_UNCHECKED", cap):
+            p, records[label] = _pure_breakup_box(gpu, steps, label)
+        records[label]["multiplicity"] = p.attributes["multiplicity"]
+    if not np.array_equal(records["default"].pop("multiplicity"),
+                          records["every"].pop("multiplicity")):
+        raise AssertionError("phase 33: the read interval changed the state")
+    return records
+
+
+def _pure_breakup_box(gpu, steps, label):
+    """the box of phase 33 (2^10 super-droplets of 1e8 drops, 20 um +- a
+    factor 2 in volume, ConstantK 1e-9 m^3/s, ``AlwaysN(n=4)``, dt = 1 s,
+    one substep, seed 44) run ``steps`` steps one by one on the card.
+    Returns (the particulator, the per-step record)"""
+    import numpy as np
+
+    from pysdm_tpu_torch import Builder, Formulae
+    from pysdm_tpu_torch.backends import GPU
+    from pysdm_tpu_torch.dynamics import Breakup
+    from pysdm_tpu_torch.dynamics.collisions.breakup_fragmentations import AlwaysN
+    from pysdm_tpu_torch.dynamics.collisions.collision_kernels import ConstantK
+    from pysdm_tpu_torch.environments import Box
+
+    n_sd = 2**10
+    rng = np.random.default_rng(44)
+    builder = Builder(
+        n_sd=n_sd, backend=GPU(Formulae(seed=44, handle_all_breakups=True)),
+        environment=Box(dt=1.0, dv=1.0),
+    )
+    dyn = Breakup(
+        collision_kernel=ConstantK(a=1e-9), fragmentation_function=AlwaysN(n=4),
+        adaptive=False, substeps=1,
+    )
+    builder.add_dynamic(dyn)
+    p = builder.build({
+        "multiplicity": np.full(n_sd, 1e8),
+        "volume": rng.uniform(0.5, 2.0, n_sd) * (20e-6) ** 3,
+    }, products=())
+    mult0, mass0 = _totals(p)[1], _totals(p)[0]
+    record = {"iterations": [], "host_reads": [], "ms": []}
+    for _ in range(steps):
+        it0, reads0 = dyn.breakup_iterations, dyn.host_reads
+        t0 = time.perf_counter()
+        p.run(1)
+        p.block_until_ready()
+        record["ms"].append((time.perf_counter() - t0) * 1e3)
+        record["iterations"].append(dyn.breakup_iterations - it0)
+        record["host_reads"].append(dyn.host_reads - reads0)
+    mult1, mass1 = _totals(p)[1], _totals(p)[0]
+    rates = _rates_ok(p, "phase 33")
+    if not (p.device.type == "cuda" and dyn.route() == "float64"
+            and abs(mass1 - mass0) <= 1e-6 * mass0 and mult1 > mult0
+            and rates["breakup_rate"] > 0):
+        raise AssertionError(
+            f"phase 33: mass {mass0} -> {mass1}, multiplicity {mult0} ->"
+            f" {mult1}, rates {rates}, {record}"
+        )
+    print(f"phase 33: pure breakup with handle_all_breakups, n_sd={n_sd},"
+          f" reads {label}, {steps} steps on the card: loop iterations"
+          f" {record['iterations']},"
+          f" host reads {record['host_reads']}, ms {record['ms']}; water"
+          f" mass drift {(mass1 - mass0) / mass0!r}, multiplicity {mult0!r}"
+          f" -> {mult1!r} [{gpu}]")
+    return p, record
+
+
 def main():
     import torch
 
@@ -3191,6 +3874,11 @@ def main():
     _abade(GPU, gpu)
     _niedermeier(GPU, gpu)
     _float32_ice_records(GPU, gpu)
+    k1a_err, k1a_times, k1a_rotated_ms = _k1a_vs_twin(torch, kern, device, gpu)
+    berry_rows_launches = _berry_kernels_model(kern, gpu)
+    straub, straub_k4 = _straub_on_card(gpu)
+    bieli = _bieli_on_card(gpu)
+    pure_breakup = _pure_breakup_handle_all(gpu)
 
     # least times on the card, from this run's inputs: K1 at N_MAIN with two
     # float32 rows (mult 8 + rows 8 + volume 4 in, mult 8 + rows 8 out per
@@ -3204,7 +3892,16 @@ def main():
     k2_bound = bound_ms(k2_bytes)
     k5_bound = bound_ms(k5_bytes, k5_ops)
     geo_bound = bound_ms(geo_bytes)
+    # K1a at the main path's width (Berry 1967's 2^13) and at 2^20: per
+    # slot the multiplicity and the extensive rows read and written, the
+    # kernel x norm and u01 rows read
+    k1a_bound = {n: bound_ms(t[2]) for n, t in k1a_times.items()}
 
+    # the float64 paths' records, which launch no kernel of their own
+    print(json.dumps({"paths": {
+        "straub": straub, "straub_sort_k4": straub_k4, "bieli": bieli,
+        "pure_breakup_handle_all": pure_breakup,
+    }}))
     print(json.dumps({"kernels": [{
         "name": "coalesce_mirror",
         "route": "cuda",
@@ -3264,7 +3961,9 @@ def main():
         "column_launches": column["cumsum"],
         "dejong_column_launches": dejong["cumsum"],
         "column_max_abs_err": column_err["cumsum"],
-        "max_abs_err": k4_err,
+        "straub_sort_launches": straub_k4["launches"],
+        "max_abs_err": max(k4_err, straub_k4["max_abs_err"]),
+        "straub_sort_max_abs_err": straub_k4["max_abs_err"],
         "ms": k4_ms,
         "plain_ms": k4_twin_ms,
         "bound_ms": k4_bound[0],
@@ -3284,6 +3983,22 @@ def main():
         "bound_ms": k5_bound[0],
         "bound_by": k5_bound[1],
         "library_ms": None,
+    }, {
+        "name": "coalesce_mirror_rows",
+        "route": "cuda",
+        "source": "pysdm_tpu_torch/csrc/collision_mirror.cu",
+        "replaces": "pysdm_tpu/ops/pallas/collision.py:317",
+        "launches": berry_rows_launches,
+        "max_abs_err": k1a_err,
+        "ms": k1a_times[BERRY_ROWS_N][0],
+        "plain_ms": k1a_times[BERRY_ROWS_N][1],
+        "bound_ms": k1a_bound[BERRY_ROWS_N][0],
+        "bound_by": k1a_bound[BERRY_ROWS_N][1],
+        "library_ms": None,
+        "ms_2_20": k1a_times[N_MAIN][0],
+        "rotated_ms_2_20": k1a_rotated_ms,
+        "plain_ms_2_20": k1a_times[N_MAIN][1],
+        "bound_ms_2_20": k1a_bound[N_MAIN][0],
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

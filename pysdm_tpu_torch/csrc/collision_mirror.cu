@@ -1,9 +1,26 @@
 // Single-cell SDM coalescence substep under the mirror croupier, for Hopper
-// (sm_90a). Plain C entry point, loaded with ctypes by
+// (sm_90a). Two plain C entry points, loaded with ctypes by
 // pysdm_tpu_torch/ops/cuda/collision.py, which also holds the plain PyTorch
-// twin of this function (coalesce_mirror_reference).
+// twins of both (coalesce_mirror_reference, coalesce_mirror_rows_reference):
+// K1 (pysdm_coalesce_mirror), which evaluates the collision kernel and draws
+// u01 in its body, and K1a (pysdm_coalesce_mirror_rows), which reads both
+// per slot from rows its caller computed. The pair update is one body for
+// both (pair_update, instantiated with KID = ROWS_GIVEN for K1a).
 //
-// Replaces the TPU kernel fused_coalesce_mirror_blocks
+// K1a replaces the TPU kernel fused_coalesce_mirror
+// (pysdm_tpu/ops/pallas/collision.py:317, body _coalesce_kernel_mirror
+// :220): the mirror substep of the collision kernels K1 has no body for
+// (the JAX package's Parameterized, Hydrodynamic and Electric), from a
+// float32 kernel x normalization x probability-scale row and a float32 u01
+// row, both read at the pair's leader (the smaller slot). The TPU kernel's
+// XLA-side flip and roll of the partner rows, its (BLOCK_R, LANES) padding
+// and its u32 limbs are TPU-only: here the partner's index is computed in
+// the thread and the multiplicities are native int64. Bound on the card:
+// bytes; per slot the multiplicity (8 B) and the R extensive rows read and
+// written, the kn and u01 rows (4 B each) read: 24 + 8 R B with float32
+// rows, 40 B with two.
+//
+// K1 replaces the TPU kernel fused_coalesce_mirror_blocks
 // (pysdm_tpu/ops/pallas/collision.py:582, body _mk_mirror_block_kernel :422)
 // and takes its semantics at every N: slot o pairs with po = (K - o) mod N,
 // u01 comes from the pair-keyed PRF _u01_hash(seed, min(o, po)), and the
@@ -70,6 +87,8 @@ constexpr int THREADS = 512;  // pairs a block
 constexpr int ROWS_AHEAD = 2;
 constexpr int SCRATCH_HEAD = 16;  // bytes before the partials: the counter
 constexpr float TWO_M24 = 5.9604644775390625e-08f;  // 2^-24
+// the KID of K1a: kernel x norm and u01 given as rows
+constexpr int ROWS_GIVEN = -1;
 
 using sdm::BIG;
 using sdm::merge_rn;
@@ -92,10 +111,12 @@ __device__ __forceinline__ float u01_hash(uint32_t seed, uint32_t pair_id) {
 
 // the attribute rows collision kernel KID reads: "volume" for the first
 // three, "radius" and "relative fall velocity" for GEOMETRIC, "area" and
-// "radius" for SIMPLE_GEOMETRIC
+// "radius" for SIMPLE_GEOMETRIC; K1a reads none
 template <int KID>
 __host__ __device__ constexpr int attr_rows() {
-  return KID == sdm::GEOMETRIC || KID == sdm::SIMPLE_GEOMETRIC ? 2 : 1;
+  return KID == ROWS_GIVEN ? 0
+         : KID == sdm::GEOMETRIC || KID == sdm::SIMPLE_GEOMETRIC ? 2
+                                                                  : 1;
 }
 
 // the kernel value from the attribute rows of both slots (x0, x1: the rows
@@ -125,6 +146,9 @@ struct Args {
   uint32_t seed;
   int64_t* __restrict__ mult_out;
   T* __restrict__ ext_out;
+  // K1a's rows: kernel x norm x scale and u01, read at the leader
+  const float* __restrict__ kn;
+  const float* __restrict__ u01;
 
   // a slot that keeps its values
   __device__ void keep(int64_t slot) const {
@@ -142,8 +166,11 @@ __device__ void pair_update(const Args<T>& x, int64_t o, int64_t po,
   // every load first and none behind a branch on loaded data, so that the
   // pair waits for memory once
   const int64_t a = x.mult[o], b = x.mult[po];
+  constexpr bool given = KID == ROWS_GIVEN;
   constexpr bool two_rows = attr_rows<KID>() == 2;
-  const float x0o = x.attr[o], x0p = x.attr[po];
+  // K1a: x0o is kn and x0p is u01, both the leader's
+  const float x0o = given ? x.kn[o] : x.attr[o];
+  const float x0p = given ? x.u01[o] : x.attr[po];
   const float x1o = two_rows ? x.attr[x.n + o] : 0.0f;
   const float x1p = two_rows ? x.attr[x.n + po] : 0.0f;
   T eo[ROWS_AHEAD], ep[ROWS_AHEAD];
@@ -157,9 +184,15 @@ __device__ void pair_update(const Args<T>& x, int64_t o, int64_t po,
   // j = the not-smaller multiplicity; a tie goes to the leader
   const bool o_is_j = a >= b;
   const int64_t mj = o_is_j ? a : b, mk = o_is_j ? b : a;
-  const float kn = __fmul_rn(
-      pair_kernel<KID>(x.p0, x.p1, x0o, x0p, x1o, x1p), x.scale[0]);
-  const float u = u01_hash(x.seed, (uint32_t)o);
+  float kn, u;
+  if constexpr (given) {
+    kn = x0o;
+    u = x0p;
+  } else {
+    kn = __fmul_rn(pair_kernel<KID>(x.p0, x.p1, x0o, x0p, x1o, x1p),
+                   x.scale[0]);
+    u = u01_hash(x.seed, (uint32_t)o);
+  }
   const float gamma_f = fmaxf(
       ceilf(__fsub_rn(__fmul_rn(u64_to_f32((uint64_t)mj), kn), u)), 0.0f);
   const int64_t cap = (int64_t)fminf(gamma_f, BIG);
@@ -294,13 +327,39 @@ int pysdm_coalesce_mirror(const void* mult, const void* ext, int ext_is_f64,
     return launch(Args<double>{(const int64_t*)mult, (const double*)ext,
                                n_ext, (const float*)attr, p0, p1,
                                (const float*)scale, n, seed,
-                               (int64_t*)mult_out, (double*)ext_out},
+                               (int64_t*)mult_out, (double*)ext_out,
+                               nullptr, nullptr},
                   kernel_id, n_attr, K, scratch, sums, s);
   }
   return launch(Args<float>{(const int64_t*)mult, (const float*)ext, n_ext,
                             (const float*)attr, p0, p1, (const float*)scale,
-                            n, seed, (int64_t*)mult_out, (float*)ext_out},
+                            n, seed, (int64_t*)mult_out, (float*)ext_out,
+                            nullptr, nullptr},
                 kernel_id, n_attr, K, scratch, sums, s);
+}
+
+// K1a: one substep in one launch, with the kernel x normalization x
+// probability-scale row kn and the u01 row (float (n,) each, read at each
+// pair's leader) given; otherwise as pysdm_coalesce_mirror, whose scratch
+// size it takes.
+int pysdm_coalesce_mirror_rows(const void* mult, const void* ext,
+                               int ext_is_f64, int n_ext, const void* kn,
+                               const void* u01, long long n, long long K,
+                               void* mult_out, void* ext_out, void* scratch,
+                               void* sums, void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  if (ext_is_f64) {
+    return launch<double, ROWS_GIVEN>(
+        Args<double>{(const int64_t*)mult, (const double*)ext, n_ext,
+                     nullptr, 0.0f, 0.0f, nullptr, n, 0u, (int64_t*)mult_out,
+                     (double*)ext_out, (const float*)kn, (const float*)u01},
+        K, scratch, sums, s);
+  }
+  return launch<float, ROWS_GIVEN>(
+      Args<float>{(const int64_t*)mult, (const float*)ext, n_ext, nullptr,
+                  0.0f, 0.0f, nullptr, n, 0u, (int64_t*)mult_out,
+                  (float*)ext_out, (const float*)kn, (const float*)u01},
+      K, scratch, sums, s);
 }
 
 const char* pysdm_cuda_error_string(int code) {

@@ -2,45 +2,51 @@
 ``pysdm_tpu/dynamics/collisions/collision.py``).
 
 Two croupiers, chosen as the JAX package chooses them:
-- one cell (box, parcel): a substep draws (K, seed), pairs slot o with
-  (K - o) mod N (the mirror croupier, ``ops/pairing.py``) and hands the
-  whole pair update to one kernel: K1 (``coalesce_mirror``) for
-  coalescence alone, which evaluates the collision kernel in its body, K5
-  (``coalesce_breakup_mirror``) for bounce, coalescence and breakup
-  (``Collision`` with ``enable_breakup``, ``Breakup``), which evaluates the
-  collision kernel, Ec, Eb and the fragment mass in its body. Both take the
-  kernels of ``ops/cuda/collision.py`` ``MIRROR_KERNELS``, as the JAX
-  package's Pallas kernels take its ``pallas_safe`` ones; the others
-  (``Parameterized``, ``Hydrodynamic``, ``Electric``), which the JAX package
-  runs on its K1a with kernel values given as a row, raise in ``register``
-  (ROADMAP: K1 with kernel rows given);
+- one cell (box, parcel), not injected, ``croupier`` not "sort": the mirror
+  croupier (``ops/pairing.py`` ``MirrorPairing``); a substep draws K, pairs
+  slot o with (K - o) mod N and needs no sort;
 - many cells, u01 injection, or ``croupier="sort"``: a substep sorts the
   whole state by (cell, random bits) (``ops/segments.py``
-  ``bucket_shuffle_state``), pairs neighbouring slots of a cell, computes
-  the collision kernel and the per-cell normalization with torch ops and
-  hands the pair update to K2 (``coalesce_adjacent``); the per-slot rates
-  are summed per cell through K4. The state stays cell-sorted afterwards.
+  ``bucket_shuffle_state``) and pairs neighbouring slots of a cell
+  (``AdjacentPairing``). The state stays cell-sorted afterwards.
+
+The pair update, in the JAX package's order of dispatch (``:240-457``):
+- coalescence alone on the mirror croupier, with no max-merged rows: K1
+  (``coalesce_mirror``), which evaluates the collision kernels of
+  ``ops/cuda/collision.py`` ``MIRROR_KERNELS`` in its body and draws u01
+  from a pair-keyed PRF, or, for the others (``Parameterized``,
+  ``Hydrodynamic``, ``Electric``), K1a (``coalesce_mirror_rows``), which
+  takes the kernel x norm values and the u01 draws as rows;
+- coalescence alone on the sort croupier, with no max-merged rows: K2
+  (``coalesce_adjacent``), with the rates summed per cell through K4;
+- bounce, coalescence and breakup on the mirror croupier, with the
+  functions K5 evaluates, ``handle_all_breakups`` False and no max-merged
+  rows: K5 (``coalesce_breakup_mirror``);
+- everything else (breakup on the sort croupier or under injection, other
+  functions, ``handle_all_breakups``, a state with max-merged rows): the
+  float64 path, plain tensor ops on either pairing, ``ops/collisions.py``
+  ``compute_gamma``, then ``coalesce`` (max-merging those rows) or
+  ``ops/breakup.py`` ``collision_coalescence_breakup``, with three u01 rows
+  per substep (gamma, process, fragment).
 The adaptive variant first picks each cell's substep length with plain
 tensor ops (``ops.collisions.scale_prob_adaptive``), as the JAX package
 does with XLA ops ahead of its Pallas kernels. On CPU tensors each kernel
 wrapper runs its plain twin.
 
-Breakup runs only where the JAX package takes its Pallas kernel: one cell,
-the mirror croupier, ``handle_all_breakups`` False, and the functions K5
-evaluates. Everything else needs the JAX package's float64 breakup path
-(``ops/breakup.py``), which is not ported: ``register`` raises
-``NotImplementedError`` for it on any device.
+Random numbers: a mirror substep's draws all come from ``_draw_mirror``:
+(K, seed) from the particulator's host-side ``torch.Generator``, the u01
+rows of K1a and of the float64 path from its generator on the state's
+device (``device_rng``). The sort croupier's shuffle bits and u01 rows come
+from ``device_rng``, never from the host. Under u01 injection
+(``Builder.enable_u01_injection``) the ``collision_shuffle``,
+``collision_gamma``, ``collision_process`` and ``collision_fragmentation``
+rows come from ``sim["u01"]`` instead.
 
-Random numbers: (K, seed) come from the particulator's host-side
-``torch.Generator``; the sort croupier's per-slot shuffle bits and gamma
-draws from its generator on the state's device (``device_rng``), never
-from the host. Under u01 injection (``Builder.enable_u01_injection``) the
-``collision_shuffle`` and ``collision_gamma`` streams come from
-``sim["u01"]`` instead.
-
-Host syncs: none in the non-adaptive step. The adaptive loop ``while
-dt_left > 0`` reads one boolean from the device per substep
-(``host_reads`` counts them).
+Host syncs: none in the non-adaptive step, but for ``handle_all_breakups``,
+whose loop reads one boolean from the device after each of its first 32
+iterations and then about every 32 (``ops/breakup.py``;
+``breakup_iterations`` counts the iterations). The adaptive loop ``while dt_left > 0`` reads one boolean per
+substep. ``host_reads`` counts both.
 """
 
 from collections import namedtuple
@@ -48,6 +54,7 @@ from collections import namedtuple
 import torch
 
 from ...impl.attributes import AttributeResolver
+from ...ops import breakup as breakup_ops
 from ...ops import collisions as coll_ops
 from ...ops import segments as seg_ops
 from ...ops.cuda.breakup import (
@@ -67,6 +74,7 @@ from ...ops.cuda.collision import (
     MIRROR_KERNELS,
     coalesce_adjacent,
     coalesce_mirror,
+    coalesce_mirror_rows,
 )
 from ...ops.pairing import AdjacentPairing, MirrorPairing
 from .breakup_efficiencies import ConstEb
@@ -94,11 +102,10 @@ _K5_FUNCTIONS = (
         (FRAG_ALWAYS_N, FRAG_CONSTANT_MASS, FRAG_EXPONENTIAL),
     ),
 )
-_NOT_PORTED = (
-    "needs the JAX package's float64 breakup path (ops/breakup.py), which"
-    " is not ported (ROADMAP: the float64 breakup path)"
+U01_PURPOSES = (
+    "collision_shuffle", "collision_gamma", "collision_process",
+    "collision_fragmentation",
 )
-U01_PURPOSES = ("collision_shuffle", "collision_gamma")
 
 
 class Collision:
@@ -142,10 +149,12 @@ class Collision:
         # set by the builder when a consumer relies on the sorted state even
         # while collisions are switched off (spin-up)
         self._sort_when_disabled = False
-        # device values read back to steer the adaptive loop, and the
-        # substeps run (one K1, K2 or K5 launch each on CUDA tensors)
+        # device values read back to steer the adaptive loop and the
+        # handle_all_breakups loop, and the substeps run (one K1, K1a, K2
+        # or K5 launch each on CUDA tensors where that route is taken)
         self.host_reads = 0
         self.substeps_run = 0
+        self.breakup_iterations = 0
 
     def _uses_mirror(self):
         return (
@@ -167,20 +176,6 @@ class Collision:
                 )
             for purpose in U01_PURPOSES:
                 builder.add_u01_purpose(purpose)
-        if self.enable_breakup:
-            self._check_breakup(builder)
-        if (
-            not self.enable_breakup
-            and self._uses_mirror()
-            and getattr(self.collision_kernel, "kernel_id", None)
-            not in MIRROR_KERNELS
-        ):
-            raise NotImplementedError(
-                f"{type(self.collision_kernel).__name__} has no K1 body: the"
-                " mirror croupier's kernel evaluates Golovin, ConstantK,"
-                " Linear, Geometric and SimpleGeometric (croupier='sort'"
-                " takes any kernel; ROADMAP: K1 with kernel rows given)"
-            )
         if self.dt_coal_range[1] > self.particulator.dt:
             self.dt_coal_range = (self.dt_coal_range[0], self.particulator.dt)
         self.collision_kernel.register(builder)
@@ -203,50 +198,93 @@ class Collision:
             builder.add_counter("breakup_rate", n_cell, torch.float64)
             builder.add_counter("breakup_rate_deficit", n_cell, torch.float64)
 
-    def _check_breakup(self, builder):
-        """breakup only where the JAX package takes its Pallas kernel K5
-        (``pysdm_tpu/dynamics/collisions/collision.py:344-360``)"""
-        if builder.formulae.handle_all_breakups:
-            raise NotImplementedError(
-                f"Formulae(handle_all_breakups=True) {_NOT_PORTED}"
-            )
-        if not self._uses_mirror():
-            raise NotImplementedError(
-                "breakup on the sort croupier (many cells, u01 injection or"
-                f" croupier='sort') {_NOT_PORTED}"
-            )
-        for role, ids in _K5_FUNCTIONS:
-            function = getattr(self, role)
-            if getattr(function, "kernel_id", None) not in ids:
-                raise NotImplementedError(
-                    f"{type(function).__name__} has no body in K5, the"
-                    f" mirror breakup kernel; it {_NOT_PORTED}"
-                )
+    def route(self, particles=None):
+        """the kernels a substep takes: "k1" (K1), "rows" (K1a), "k2" (K2),
+        "k5" (K5) or "float64" (the plain float64 path), as the JAX package
+        dispatches (``pysdm_tpu/dynamics/collisions/collision.py:
+        364-457``): a state with max-merged rows takes the float64 path"""
+        if particles is None:
+            particles = self.particulator.sim_state["particles"]
+        if particles.max_names:
+            return "float64"
+        if not self.enable_breakup:
+            if not self._uses_mirror():
+                return "k2"
+            kernel_id = getattr(self.collision_kernel, "kernel_id", None)
+            return "k1" if kernel_id in MIRROR_KERNELS else "rows"
+        k5 = self._uses_mirror() and not (
+            self.particulator.formulae.handle_all_breakups
+        ) and all(
+            getattr(getattr(self, role), "kernel_id", None) in ids
+            for role, ids in _K5_FUNCTIONS
+        )
+        return "k5" if k5 else "float64"
 
-    def _draw_mirror(self, n_sd):
-        """(K, seed) for one substep from the particulator's host-side
-        generator: K uniform in [0, n_sd), seed a uint32"""
-        gen = self.particulator.rng
+    def _u01_rows(self, route):
+        """the u01 rows a substep of ``route`` draws: none for K1 and K5
+        (their PRF), gamma's for K1a and K2, and on the float64 path also
+        the process and fragment rows where it breaks up"""
+        if route in ("k1", "k5"):
+            return 0
+        return 3 if route == "float64" and self.enable_breakup else 1
+
+    def _draw_mirror(self, n_sd, n_rows=0):
+        """every draw of one mirror substep: K uniform in [0, n_sd) and a
+        uint32 seed (K1's and K5's PRF key) from the particulator's
+        host-side generator, and ``n_rows`` u01 rows on the state's device
+        from its device generator (gamma; then process and fragment).
+        Returns (K, seed, rows)."""
+        particulator = self.particulator
+        gen = particulator.rng
         K = int(torch.randint(0, n_sd, (), generator=gen))
         seed = int(torch.randint(0, 2**32, (), generator=gen))
-        return K, seed
+        rows = [
+            torch.rand(
+                n_sd, generator=particulator.device_rng,
+                device=particulator.device, dtype=particulator.dtype,
+            )
+            for _ in range(n_rows)
+        ]
+        return K, seed, rows
+
+    def _draw_sorted(self, sim, n_rows):
+        """every draw of one sort-croupier substep: the shuffle's random
+        bits (integers in [0, 2^nbits), ``ops/segments.py``
+        ``rand_bits_for``) and ``n_rows`` u01 rows (gamma; then process and
+        fragment), from the device generator, or, under u01 injection, the
+        injected rows of ``sim["u01"]``. Returns (shuffle, rows)."""
+        purposes = U01_PURPOSES[1 : 1 + n_rows]
+        if self.u01_injection:
+            injected = sim["u01"]
+            return (
+                injected["collision_shuffle"],
+                [injected[purpose] for purpose in purposes],
+            )
+        particulator = self.particulator
+        gen, device = particulator.device_rng, particulator.device
+        nbits = seg_ops.rand_bits_for(particulator.mesh.n_cell)
+        bits = torch.randint(
+            0, 2**nbits, (particulator.n_sd,), generator=gen, device=device,
+            dtype=torch.int64,
+        )
+        rows = [
+            torch.rand(
+                particulator.n_sd, generator=gen, device=device,
+                dtype=particulator.dtype,
+            )
+            for _ in purposes
+        ]
+        return bits, rows
 
     def _read(self, tensor):
         """a device value the host branches on (counted)"""
         self.host_reads += 1
         return tensor.item()
 
+    def _tally(self, iterations):
+        self.breakup_iterations += iterations
+
     def make_step(self, particulator):
-        max_names = particulator.sim_state["particles"].max_names
-        if max_names:
-            # the JAX package max-merges these rows in its XLA coalescence
-            # (``pysdm_tpu/ops/collisions.py:252``, ``coalesce(max_s=...)``)
-            raise NotImplementedError(
-                f"collisions of a state with max-merged rows {max_names} are"
-                " not ported yet: they come with coalescence with max-merged"
-                " rows (ROADMAP; morrison_and_grabowski_2007,"
-                " arabas_et_al_2025)"
-            )
         if self._uses_mirror():
             return self._make_mirror_step(particulator)
         return self._make_sorted_step(particulator)
@@ -263,6 +301,68 @@ class Collision:
             particles, dt_left = substep(particles, counters, dt_left)
         return particles
 
+    def _attr_names(self):
+        """the attributes a substep reads: the collision kernel's, and with
+        breakup those of Ec, Eb and the fragmentation function"""
+        names = set(self.collision_kernel.required_attributes)
+        if self.enable_breakup:
+            for role in (
+                "compute_coalescence_efficiency", "compute_breakup_efficiency",
+                "compute_number_of_fragments",
+            ):
+                names |= set(getattr(getattr(self, role), "required_attributes", ()))
+        return names
+
+    def _float64_update(
+        self, particles, counters, pairing, attrs_a, attrs_b, prob, rows,
+        cell_start, n_cell,
+    ):
+        """the float64 path's pair update: gamma, then coalescence (with the
+        max-merged rows) or bounce, coalescence and breakup"""
+        formulae = self.particulator.formulae
+        self.substeps_run += 1
+        gamma = coll_ops.compute_gamma(
+            prob, rows[0], particles.multiplicity, pairing, counters,
+            cell_start, n_cell,
+        )
+        if not self.enable_breakup:
+            has_max = bool(particles.max_names)
+            mult, ext, maximum = coll_ops.coalesce(
+                particles.multiplicity, particles.extensive, gamma, pairing,
+                counters=counters, cell_start=cell_start, n_cell=n_cell,
+                max_s=particles.maximum if has_max else None,
+            )
+            return particles.replace(
+                multiplicity=mult, extensive=ext,
+                maximum=maximum if has_max else particles.maximum,
+            )
+        _, fragment_mass = self.compute_number_of_fragments.pairwise(
+            formulae, attrs_a, attrs_b, rows[2]
+        )
+        mult, ext = breakup_ops.collision_coalescence_breakup(
+            mult_s=particles.multiplicity,
+            ext_s=particles.extensive,
+            ext_names=particles.ext_names,
+            gamma=gamma,
+            rand=rows[1],
+            Ec=self.compute_coalescence_efficiency.pairwise(
+                formulae, attrs_a, attrs_b
+            ),
+            Eb=self.compute_breakup_efficiency.pairwise(
+                formulae, attrs_a, attrs_b
+            ),
+            fragment_mass=fragment_mass,
+            pairing=pairing,
+            counters=counters,
+            max_multiplicity=self.max_multiplicity,
+            handle_all_breakups=formulae.handle_all_breakups,
+            cell_start=cell_start,
+            n_cell=n_cell,
+            read=self._read,
+            tally=self._tally,
+        )
+        return particles.replace(multiplicity=mult, extensive=ext)
+
     def _make_mirror_step(self, particulator):
         n_sd = particulator.n_sd
         dt = particulator.dt
@@ -271,38 +371,60 @@ class Collision:
         resolver = AttributeResolver(formulae)
         kernel = self.collision_kernel
         dt_range = self.dt_coal_range
+        route = self.route(particulator.sim_state["particles"])
+        n_rows = self._u01_rows(route)
         norm = coll_ops.mirror_normalization_factor(
             dt, particulator.mesh.dv, n_sd, ftype, particulator.device
         )
-        fixed_scale = (norm * (1.0 / self.substeps)).to(torch.float32)
-        if self.enable_breakup:
+        fixed_scale = norm * (1.0 / self.substeps)
+        if route == "k5":
             functions = PairFunctions.of(*(
                 getattr(self, role) for role, _ in _K5_FUNCTIONS
             ))
             row_names = required_rows(functions)
             counter_names = _BREAKUP_COUNTERS
-        else:
+        elif route == "k1":
             row_names = KERNEL_ROWS[kernel.kernel_id]
             counter_names = _RATE_COUNTERS
-        # every attribute a substep reads: the kernel's rows, and the
-        # collision kernel's own for the adaptive substep choice
-        attr_names = sorted(set(row_names) | set(kernel.required_attributes))
+        else:
+            row_names = ()
+            counter_names = _RATE_COUNTERS
+        # every attribute a substep reads: the kernel's rows and the
+        # collision kernel's own (the adaptive substep choice), or on K1a
+        # and the float64 path every collision function's
+        if route in ("k1", "k5"):
+            attr_names = set(row_names) | set(kernel.required_attributes)
+        else:
+            attr_names = self._attr_names()
+        attr_names = sorted(attr_names)
 
-        def collide(particles, counters, K, seed, scale, attrs):
+        def kernel_launch(particles, counters, draws, scale, attrs, values):
+            """one substep through K1, K1a or K5; ``values``: the collision
+            kernel at every slot's pair (K1a), ``scale``: the normalization
+            times the probability scale"""
+            K, seed, rows = draws
             self.substeps_run += 1
-            rows = {name: attrs[name].to(torch.float32) for name in row_names}
-            if self.enable_breakup:
-                mult, ext, *rates = coalesce_breakup_mirror(
+            if route == "rows":
+                mult, ext, *rates = coalesce_mirror_rows(
                     particles.multiplicity, particles.extensive,
-                    particles.ext_names.index("signed water mass"), rows,
-                    functions, scale, K, seed, self.max_multiplicity,
+                    (values * scale[0]).to(torch.float32),
+                    rows[0].to(torch.float32), K,
                 )
             else:
-                mult, ext, *rates = coalesce_mirror(
-                    particles.multiplicity, particles.extensive,
-                    torch.stack([rows[name] for name in row_names]),
-                    kernel.kernel_id, kernel.cuda_params, scale, K, seed,
-                )
+                rows32 = {name: attrs[name].to(torch.float32) for name in row_names}
+                scale32 = scale.to(torch.float32)
+                if route == "k5":
+                    mult, ext, *rates = coalesce_breakup_mirror(
+                        particles.multiplicity, particles.extensive,
+                        particles.ext_names.index("signed water mass"), rows32,
+                        functions, scale32, K, seed, self.max_multiplicity,
+                    )
+                else:
+                    mult, ext, *rates = coalesce_mirror(
+                        particles.multiplicity, particles.extensive,
+                        torch.stack([rows32[name] for name in row_names]),
+                        kernel.kernel_id, kernel.cuda_params, scale32, K, seed,
+                    )
             for name, total in zip(counter_names, rates):
                 counters[name] = coll_ops.accumulate_counter(
                     counters[name], total, counters
@@ -312,30 +434,47 @@ class Collision:
         def attributes(particles):
             return {name: resolver.get(particles, name) for name in attr_names}
 
-        def adaptive_substep(particles, counters, dt_left):
-            K, seed = self._draw_mirror(n_sd)
-            pairing = MirrorPairing(K, n_sd, particles.alive)
+        def substep(particles, counters, dt_left):
+            """one substep; ``dt_left`` None: the fixed substep"""
+            draws = self._draw_mirror(n_sd, n_rows)
+            pairing = MirrorPairing(draws[0], n_sd, particles.alive)
             attrs = attributes(particles)
-            kernel_values = kernel.pairwise(
-                formulae, attrs,
-                {name: pairing.partner(v) for name, v in attrs.items()},
-            )
-            prob = coll_ops.collision_probability(
-                kernel_values, particles.multiplicity, norm, pairing
-            )
-            (
-                dt_left, counters["collision_n_substep"], dt_todo,
-            ) = coll_ops.scale_prob_adaptive(
-                prob=prob,
-                mult_s=particles.multiplicity,
-                dt_left=dt_left,
-                dt=dt,
-                dt_range=dt_range,
-                stats_n_substep=counters["collision_n_substep"],
-                pairing=pairing,
-            )
-            scale = (norm * (dt_todo / dt)).to(torch.float32)
-            return collide(particles, counters, K, seed, scale, attrs), dt_left
+            values = attrs_b = prob = None
+            if dt_left is not None or route in ("rows", "float64"):
+                attrs_b = {name: pairing.partner(v) for name, v in attrs.items()}
+                values = kernel.pairwise(formulae, attrs, attrs_b).to(ftype)
+            if dt_left is not None or route == "float64":
+                prob = coll_ops.collision_probability(
+                    values, particles.multiplicity, norm, pairing
+                )
+            if dt_left is None:
+                scale = fixed_scale
+                if prob is not None:
+                    prob = prob * (1.0 / self.substeps)
+            else:
+                (
+                    dt_left, counters["collision_n_substep"], dt_todo,
+                ) = coll_ops.scale_prob_adaptive(
+                    prob=prob,
+                    mult_s=particles.multiplicity,
+                    dt_left=dt_left,
+                    dt=dt,
+                    dt_range=dt_range,
+                    stats_n_substep=counters["collision_n_substep"],
+                    pairing=pairing,
+                )
+                scale = norm * (dt_todo / dt)
+                prob = prob * dt_todo[0] / dt
+            if route == "float64":
+                particles = self._float64_update(
+                    particles, counters, pairing, attrs, attrs_b, prob,
+                    draws[2], None, 1,
+                )
+            else:
+                particles = kernel_launch(
+                    particles, counters, draws, scale, attrs, values
+                )
+            return particles, dt_left
 
         def step(sim):
             # spin-up gate (reference Arabas-2015 SpinUp flips enable)
@@ -345,14 +484,10 @@ class Collision:
             counters = dict(sim["counters"])
             if not self.adaptive:
                 for _ in range(self.substeps):
-                    K, seed = self._draw_mirror(n_sd)
-                    particles = collide(
-                        particles, counters, K, seed, fixed_scale,
-                        attributes(particles),
-                    )
+                    particles, _ = substep(particles, counters, None)
             else:
                 particles = self._adaptive_loop(
-                    particles, counters, 1, adaptive_substep
+                    particles, counters, 1, substep
                 )
             return {**sim, "particles": particles, "counters": counters}
 
@@ -361,33 +496,19 @@ class Collision:
     def _make_sorted_step(self, particulator):
         mesh = particulator.mesh
         n_cell = mesh.n_cell
-        n_sd = particulator.n_sd
         dt = particulator.dt
         ftype = particulator.dtype
-        device = particulator.device
         formulae = particulator.formulae
         resolver = AttributeResolver(formulae)
         kernel = self.collision_kernel
-        attr_names = sorted(kernel.required_attributes)
+        attr_names = sorted(self._attr_names())
         dt_range = self.dt_coal_range
-        nbits = seg_ops.rand_bits_for(n_cell)
         prob_scale = 1.0 / self.substeps
         sort_when_disabled = self._sort_when_disabled
+        route = self.route(particulator.sim_state["particles"])
+        n_rows = self._u01_rows(route)
 
-        def draws(sim):
-            """(shuffle bits or u01, gamma u01) for one substep"""
-            if self.u01_injection:
-                injected = sim["u01"]
-                return injected["collision_shuffle"], injected["collision_gamma"]
-            gen = particulator.device_rng
-            bits = torch.randint(
-                0, 2**nbits, (n_sd,), generator=gen, device=device,
-                dtype=torch.int64,
-            )
-            rand = torch.rand(n_sd, generator=gen, device=device, dtype=ftype)
-            return bits, rand
-
-        def substep(particles, counters, dt_left, shuffle, rand):
+        def substep(particles, counters, dt_left, shuffle, rows):
             (
                 particles, sorted_cell, cell_start, is_first,
             ) = seg_ops.bucket_shuffle_state(particles, shuffle, n_cell, mesh)
@@ -396,11 +517,13 @@ class Collision:
             attrs_b = {name: seg_ops.pair_roll(v) for name, v in attrs_a.items()}
             kernel_values = kernel.pairwise(formulae, attrs_a, attrs_b).to(ftype)
             norm = coll_ops.normalization_factor(cell_start, dt, mesh.dv, ftype)
-            if self.adaptive:
+            prob = None
+            if self.adaptive or route == "float64":
                 prob = coll_ops.collision_probability(
                     kernel_values, particles.multiplicity, norm, pairing,
                     sorted_cell,
                 )
+            if self.adaptive:
                 (
                     dt_left, counters["collision_n_substep"], dt_todo,
                 ) = coll_ops.scale_prob_adaptive(
@@ -415,12 +538,22 @@ class Collision:
                     n_cell=n_cell,
                 )
                 cell_scale = norm * (dt_todo / dt)
+                if prob is not None:
+                    prob = prob * coll_ops.at_slots(dt_todo, sorted_cell) / dt
             else:
                 cell_scale = norm * prob_scale
+                if prob is not None:
+                    prob = prob * prob_scale
+            if route == "float64":
+                particles = self._float64_update(
+                    particles, counters, pairing, attrs_a, attrs_b, prob,
+                    rows, cell_start, n_cell,
+                )
+                return particles, dt_left
             kernnorm = kernel_values * coll_ops.at_slots(cell_scale, sorted_cell)
             self.substeps_run += 1
             mult, ext, rate, deficit, _ = coalesce_adjacent(
-                particles.multiplicity, particles.extensive, kernnorm, rand,
+                particles.multiplicity, particles.extensive, kernnorm, rows[0],
                 is_first,
             )
             # the coalescence rate equals the collision rate in a
@@ -436,7 +569,9 @@ class Collision:
             return particles.replace(multiplicity=mult, extensive=ext), dt_left
 
         def adaptive_substep(particles, counters, dt_left):
-            return substep(particles, counters, dt_left, *draws(None))
+            return substep(
+                particles, counters, dt_left, *self._draw_sorted(None, n_rows)
+            )
 
         def step(sim):
             if not sim["flags"]["collision_enable"]:
@@ -453,7 +588,8 @@ class Collision:
             if not self.adaptive:
                 for _ in range(self.substeps):
                     particles, _ = substep(
-                        particles, counters, None, *draws(sim)
+                        particles, counters, None,
+                        *self._draw_sorted(sim, n_rows),
                     )
             else:
                 particles = self._adaptive_loop(

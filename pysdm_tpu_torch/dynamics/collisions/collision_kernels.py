@@ -4,19 +4,21 @@
 
 Each kernel has ``pairwise(formulae, attrs_a, attrs_b)`` over tensors. On
 the multi-cell path its values feed K2 as a row; on the single-cell path
-the adaptive substep choice reads them, and the kernel is evaluated again
-in the body of K1 or K5 (``csrc/sdm_pair.cuh`` ``kernel_value``) from its
-``kernel_id``, two float parameters, ``cuda_params``, and the attribute
-rows ``ops/cuda/collision.py`` ``KERNEL_ROWS`` names.
+the adaptive substep choice reads them, and the kernels with a
+``kernel_id`` are evaluated again in the body of K1 or K5
+(``csrc/sdm_pair.cuh`` ``kernel_value``) from two float parameters,
+``cuda_params``, and the attribute rows ``ops/cuda/collision.py``
+``KERNEL_ROWS`` names. ``Parameterized`` and its Berry 1967 variants
+``Hydrodynamic`` and ``Electric`` have none: their values reach K1a
+(``coalesce_mirror_rows``) as a row, as the JAX package's reach its
+``fused_coalesce_mirror``.
 """
 
 import numpy as np
 import torch
 from scipy import special
 
-from ...ops.cuda.breakup import (  # noqa: F401 (the reference's name here)
-    berry_1967_linear_collection_efficiency,
-)
+from ...ops.cuda.breakup import berry_1967_linear_collection_efficiency
 from ...ops.cuda.collision import (
     CONSTANT_K,
     GEOMETRIC,
@@ -151,3 +153,45 @@ class SimpleGeometric:
         r_sum = attrs_a["radius"] + attrs_b["radius"]
         d_area = torch.abs(attrs_a["area"] - attrs_b["area"])
         return self.C * r_sum**2 * d_area
+
+
+class Parameterized:
+    """gravitational kernel with a Berry 1967 parameterized efficiency:
+    K = pi (Y r_max)^2 |v_t - v_t'|
+    (reference ``collision_kernels/impl/parameterized.py``)"""
+
+    required_attributes = ("radius", "relative fall velocity")
+
+    def __init__(self, params):
+        self.params = params
+
+    def register(self, builder):
+        builder.request_attribute("radius")
+        builder.request_attribute("relative fall velocity")
+
+    def pairwise(self, formulae, attrs_a, attrs_b):
+        r_big = torch.maximum(attrs_a["radius"], attrs_b["radius"])
+        r_small = torch.minimum(attrs_a["radius"], attrs_b["radius"])
+        Y = berry_1967_linear_collection_efficiency(self.params, r_big, r_small)
+        dv = torch.abs(
+            attrs_a["relative fall velocity"] - attrs_b["relative fall velocity"]
+        )
+        return np.pi * (Y * r_big) ** 2 * dv
+
+
+class Hydrodynamic(Parameterized):
+    """Berry 1967 hydrodynamic-capture kernel (reference hydrodynamic.py)"""
+
+    def __init__(self):
+        super().__init__(
+            (1, 1, -27, 1.65, -58, 1.9, 15, 1.13, 16.7, 1, 0.004, 4, 8)
+        )
+
+
+class Electric(Parameterized):
+    """3000 V/cm electric-field kernel (Berry 1967; reference electric.py)"""
+
+    def __init__(self):
+        super().__init__(
+            (1, 1, -7, 1.78, -20.5, 1.73, 0.26, 1.47, 1, 0.82, -0.003, 4.4, 8)
+        )

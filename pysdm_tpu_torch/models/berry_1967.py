@@ -2,9 +2,11 @@
 ``pysdm_tpu/models/berry_1967.py``; reference
 ``examples/PySDM_examples/Berry_1967/settings.py`` + ``example.py``): the
 geometric collision kernel with a terminal-velocity variant, an
-exponential initial spectrum. The collision substep is K1
+exponential initial spectrum; ``settings.kernel`` may be set to the
+hydrodynamic or electric-field kernels (``Hydrodynamic``, ``Electric``), as
+in the reference example. The collision substep is K1
 (``ops/cuda/collision.py``), which evaluates the geometric kernel in its
-body.
+body, or K1a, which takes the Berry kernels' values as a row.
 
 ``run`` builds on the ``GPU`` backend unless the caller passes
 ``backend_class=CPU`` (the JAX package defaults to its ``CPU``)."""

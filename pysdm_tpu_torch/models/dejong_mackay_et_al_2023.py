@@ -4,7 +4,10 @@ reference ``examples/PySDM_examples/deJong_Mackay_et_al_2023/
 settings_0D.py`` + ``simulation_0D.py``): geometric collision kernel,
 Berry-1967 coalescence efficiency, constant breakup efficiency, exponential
 fragmentation, dv/dlnr + number spectra and collision/coalescence/breakup
-rate products. The collision substep is K5 (``ops/cuda/breakup.py``).
+rate products. The collision substep is K5 (``ops/cuda/breakup.py``) with
+these functions, and the float64 breakup path (``ops/breakup.py``) with the
+paper's others (``Settings0D(fragmentation=Straub2010Nf(...))`` with
+``coal_eff = Straub2010Ec()``) or ``handle_all_breakups``.
 
 ``run_box_breakup`` builds on the ``GPU`` backend unless the caller passes
 ``backend_class=CPU`` (the JAX package defaults to its ``CPU``)."""

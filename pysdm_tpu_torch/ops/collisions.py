@@ -3,11 +3,22 @@
 multi-cell (sorted-segment) branches.
 
 The pair update itself (gamma draw, capping and the Shima update) is a
-kernel of ``ops/cuda/collision.py`` (K1 or K2); these are the plain tensor
-ops around it: the normalization factor, the adaptive substep choice and
-the counter accumulation. Per-cell sums and minima run over the
-cell-sorted slots of the sort croupier (``ops/segments.py``); a
-``sorted_cell`` of None selects the single-cell branch.
+kernel of ``ops/cuda/collision.py`` (K1, K1a or K2) where the JAX package
+takes a Pallas kernel; these are the plain tensor ops around it: the
+normalization factor, the adaptive substep choice and the counter
+accumulation. Per-cell sums and minima run over the cell-sorted slots of
+the sort croupier (``ops/segments.py``); a ``sorted_cell`` (or
+``cell_start``) of None selects the single-cell branch.
+
+Where the JAX package takes its XLA ops instead (collisions with breakup
+outside K5, a state with max-merged rows, u01-injected breakup), the pair
+update is ``compute_gamma`` and ``coalesce`` below (then ``ops/breakup.py``)
+on either pairing (``ops/pairing.py``), in the state's float dtype. gamma is
+capped by an exact int64 division here; the JAX package walks an f32
+quotient estimate +-5 steps (``capped_floor_div``), which misses the exact
+floor when floor(xi_j/xi_k) is above ~2^26 and below the cap (ROADMAP,
+"large-quotient gamma"). The per-cell rate sums run in float32 through K4
+(``per_cell_rates``), as the JAX package sums them in float32.
 
 Conventions: within a pair, ``j`` is the particle with the not-smaller
 multiplicity, ``k`` the other (reference ``pair_methods.py:127-140``).
@@ -98,12 +109,123 @@ def per_cell_rates(values, cell_start, n_cell):
 def accumulate_counter(counter, total, counters):
     """add one substep's float32 sums ``total`` (a 0-d tensor for one cell,
     else one per cell) to a rate counter, and record the largest per-step
-    sum in ``counters["rate_step_sum_max"]`` (sums past 2^24 are no longer
-    exact in float32; the reference accumulates exactly via int64 atomics)"""
+    sum in ``counters["rate_step_sum_max"]``, where that slot exists (sums
+    past 2^24 are no longer exact in float32; the reference accumulates
+    exactly via int64 atomics)"""
     s = total.reshape(-1)
-    counters["rate_step_sum_max"] = torch.maximum(
-        counters["rate_step_sum_max"], s.max()[None]
-    )
+    if "rate_step_sum_max" in counters:
+        counters["rate_step_sum_max"] = torch.maximum(
+            counters["rate_step_sum_max"], s.max()[None]
+        )
     if counter.dtype.is_floating_point:
         return counter + s.to(counter.dtype)
     return counter + torch.round(s).to(counter.dtype)
+
+
+def add_rates(counters, name, values, cell_start=None, n_cell=1):
+    """add the float32 sums of a per-slot rate row (zero off the pair
+    leaders) to ``counters[name]``: one sum for a single cell
+    (``cell_start`` None), else one per cell over the sorted slots (K4)"""
+    if cell_start is None:
+        total = values.to(torch.float32).sum()
+    else:
+        total = per_cell_rates(values, cell_start, n_cell)
+    counters[name] = accumulate_counter(counters[name], total, counters)
+
+
+# gamma's float estimate is clamped here before its cast to int64; any
+# admissible quotient xi_j / xi_k is far below it
+_GAMMA_F_MAX = 2.0**62
+
+
+def compute_gamma(
+    prob, rand, mult_s, pairing, counters=None, cell_start=None, n_cell=1
+):
+    """gamma = ceil(prob - rand), capped at floor(xi_j / xi_k), at pair
+    leaders (reference ``collisions_methods.py:522-560``); adds the
+    collision rate and its deficit to ``counters`` when given. Returns
+    gamma in the multiplicities' dtype."""
+    is_first = pairing.is_first
+    gamma_f = torch.ceil(prob - rand).clamp_min(0.0)
+    gamma_f = torch.where(is_first, gamma_f, 0.0)
+    mult_p = pairing.partner(mult_s)
+    mj = torch.maximum(mult_s, mult_p)
+    mk = torch.minimum(mult_s, mult_p)
+    cap = gamma_f.clamp_max(_GAMMA_F_MAX).to(mult_s.dtype)
+    gamma = torch.minimum(cap, mj // mk.clamp_min(1))
+    gamma = torch.where(is_first, gamma, 0)
+    if counters is not None:
+        rate = gamma.to(torch.float32) * mk.to(torch.float32)
+        deficit = (gamma_f - gamma.to(gamma_f.dtype)) * mk.to(gamma_f.dtype)
+        for name, row in (
+            ("collision_rate", rate), ("collision_rate_deficit", deficit),
+        ):
+            add_rates(
+                counters, name, torch.where(is_first, row, 0.0), cell_start,
+                n_cell,
+            )
+    return gamma
+
+
+def coalesce(
+    mult_s, ext_s, gamma, pairing, mask=None, counters=None, cell_start=None,
+    n_cell=1, max_s=None,
+):
+    """Shima 2009 coalescence update (reference
+    ``collisions_methods.py:45-59``) of the pairs in ``mask`` (default: every
+    pair leader): xi_j -= gamma xi_k and extensive_k += gamma extensive_j;
+    when xi_j hits 0 the j droplet takes half of k's multiplicity and k's
+    attributes. Max-merged rows (``max_s``, the freezing records) take the
+    pair's ``fmax`` where k absorbed anything (NaN is "not recorded" and
+    loses to a value), and both halves in a split, as the JAX package's
+    ``coalesce`` does (``pysdm_tpu/ops/collisions.py:252-326``; the
+    reference leaves them unwired, TODO #594). Adds the coalescence rate to
+    ``counters`` when given. Returns (mult, ext, max_s), max_s None when
+    none was given."""
+    mask = pairing.is_first if mask is None else mask
+    a_m, b_m = mult_s, pairing.partner(mult_s)
+    a_e, b_e = ext_s, pairing.partner(ext_s, axis=1)
+
+    j_is_a = a_m >= b_m
+    mj = torch.where(j_is_a, a_m, b_m)
+    mk = torch.where(j_is_a, b_m, a_m)
+    ej = torch.where(j_is_a[None, :], a_e, b_e)
+    ek = torch.where(j_is_a[None, :], b_e, a_e)
+
+    g = torch.where(mask, gamma, 0)
+    gf = g.to(ext_s.dtype)
+    new_n = mj - g * mk
+    split = mask & (new_n == 0) & (g > 0)
+    mk_half = mk // 2
+    mj_new = torch.where(split, mk_half, new_n)
+    mk_new = torch.where(split, mk - mk_half, mk)
+    # k absorbs g copies of j; in a split both slots take the merged values
+    ek_new = ek + gf[None, :] * ej
+    ej_new = torch.where(split[None, :], ek_new, ej)
+
+    if counters is not None:
+        coal = g.to(torch.float32) * mk.to(torch.float32)
+        add_rates(
+            counters, "coalescence_rate", torch.where(mask, coal, 0.0),
+            cell_start, n_cell,
+        )
+
+    a_m_new = torch.where(j_is_a, mj_new, mk_new)
+    b_m_new = torch.where(j_is_a, mk_new, mj_new)
+    a_e_new = torch.where(j_is_a[None, :], ej_new, ek_new)
+    b_e_new = torch.where(j_is_a[None, :], ek_new, ej_new)
+    mult_out = pairing.merge(mult_s, a_m_new, b_m_new, mask)
+    ext_out = pairing.merge(ext_s, a_e_new, b_e_new, mask, axis=1)
+    if max_s is None:
+        return mult_out, ext_out, None
+
+    a_x, b_x = max_s, pairing.partner(max_s, axis=1)
+    xj = torch.where(j_is_a[None, :], a_x, b_x)
+    xk = torch.where(j_is_a[None, :], b_x, a_x)
+    merged_x = torch.fmax(xj, xk)
+    xk_new = torch.where((g > 0)[None, :], merged_x, xk)
+    xj_new = torch.where(split[None, :], merged_x, xj)
+    a_x_new = torch.where(j_is_a[None, :], xj_new, xk_new)
+    b_x_new = torch.where(j_is_a[None, :], xk_new, xj_new)
+    max_out = pairing.merge(max_s, a_x_new, b_x_new, mask, axis=1)
+    return mult_out, ext_out, max_out

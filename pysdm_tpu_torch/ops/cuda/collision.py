@@ -1,6 +1,6 @@
 """SDM coalescence substeps: the Hopper kernels ``csrc/collision_mirror.cu``
-(K1, one cell) and ``csrc/collision_adjacent.cu`` (K2, many cells), their
-wrappers and their plain PyTorch twins.
+(K1 and K1a, one cell) and ``csrc/collision_adjacent.cu`` (K2, many
+cells), their wrappers and their plain PyTorch twins.
 
 K1 replaces the TPU kernel ``fused_coalesce_mirror_blocks``
 (``pysdm_tpu/ops/pallas/collision.py:582``, body ``_mk_mirror_block_kernel``
@@ -31,6 +31,19 @@ blocks' partials in a fixed order). Bound on the card: bytes, 32 + 4 n_attr
 B per slot per substep with two float32 extensive rows (each input read
 once, each output written once): 36 B with Golovin's one attribute row, 40 B
 with the geometric kernels' two.
+
+K1a replaces the TPU kernel ``fused_coalesce_mirror``
+(``pysdm_tpu/ops/pallas/collision.py:317``, body
+``_coalesce_kernel_mirror`` ``:220``): the same substep for the collision
+kernels K1 has no body for (``Parameterized``, ``Hydrodynamic``,
+``Electric``), with the kernel value times the normalization and the
+probability scale (``kernnorm``) and the gamma draw (``u01``) given as float32
+rows and read at the pair's leader, the smaller slot. It is K1's pair
+update, instantiated without the kernel's evaluation and the PRF, one thread
+per pair and one launch, with an exact int64 gamma and the TPU kernel's
+f32 conversions of xi, so that it is bit-equal to the TPU kernel wherever
+that kernel's quotient walk is exact. Bound on the card: bytes, 24 + 8 R B
+per slot with R float32 extensive rows.
 
 K2 replaces the TPU kernel ``fused_coalesce``
 (``pysdm_tpu/ops/pallas/collision.py:721``, body ``_coalesce_kernel``
@@ -144,12 +157,11 @@ def kernel_value(kernel_id, p0, p1, attrs, attrs_b):
     return p0 + p1 * (va + vb)  # LINEAR
 
 
-def coalesce_mirror_reference(
-    mult, ext, attr, kernel_id, params, scale, K, seed
-):
-    """plain PyTorch twin of the CUDA kernel (same function, same f32
-    rounding order). Returns (mult_new, ext_new, rate, deficit, coal) with
-    the rates as 0-d float32 sums."""
+def _mirror_update(mult, ext, K, pair_draws):
+    """the mirror substep of K1 and K1a at every slot, from that slot's view
+    of its pair; ``pair_draws(o, po)`` gives each slot its pair's float32
+    kernel x norm x scale and u01. Returns (mult_new, ext_new, rate,
+    deficit, coal) with the rates as 0-d float32 sums."""
     n = mult.shape[0]
     o = torch.arange(n, dtype=torch.int64, device=mult.device)
     po = torch.remainder(int(K) - o, n)
@@ -161,10 +173,7 @@ def coalesce_mirror_reference(
     mj = torch.where(a_is_j, a, b)
     mk = torch.where(a_is_j, b, a)
 
-    attrs = dict(zip(KERNEL_ROWS[kernel_id], attr))
-    attrs_b = {name: row[po] for name, row in attrs.items()}
-    kn = kernel_value(kernel_id, *params, attrs, attrs_b) * scale
-    u = _u01_hash(seed, torch.minimum(o, po))
+    kn, u = pair_draws(o, po)
     gamma_f = torch.ceil(_u64_to_f32(mj) * kn - u).clamp_min(0.0)
     gamma_f = torch.where(in_pair, gamma_f, 0.0)
     cap = gamma_f.clamp_max(_BIG).to(torch.int64)
@@ -193,15 +202,52 @@ def coalesce_mirror_reference(
     return mult_new, ext_new, rate, deficit, rate.clone()
 
 
-def _check(mult, ext, attr, kernel_id, scale, K, seed):
+def coalesce_mirror_reference(
+    mult, ext, attr, kernel_id, params, scale, K, seed
+):
+    """plain PyTorch twin of K1 (same function, same f32 rounding order).
+    Returns (mult_new, ext_new, rate, deficit, coal) with the rates as 0-d
+    float32 sums."""
+
+    def pair_draws(o, po):
+        attrs = dict(zip(KERNEL_ROWS[kernel_id], attr))
+        attrs_b = {name: row[po] for name, row in attrs.items()}
+        kn = kernel_value(kernel_id, *params, attrs, attrs_b) * scale
+        return kn, _u01_hash(seed, torch.minimum(o, po))
+
+    return _mirror_update(mult, ext, K, pair_draws)
+
+
+def coalesce_mirror_rows_reference(mult, ext, kernnorm, u01, K):
+    """plain PyTorch twin of K1a (``fused_coalesce_mirror``'s function, same
+    f32 rounding order, exact gamma). Returns (mult_new, ext_new, rate,
+    deficit, coal) with the rates as 0-d float32 sums."""
+
+    def pair_draws(o, po):
+        lead = torch.minimum(o, po)
+        return kernnorm[lead], u01[lead]
+
+    return _mirror_update(mult, ext, K, pair_draws)
+
+
+def _check_state(mult, ext, K):
     n = mult.shape[0]
-    device = mult.device
     if mult.dtype != torch.int64 or mult.dim() != 1:
         raise TypeError("mult: int64 (n,) expected")
     if ext.dim() != 2 or ext.shape[1] != n or ext.dtype not in (
         torch.float32, torch.float64
     ):
         raise TypeError("ext: float32/float64 (n_ext, n) expected")
+    if ext.device != mult.device:
+        raise ValueError(f"ext is on {ext.device}, mult on {mult.device}")
+    if not 0 <= int(K) < n:
+        raise ValueError(f"K={K} outside [0, {n})")
+
+
+def _check(mult, ext, attr, kernel_id, scale, K, seed):
+    n = mult.shape[0]
+    device = mult.device
+    _check_state(mult, ext, K)
     if kernel_id not in MIRROR_KERNELS:
         raise ValueError(f"unknown collision kernel id {kernel_id}")
     n_attr = len(KERNEL_ROWS[kernel_id])
@@ -212,11 +258,9 @@ def _check(mult, ext, attr, kernel_id, scale, K, seed):
         )
     if scale.dtype != torch.float32 or scale.shape != (1,):
         raise TypeError("scale: float32 (1,) expected")
-    for name, t in (("ext", ext), ("attr", attr), ("scale", scale)):
+    for name, t in (("attr", attr), ("scale", scale)):
         if t.device != device:
             raise ValueError(f"{name} is on {t.device}, mult on {device}")
-    if not 0 <= int(K) < n:
-        raise ValueError(f"K={K} outside [0, {n})")
     if not 0 <= int(seed) <= _M32:
         raise ValueError(f"seed={seed} is not a uint32")
 
@@ -257,6 +301,11 @@ def library():
         ctypes.c_longlong, ctypes.c_uint, vp, vp, vp, vp, vp,
     ]
     lib.pysdm_coalesce_mirror.restype = ctypes.c_int
+    lib.pysdm_coalesce_mirror_rows.argtypes = [
+        vp, vp, ctypes.c_int, ctypes.c_int, vp, vp, ctypes.c_longlong,
+        ctypes.c_longlong, vp, vp, vp, vp, vp,
+    ]
+    lib.pysdm_coalesce_mirror_rows.restype = ctypes.c_int
     lib.pysdm_coalesce_mirror_scratch_bytes.argtypes = [ctypes.c_longlong]
     lib.pysdm_coalesce_mirror_scratch_bytes.restype = ctypes.c_longlong
     lib.pysdm_cuda_error_string.argtypes = [ctypes.c_int]
@@ -264,12 +313,15 @@ def library():
     return lib
 
 
-def _launch(mult, ext, attr, kernel_id, params, scale, K, seed):
+def _launch_mirror(mult, ext, entry):
+    """launch ``entry(lib, mult, ext, mult_out, ext_out, scratch, sums,
+    stream)``, K1's or K1a's C entry point, with their shared scratch (the
+    two take the same grid, and launches on one stream never overlap).
+    Returns (mult_out, ext_out, rate, deficit, coal)."""
     lib = library()
     n = mult.shape[0]
     mult = mult.contiguous()
     ext = ext.contiguous()
-    attr = attr.contiguous()
     mult_out = torch.empty_like(mult)
     ext_out = torch.empty_like(ext)
     sums = torch.empty(3, dtype=torch.float32, device=mult.device)
@@ -280,18 +332,68 @@ def _launch(mult, ext, attr, kernel_id, params, scale, K, seed):
             lambda: lib.pysdm_coalesce_mirror_scratch_bytes(n), mult.device,
             _SCRATCH_ENTRIES,
         )[0]
-        err = lib.pysdm_coalesce_mirror(
-            mult.data_ptr(), ext.data_ptr(), int(ext.dtype == torch.float64),
-            ext.shape[0], attr.data_ptr(), attr.shape[0], int(kernel_id),
-            float(params[0]), float(params[1]), scale.data_ptr(), n, int(K),
-            int(seed), mult_out.data_ptr(), ext_out.data_ptr(),
-            scratch.data_ptr(), sums.data_ptr(), stream,
-        )
+        err = entry(lib, mult, ext, mult_out, ext_out, scratch, sums, stream)
     if err != 0:
         msg = lib.pysdm_cuda_error_string(err).decode()
         raise RuntimeError(f"collision_mirror launch failed: {msg} ({err})")
-    coalesce_mirror.launches += 1
     return mult_out, ext_out, sums[0], sums[1], sums[2]
+
+
+def _launch(mult, ext, attr, kernel_id, params, scale, K, seed):
+    attr = attr.contiguous()
+
+    def entry(lib, mult, ext, mult_out, ext_out, scratch, sums, stream):
+        return lib.pysdm_coalesce_mirror(
+            mult.data_ptr(), ext.data_ptr(), int(ext.dtype == torch.float64),
+            ext.shape[0], attr.data_ptr(), attr.shape[0], int(kernel_id),
+            float(params[0]), float(params[1]), scale.data_ptr(),
+            mult.shape[0], int(K), int(seed), mult_out.data_ptr(),
+            ext_out.data_ptr(), scratch.data_ptr(), sums.data_ptr(), stream,
+        )
+
+    out = _launch_mirror(mult, ext, entry)
+    coalesce_mirror.launches += 1
+    return out
+
+
+def coalesce_mirror_rows(mult, ext, kernnorm, u01, K):
+    """K1a: one mirror-croupier coalescence substep with the kernel values
+    given. CPU tensors take the plain twin; CUDA tensors launch the Hopper
+    kernel (or raise). Returns (mult_new, ext_new, rate, deficit, coal) with
+    0-d float32 rate sums.
+
+    mult: int64 (n,); ext: (n_ext, n) float32/float64; kernnorm: float32
+    (n,), the collision kernel of each slot's pair times the normalization
+    and the substep's probability scale; u01: float32 (n,), the gamma
+    draws; both read at each pair's leader, the smaller slot; K in [0, n)."""
+    _check_state(mult, ext, K)
+    n = mult.shape[0]
+    for name, t in (("kernnorm", kernnorm), ("u01", u01)):
+        if t.dtype != torch.float32 or t.shape != (n,):
+            raise TypeError(f"{name}: float32 ({n},) expected")
+        if t.device != mult.device:
+            raise ValueError(f"{name} is on {t.device}, mult on {mult.device}")
+    if mult.device.type == "cpu":
+        return coalesce_mirror_rows_reference(mult, ext, kernnorm, u01, K)
+    if mult.device.type != "cuda":
+        raise ValueError(f"no kernel for device {mult.device}")
+    kernnorm = kernnorm.contiguous()
+    u01 = u01.contiguous()
+
+    def entry(lib, mult, ext, mult_out, ext_out, scratch, sums, stream):
+        return lib.pysdm_coalesce_mirror_rows(
+            mult.data_ptr(), ext.data_ptr(), int(ext.dtype == torch.float64),
+            ext.shape[0], kernnorm.data_ptr(), u01.data_ptr(), n, int(K),
+            mult_out.data_ptr(), ext_out.data_ptr(), scratch.data_ptr(),
+            sums.data_ptr(), stream,
+        )
+
+    out = _launch_mirror(mult, ext, entry)
+    coalesce_mirror_rows.launches += 1
+    return out
+
+
+coalesce_mirror_rows.launches = 0
 
 
 def coalesce_adjacent_reference(mult, ext, kernnorm, rand, is_first):

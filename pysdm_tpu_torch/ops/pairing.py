@@ -15,9 +15,18 @@ and dead slots (multiplicity 0) are masked out of ``is_first``.
 
 The JAX package reads the partner as ``roll(flip(x), K + 1)``; here the
 partner index is computed directly and read with a gather.
+
+Both have ``merge(orig, a_new, b_new, mask, axis)``: the float64 collision
+path (``ops/collisions.py`` ``coalesce``, ``ops/breakup.py``) computes a
+pair's new values at its leader slot, ``a_new`` for the leader and
+``b_new`` for its partner, and ``merge`` writes them back to both slots.
 """
 
 import torch
+
+
+def _bcast(mask, axis):
+    return mask if axis == 0 else mask[None, :]
 
 
 class AdjacentPairing:
@@ -31,6 +40,17 @@ class AdjacentPairing:
         """partner value at leader slots (slot p sees p + 1; garbage at the
         other slots, which every use masks by ``is_first``)"""
         return torch.roll(x, -1, dims=axis)
+
+    @staticmethod
+    def merge(orig, a_new, b_new, mask, axis=0):
+        """slot p gets a_new[p] if it leads a pair (mask[p]), b_new[p - 1]
+        if it trails one, else orig[p]"""
+        mask_prev = torch.roll(mask, 1)
+        b_prev = torch.roll(b_new, 1, dims=axis)
+        return torch.where(
+            _bcast(mask, axis), a_new,
+            torch.where(_bcast(mask_prev, axis), b_prev, orig),
+        )
 
 
 class MirrorPairing:
@@ -48,3 +68,14 @@ class MirrorPairing:
         """value of the pair partner at EVERY slot:
         partner(x)[o] = x[(K - o) mod N]"""
         return x.index_select(axis, self.partner_index)
+
+    def merge(self, orig, a_new, b_new, mask, axis=0):
+        """leader slots (mask) take a_new; their partners take b_new read
+        through the involution; the other slots (fixed points among them)
+        keep orig"""
+        second_val = self.partner(b_new, axis=axis)
+        second_mask = self.partner(mask)
+        return torch.where(
+            _bcast(mask, axis), a_new,
+            torch.where(_bcast(second_mask, axis), second_val, orig),
+        )

@@ -350,16 +350,23 @@ def _berry(package):
 
 
 def _replay_jax_draws(particulator, key):
-    """the port draws the (K, seed) pairs the JAX collision substeps draw
-    from ``key`` on"""
+    """the port draws what the JAX collision substeps draw from ``key`` on:
+    K, the PRF seed and the u01 rows of the key chain (gamma, process,
+    fragment)"""
     state = {"key": key}
 
-    def draw_mirror(n_sd):
-        key, k_sh, k_gam, _, _ = jax.random.split(state["key"], 5)
+    def draw_mirror(n_sd, n_rows=0):
+        key, k_sh, k_gam, k_proc, k_frag = jax.random.split(state["key"], 5)
         state["key"] = key
         K = jax.random.randint(k_sh, (), 0, n_sd, dtype=jnp.int32)
         seed = jax.random.bits(k_gam, (), jnp.uint32)
-        return int(K), int(seed)
+        rows = [
+            torch.from_numpy(np.asarray(
+                jax.random.uniform(k, (n_sd,), dtype=jnp.float64)
+            ))
+            for k in (k_gam, k_proc, k_frag)[:n_rows]
+        ]
+        return int(K), int(seed), rows
 
     particulator.dynamics["Collision"]._draw_mirror = draw_mirror
 

@@ -51,7 +51,9 @@ from pysdm_tpu_torch.initialisation.sampling.spectral_sampling import (
 )
 from pysdm_tpu_torch.models import dejong_mackay_et_al_2023 as port_model
 from pysdm_tpu_torch.ops import moments as port_moments
+from pysdm_tpu_torch.ops.cuda import collision as port_collision
 from pysdm_tpu_torch.physics import si
+from test_torch_general_collision import assert_same, build_pair
 
 N_SD = 2**15
 COUNTERS = (
@@ -96,16 +98,23 @@ def _port_box(adaptive, dt, n_sd=N_SD):
 
 
 def _replay_jax_draws(particulator, key):
-    """feed the port the (K, seed) pairs the JAX collision substeps draw
-    from ``key`` on (the same 5-way split as the coalescence box)"""
+    """the port draws what the JAX collision substeps draw from ``key`` on:
+    K, the PRF seed and the u01 rows of the key chain (gamma, process,
+    fragment)"""
     state = {"key": key}
 
-    def draw_mirror(n_sd):
-        key, k_sh, k_gam, _, _ = jax.random.split(state["key"], 5)
+    def draw_mirror(n_sd, n_rows=0):
+        key, k_sh, k_gam, k_proc, k_frag = jax.random.split(state["key"], 5)
         state["key"] = key
         K = jax.random.randint(k_sh, (), 0, n_sd, dtype=jnp.int32)
         seed = jax.random.bits(k_gam, (), jnp.uint32)
-        return int(K), int(seed)
+        rows = [
+            torch.from_numpy(np.asarray(
+                jax.random.uniform(k, (n_sd,), dtype=jnp.float64)
+            ))
+            for k in (k_gam, k_proc, k_frag)[:n_rows]
+        ]
+        return int(K), int(seed), rows
 
     particulator.dynamics["Collision"]._draw_mirror = draw_mirror
 
@@ -318,73 +327,118 @@ def test_collision_mixed_coalescence_breakup():
     assert (particulator.attributes["multiplicity"] >= 0).all()
 
 
-class _CustomFragmentation:
-    """a fragmentation function K5 has no body for"""
+def _breakup_of(frag=None, **kwargs):
+    """a breakup dynamic of either package (``lib``: a namespace of its
+    modules, ``test_torch_general_collision.JAX`` or ``PORT``)"""
 
-    required_attributes = ("water mass",)
+    def dynamic_of(lib):
+        fragmentation = (
+            lib.frag.Feingold1988(scale=4 / 3 * np.pi * (100e-6) ** 3)
+            if frag == "Feingold1988" else lib.frag.AlwaysN(2)
+        )
+        return lib.dynamics.Collision(
+            collision_kernel=lib.kernels.Geometric(),
+            coalescence_efficiency=lib.ec.ConstEc(0.5),
+            breakup_efficiency=lib.eb.ConstEb(1.0),
+            fragmentation_function=fragmentation, **kwargs,
+        )
 
-    def register(self, builder):
-        pass
-
-
-def _breakup(**kwargs):
-    return Collision(
-        collision_kernel=Geometric(), coalescence_efficiency=ConstEc(0.5),
-        breakup_efficiency=ConstEb(1.0),
-        fragmentation_function=kwargs.pop("frag", AlwaysN(2)), **kwargs,
-    )
+    return dynamic_of
 
 
 @pytest.mark.parametrize(
-    "changes, handle_all_breakups, u01_injection, match",
+    "changes, handle_all_breakups, u01_injection",
     (
-        ({"frag": _CustomFragmentation()}, False, False, "no body in K5"),
-        ({}, True, False, "handle_all_breakups"),
-        ({"croupier": "sort"}, False, False, "sort croupier"),
-        ({"adaptive": False}, False, True, "sort croupier"),
+        ({"frag": "Feingold1988"}, False, False),
+        ({}, True, False),
+        ({"croupier": "sort"}, False, False),
+        ({"adaptive": False}, False, True),
     ),
     ids=("function", "handle_all_breakups", "croupier-sort", "u01-injection"),
 )
 def test_register_refuses_what_k5_does_not_run(
-    changes, handle_all_breakups, u01_injection, match
+    changes, handle_all_breakups, u01_injection
 ):
-    """breakup runs only where the JAX package takes K5; the rest needs its
-    float64 breakup path, which is not ported"""
-    formulae = pysdm_tpu_torch.Formulae(handle_all_breakups=handle_all_breakups)
-    builder = pysdm_tpu_torch.Builder(
-        n_sd=64, backend=CPU(formulae), environment=Box(dt=1.0, dv=1.0)
+    """what K5 does not run (a function it has no body for,
+    ``handle_all_breakups``, the sort croupier, u01 injection) was refused
+    before the float64 breakup path was ported; now it builds, takes that
+    path and matches the JAX package's, three steps slot by slot (the
+    bounds of ``test_torch_general_collision.py``). Drops of 5-100 um and
+    fragments of ~100 um keep every multiplicity ratio below 2^26, where
+    the JAX package's gamma is exact (its quotient walk gives a gamma above
+    floor(xi_j / xi_k) past that, and a negative multiplicity: ROADMAP,
+    "large-quotient gamma"; ``test_torch_collision_ops.py`` holds the
+    port's exact gamma there)"""
+    rng = np.random.default_rng(64)
+    attributes = {
+        "multiplicity": rng.integers(1, 10**6, 64).astype(float),
+        "volume": 4 / 3 * np.pi * rng.uniform(5e-6, 100e-6, 64) ** 3,
+    }
+    jp, tp = build_pair(
+        _breakup_of(**changes), attributes, dv=1.0, inject=u01_injection,
+        formulae={"seed": 44, "handle_all_breakups": handle_all_breakups},
     )
-    if u01_injection:
-        builder.enable_u01_injection()
-    builder.add_dynamic(_breakup(**changes))
-    with pytest.raises(NotImplementedError, match=match):
-        builder.build({
-            "multiplicity": np.full(64, 100), "volume": np.full(64, 1e-15),
-        })
+    assert tp.dynamics["Collision"].route() == "float64"
+    water0 = _totals(tp)[1]
+    for _ in range(3):
+        if u01_injection:
+            streams = {
+                name: rng.uniform(size=64)
+                for name in (
+                    "collision_shuffle", "collision_gamma",
+                    "collision_process", "collision_fragmentation",
+                )
+            }
+            jp.inject_u01(streams)
+            tp.inject_u01(streams)
+        jp.run(1)
+        tp.run(1)
+        assert_same(jp, tp)
+    np.testing.assert_allclose(_totals(tp)[1], water0, rtol=1e-9)
+    assert tp.get_counter("breakup_rate")[0] > 0
 
 
 def test_geometric_still_has_no_k1_body():
     """coalescence alone on the mirror croupier: K1 evaluates Geometric in
-    its body since the geometric kernels came into it, so the box builds;
-    a kernel K1 has no body for (one without a ``kernel_id``, as the JAX
-    package's ``Parameterized`` kernels would be) is still refused"""
+    its body; a kernel K1 has no body for (one without a ``kernel_id``, as
+    the Berry 1967 kernels), which was refused before K1a was ported, now
+    takes K1a with its values as a row, and gives the same substep as K1's
+    evaluation of the same kernel when both draw the same gamma u01"""
 
     class NoBody(Geometric):
         kernel_id = None
 
-    for kernel, refused in ((Geometric(), False), (NoBody(), True)):
+    particulators = {}
+    for kernel, route in ((Geometric(), "k1"), (NoBody(), "rows")):
         builder = pysdm_tpu_torch.Builder(
             n_sd=64, backend=CPU(), environment=Box(dt=1.0, dv=1.0)
         )
         builder.add_dynamic(Coalescence(collision_kernel=kernel))
-        build = functools.partial(builder.build, {
-            "multiplicity": np.full(64, 100), "volume": np.full(64, 1e-15),
+        rng = np.random.default_rng(7)
+        p = builder.build({
+            "multiplicity": rng.integers(1, 10**6, 64),
+            "volume": 4 / 3 * np.pi * rng.uniform(5e-6, 50e-6, 64) ** 3,
         })
-        if refused:
-            with pytest.raises(NotImplementedError, match="has no K1 body"):
-                build()
-        else:
-            build().run(1)
+        assert p.dynamics["Collision"].route() == route
+        particulators[route] = p
+    # K1 draws u01 from its pair-keyed PRF; feed K1a the same values
+    K, seed = 17, 123456789
+    pair_u01 = port_collision._u01_hash(
+        seed, torch.minimum(torch.arange(64), torch.remainder(K - torch.arange(64), 64))
+    ).double()
+    particulators["k1"].dynamics["Collision"]._draw_mirror = (
+        lambda n_sd, n_rows=0: (K, seed, [])
+    )
+    particulators["rows"].dynamics["Collision"]._draw_mirror = (
+        lambda n_sd, n_rows=0: (K, seed, [pair_u01][:n_rows])
+    )
+    for p in particulators.values():
+        p.run(1)
+    np.testing.assert_array_equal(
+        particulators["rows"].attributes["multiplicity"],
+        particulators["k1"].attributes["multiplicity"],
+    )
+    assert particulators["rows"].get_counter("coalescence_rate")[0] > 0
 
 
 def _config2_builder(n_sd):

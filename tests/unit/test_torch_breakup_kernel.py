@@ -360,6 +360,43 @@ def test_apply_limiters_matches_jax_package():
         np.testing.assert_array_equal(got.numpy(), np.asarray(expected))
 
 
+def _drop_pairs(seed, n=2048):
+    """pairs of drops of 1 um to 3 mm radius with fall velocities near
+    Gunn and Kinzer's (up to 9 m/s, jittered), some with equal radii, and
+    their u01 draws: slow and fast pairs, large and small drops, every
+    regime of the Straub and Low-List functions"""
+    rng = np.random.default_rng(seed)
+    r = np.exp(rng.uniform(np.log(1e-6), np.log(3e-3), (2, n)))
+    r[1, :16] = r[0, :16]
+    v = np.minimum(9.0, 8e3 * r) * rng.uniform(0.8, 1.2, (2, n))
+    return [
+        {
+            "radius": r[i], "volume": 4 / 3 * np.pi * r[i] ** 3,
+            "water mass": 4 / 3 * np.pi * r[i] ** 3 * 1e3,
+            "relative fall velocity": v[i],
+        }
+        for i in (0, 1)
+    ], rng.uniform(size=n)
+
+
+# the functions K5 has no body for: a collision with them takes the float64
+# breakup path (``ops/breakup.py``)
+FLOAT64_PATH_FUNCTIONS = {
+    "SpecifiedEff": lambda m: m.SpecifiedEff(A=0.7),
+    "Straub2010Ec": lambda m: m.Straub2010Ec(),
+    "LowList1982Ec": lambda m: m.LowList1982Ec(),
+    "Gaussian": lambda m: m.Gaussian(
+        mu=FRAG_SCALE, sigma=FRAG_SCALE / 2, vmin=1e-15, nfmax=50
+    ),
+    "Feingold1988": lambda m: m.Feingold1988(
+        scale=FRAG_SCALE, fragtol=1e-3, vmin=1e-15, nfmax=10
+    ),
+    "LowList1982Nf": lambda m: m.LowList1982Nf(nfmax=1e4),
+    "SLAMS": lambda m: m.SLAMS(vmin=1e-15, nfmax=12),
+    "Straub2010Nf": lambda m: m.Straub2010Nf(vmin=(1e-6) ** 3, nfmax=100),
+}
+
+
 @pytest.mark.parametrize(
     "cls",
     (
@@ -369,8 +406,43 @@ def test_apply_limiters_matches_jax_package():
     ),
 )
 def test_functions_outside_k5_raise(cls):
-    with pytest.raises(NotImplementedError, match="the float64 breakup path"):
-        cls()
+    """the functions K5 has no body for, which raised on construction
+    before the float64 breakup path was ported: each now builds, registers
+    no ``kernel_id`` (so the dynamics take the float64 path) and its
+    ``pairwise`` in float64 matches the JAX package's at rtol 1e-12 on
+    pairs across every regime (and atol the smallest normal float64: XLA's
+    CPU backend flushes subnormal results to zero, torch keeps them, as in
+    LowList1982Ec's exp of a large collision energy)"""
+    name = cls.__name__
+    port_fn = FLOAT64_PATH_FUNCTIONS[name](
+        port_ec if cls.__module__ == port_ec.__name__ else port_frag
+    )
+    jax_fn = FLOAT64_PATH_FUNCTIONS[name](
+        jax_ec if cls.__module__ == port_ec.__name__ else jax_frag
+    )
+    assert isinstance(port_fn, cls) and not hasattr(port_fn, "kernel_id")
+    (attrs_a, attrs_b), u01 = _drop_pairs(len(name))
+
+    def call(fn, wrap, formulae):
+        a = {k: wrap(v) for k, v in attrs_a.items()}
+        b = {k: wrap(v) for k, v in attrs_b.items()}
+        if name.endswith(("Eff", "Ec")):
+            return [fn.pairwise(formulae, a, b)]
+        return list(fn.pairwise(formulae, a, b, wrap(u01)))
+
+    expected = call(jax_fn, jnp.asarray, JaxFormulae())
+    got = [g.numpy() for g in call(port_fn, torch.from_numpy, PortFormulae())]
+    for g, e in zip(got, expected):
+        assert g.dtype == np.float64
+        np.testing.assert_allclose(
+            g, np.asarray(e), rtol=1e-12, atol=np.finfo(np.float64).tiny
+        )
+        assert np.isfinite(g).all()
+    if name.endswith("Nf") or name in ("Gaussian", "Feingold1988", "SLAMS"):
+        n_fragment, mass = got
+        total = attrs_a["water mass"] + attrs_b["water mass"]
+        np.testing.assert_allclose(n_fragment * mass, total, rtol=1e-9)
+        assert (n_fragment > 1.5).any()
 
 
 def _wrapper_args(**changes):

@@ -1,5 +1,6 @@
-"""The Hopper mirror-coalescence kernel (``csrc/collision_mirror.cu``)
-against its plain PyTorch twin, both on the card. Marked ``cuda``: skipped
+"""The Hopper mirror-coalescence kernels (``csrc/collision_mirror.cu``: K1,
+and K1a with the kernel values given as rows) against their plain PyTorch
+twins, both on the card. Marked ``cuda``: skipped
 where torch sees no CUDA device; run on a GPU host with
 ``python -m pytest tests -m cuda``.
 
@@ -11,7 +12,8 @@ SimpleGeometric. Tolerances: multiplicities exactly; extensive rows to rtol 1e-6
 twin round the same products and sums once each); rate sums to rtol 1e-5
 (the kernel sums per pair, warp and block in a fixed order, the twin with
 torch.sum). Launches on the same inputs are bit-equal, rate sums included,
-alone or queued on two streams at once.
+alone or queued on two streams at once. K1a (``coalesce_mirror_rows``) is
+held to the same bounds, and bit for bit at every K of a small n.
 """
 
 import numpy as np
@@ -141,3 +143,50 @@ def test_wrapper_rejects_rows_of_another_kernel(device):
     scale = torch.ones(1, dtype=torch.float32, device=device)
     with pytest.raises(TypeError, match="relative fall velocity"):
         port.coalesce_mirror(mult, ext, volume, port.GEOMETRIC, (1.0, 0.0), scale, 3, 1)
+
+
+def _rows_state(n, K, ext_dtype, seed, device):
+    """K1a's arguments on ``device``: a random state as ``_state``'s, a
+    kernel x norm row that gives up to ~8 collisions a pair, a u01 row"""
+    mult, ext, _ = _state(n, K, ext_dtype, seed)
+    rng = np.random.default_rng(seed + 1)
+    kernnorm = (rng.uniform(0.0, 8.0, size=n) / 2**40).astype(np.float32)
+    u01 = rng.uniform(size=n).astype(np.float32)
+    return (
+        *(torch.from_numpy(a).to(device) for a in (mult, ext, kernnorm, u01)),
+        K,
+    )
+
+
+@pytest.mark.parametrize("n", (4096, 2**16 + 3))
+@pytest.mark.parametrize("ext_dtype", (np.float32, np.float64))
+def test_rows_kernel_matches_twin_on_card(device, n, ext_dtype):
+    args = _rows_state(n, n // 3 * 2, ext_dtype, n, device)
+    before = port.coalesce_mirror_rows.launches
+    got = port.coalesce_mirror_rows(*args)
+    torch.cuda.synchronize()
+    assert port.coalesce_mirror_rows.launches == before + 1
+    want = port.coalesce_mirror_rows_reference(*args)
+    assert torch.equal(got[0], want[0])
+    assert (got[0] != args[0]).float().mean().item() > 0.05
+    assert torch.equal(got[1], want[1])
+    for g, w in zip(got[2:], want[2:]):
+        np.testing.assert_allclose(g.item(), w.item(), rtol=1e-5)
+
+
+def test_rows_kernel_every_K_of_a_small_n_bit_for_bit(device):
+    for n in (17, 256):
+        for K in range(n):
+            args = _rows_state(n, K, np.float32, n + K, device)
+            got = port.coalesce_mirror_rows(*args)
+            want = port.coalesce_mirror_rows_reference(*args)
+            assert torch.equal(got[0], want[0]), (n, K)
+            assert torch.equal(got[1], want[1]), (n, K)
+
+
+def test_rows_kernel_launches_are_deterministic(device):
+    n = 2**18 + 3
+    inputs = [_rows_state(n, K, np.float32, K, device) for K in (5, 77)]
+    chip_smoke.check_deterministic(
+        torch, port.coalesce_mirror_rows, inputs, "K1a"
+    )

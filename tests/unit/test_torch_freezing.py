@@ -649,24 +649,65 @@ def test_k3_twin_matches_pallas_kernel_on_rows_with_ice():
 
 # --- refusals and defaults ----------------------------------------------------
 def test_collision_on_a_state_with_maximum_rows_is_refused():
-    formulae = pysdm_tpu_torch.Formulae(
-        seed=1, particle_shape_and_density="MixedPhaseSpheres"
-    )
-    builder = pysdm_tpu_torch.Builder(
-        n_sd=16, backend=CPU(formulae),
-        environment=pysdm_tpu_torch.environments.Box(dt=1.0, dv=1.0),
-    )
-    from pysdm_tpu_torch.dynamics.collisions.collision_kernels import Golovin
+    """coalescence on a state with max-merged rows (the freezing records),
+    which was refused before the float64 collision path was ported: both
+    packages take their plain coalescence with ``max_s`` on the mirror
+    croupier; five steps of the port, drawing the JAX key chain's K and
+    gamma rows, against the JAX package's: multiplicities equal, masses and
+    the records (NaN where none was made) to rtol 1e-12, and a merged
+    droplet carries the pair's larger record"""
+    rng = np.random.default_rng(16)
+    t_freeze = rng.uniform(240.0, 260.0, 16)
+    t_freeze[::3] = np.nan
+    attributes = {
+        "multiplicity": rng.integers(10**8, 10**9, 16),
+        "signed water mass": rng.uniform(0.5e-12, 2e-12, 16),
+        "freezing temperature": t_freeze,
+    }
+    pair = []
+    for pkg, backend in ((pysdm_tpu, pysdm_tpu.backends.CPU), (pysdm_tpu_torch, CPU)):
+        kernels = pkg.dynamics.collisions.collision_kernels
+        builder = pkg.Builder(
+            n_sd=16,
+            backend=backend(pkg.Formulae(
+                seed=1, particle_shape_and_density="MixedPhaseSpheres"
+            )),
+            environment=pkg.environments.Box(dt=1.0, dv=1.0),
+        )
+        builder.add_dynamic(pkg.dynamics.Coalescence(
+            collision_kernel=kernels.Golovin(b=1.5e3), adaptive=False
+        ))
+        pair.append(builder.build(dict(attributes)))
+    jp, tp = pair
+    assert tp.dynamics["Collision"].route() == "float64"
+    state = {"key": jp.sim_state["key"]}
 
-    builder.add_dynamic(pysdm_tpu_torch.dynamics.Coalescence(
-        collision_kernel=Golovin(b=1.5e3), adaptive=False
-    ))
-    with pytest.raises(NotImplementedError, match="max-merged rows"):
-        builder.build({
-            "multiplicity": np.full(16, 100),
-            "signed water mass": np.full(16, 1e-12),
-            "freezing temperature": np.full(16, 250.0),
-        })
+    def draw_mirror(n_sd, n_rows=0):
+        key, k_sh, k_gam, _, _ = jax.random.split(state["key"], 5)
+        state["key"] = key
+        K = int(jax.random.randint(k_sh, (), 0, n_sd, dtype=jnp.int32))
+        rows = [torch.from_numpy(np.array(
+            jax.random.uniform(k_gam, (n_sd,), dtype=jnp.float64)
+        ))][:n_rows]
+        return K, 0, rows
+
+    tp.dynamics["Collision"]._draw_mirror = draw_mirror
+    for _ in range(5):
+        jp.run(1)
+        tp.run(1)
+        np.testing.assert_array_equal(
+            tp.attributes["multiplicity"],
+            np.asarray(jp.attributes["multiplicity"]),
+        )
+        for name in ("signed water mass", "freezing temperature"):
+            np.testing.assert_allclose(
+                tp.attributes[name], np.asarray(jp.attributes[name]),
+                rtol=1e-12, err_msg=name,
+            )
+    got = tp.attributes["freezing temperature"]
+    assert tp.get_counter("coalescence_rate")[0] > 0
+    assert np.isnan(got).sum() < np.isnan(t_freeze).sum()
+    assert np.nanmax(got) == np.nanmax(t_freeze)
 
 
 def _ice_entry_points():
