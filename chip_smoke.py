@@ -187,7 +187,29 @@ Run from the root of the checkout: ``python3 chip_smoke.py``. Phases:
    ConstantK, four fragments) with ``handle_all_breakups`` over its 10
    steps on the card: the loop's iterations, host reads and ms of each
    step, the water mass to 1e-6, the multiplicity grown; again with the
-   loop reading after every iteration, the same multiplicities.
+   loop reading after every iteration, the same multiplicities;
+34. K3 for each variant set of ``K3_VARIANT_SETS`` (the rest of physics/:
+   every saturation vapour pressure, latent heat, diffusion thermics and
+   kinetics, ventilation and surface-tension variant at least once) at
+   2^17 and 2^20 drops of ``k3_variant_rows``: the regimes, kernel against
+   twin (``compare_k3``), the drops shuffled bit-equal, the growing cell
+   brought to RH = 1.0002 (``compare_k3_near_saturation``, at 2^17), the
+   minfun evaluations, the device time of kernel and twin and the bound;
+   then the parcel slice's set bit-equal to the kernel of the build
+   before the variant sets (``K3_PARENT_COMMIT``'s ``condensation.cu``,
+   checked by its blob id, from ``K3_PARENT_DIR`` or git; skipped where
+   neither has it), both timed in turns;
+35. ``lowe_et_al_2019.Simulation``: the JAX test (``AerosolMarine(Forg=0.2)``,
+   16 per mode, dz = 5 m) with ``Constant`` and with the film, CDNC higher
+   with the film; the film at 2^16 per mode over the 200 m ascent against
+   a float64 CPU run at 2^11 per mode (S_max to 10%, CDNC to 5%);
+36. ``jensen_and_nugent_2017.Simulation`` (Sc, pristine, GCCN): the JAX
+   test's 24 super-droplets and 600 steps at its bounds, then 2^17 with
+   gravitational coalescence (K1 launches = collision substeps);
+37. ``yang_et_al_2018.Simulation`` at the JAX test's bounds with 32
+   super-droplets and at 2^17 (``yang_settings``), 2400 s each, and
+   ``arabas_and_shima_2017.Simulation`` at the JAX test's settings. In
+   phases 35-37 K3's launches equal the condensation solves.
 
 Every box phase checks multiplicities >= 0, water mass conserved to 1e-6 and
 coalescence having happened. Any failure raises, and the script exits
@@ -203,8 +225,10 @@ and ``k3_mixed_phase_bound_ms``; K2's and K4's launches in phase 22,
 its twin from phase 18 and its launches in phase 20, ``berry_launches``;
 K5's in phase 21, ``bulenok_launches``; K4's on phase 31's sort croupier,
 ``straub_sort_launches``; K1a's at Berry's 2^13, its main path's width,
-with its 2^20 times), before them one line of the float64 paths' records
-(phases 31-33), and one of the device.
+with its 2^20 times; K3's per variant set of phase 34, ``variant_sets``,
+with the launches on the model path of phases 35-37 that uses each),
+before them one line of the float64 paths' and the parcel models' records
+(phases 31-37), and one of the device.
 """
 
 import concurrent.futures
@@ -574,6 +598,15 @@ def k3_rows(n, seed=7):
     }
 
 
+def k3_optional(torch, rows, device):
+    """the per-drop rows K3 reads only under some variant sets (the organic
+    fraction, the Reynolds number), as keyword arguments on ``device``"""
+    return {
+        k: torch.from_numpy(rows[k]).to(device)
+        for k in K3_OPTIONAL if k in rows
+    }
+
+
 def k3_call(fn, formulae, settings, rows, device):
     """``fn`` (K3's wrapper or its twin) on the rows moved to ``device``;
     numpy (mass_new, success)"""
@@ -582,8 +615,96 @@ def k3_call(fn, formulae, settings, rows, device):
     mass, success = fn(
         formulae, settings,
         *(torch.from_numpy(rows[k]).to(device) for k in K3_ARGS),
+        **k3_optional(torch, rows, device),
     )
     return mass.cpu().numpy(), success.cpu().numpy()
+
+
+# phase 34's variant sets: Formulae keyword arguments (constants filled in
+# by ``k3_variant_formulae``), and the models that run each
+K3_VARIANT_SETS = {
+    "a_august_roche_magnus": (
+        dict(saturation_vapour_pressure="AugustRocheMagnus"),
+        "arabas_and_shima_2017, yang_et_al_2018",
+    ),
+    "b_grabowski_2011": (
+        dict(diffusion_kinetics="GrabowskiEtAl2011",
+             diffusion_thermics="GrabowskiEtAl2011",
+             constants={"MAC": 0.036, "HAC": 0.7}),
+        "jensen_and_nugent_2017",
+    ),
+    "c_lowe_film": (
+        dict(surface_tension="CompressedFilmOvadnevaite"), "lowe_et_al_2019",
+    ),
+    "d_lowe_constant": (dict(surface_tension="Constant"), "lowe_et_al_2019"),
+    "e_ruehl": (dict(surface_tension="CompressedFilmRuehl"), "singer_ward"),
+    "f_szyszkowski_langmuir": (
+        dict(surface_tension="SzyszkowskiLangmuir"), "singer_ward",
+    ),
+    "g_froessling": (dict(ventilation="Froessling1938"), None),
+    "h_pruppacher_rasmussen": (
+        dict(ventilation="PruppacherAndRasmussen1979"), None,
+    ),
+    # the remaining variants once each, over three sets (one saturation
+    # vapour pressure a set)
+    "i1_bolton": (
+        dict(saturation_vapour_pressure="Bolton1980",
+             diffusion_thermics="TracyWelchPorter",
+             latent_heat_vapourisation="SeinfeldPandis",
+             diffusion_kinetics="PruppacherKlett"),
+        None,
+    ),
+    "i2_murphy_koop": (
+        dict(saturation_vapour_pressure="MurphyKoop2005",
+             diffusion_thermics="SeinfeldAndPandis2010",
+             latent_heat_vapourisation="Constant"),
+        None,
+    ),
+    "i3_wexler": (dict(saturation_vapour_pressure="Wexler1976"), None),
+}
+K3_OPTIONAL = ("f_org", "reynolds")
+
+
+def k3_variant_formulae(name):
+    """the port's Formulae of phase 34's set ``name``: Lowe et al. 2019's
+    (``lowe_et_al_2019.make_formulae``) for c and d, Singer and Ward's
+    beta-caryophyllene film constants for e and f"""
+    from pysdm_tpu_torch import Formulae
+
+    kwargs = dict(K3_VARIANT_SETS[name][0])
+    if name in ("c_lowe_film", "d_lowe_constant"):
+        from pysdm_tpu_torch.models import lowe_et_al_2019
+
+        return lowe_et_al_2019.make_formulae(kwargs["surface_tension"])
+    if name in ("e_ruehl", "f_szyszkowski_langmuir"):
+        from pysdm_tpu_torch.models import singer_ward
+
+        wmv = Formulae().constants.water_molar_volume
+        mode = singer_ward.AerosolBetaCaryophylleneDark(wmv).modes[0]
+        return singer_ward.make_formulae(kwargs["surface_tension"], mode)
+    return Formulae(seed=44, **kwargs)
+
+
+def k3_variant_rows(name, n, seed):
+    """``k3_rows`` for phase 34's set ``name``: with an organic fraction row
+    (uniform on [0, 1], every 16th drop 0 and every 17th 1) under a film
+    form, with a Reynolds-number row (log-uniform on [1e-3, 30], both sides
+    of Pruppacher and Rasmussen's threshold) under ventilation"""
+    import numpy as np
+
+    rows = k3_rows(n, seed=seed)
+    rng = np.random.default_rng(seed + 1)
+    kwargs = K3_VARIANT_SETS[name][0]
+    if kwargs.get("surface_tension", "Constant") != "Constant":
+        f_org = rng.uniform(0, 1, n).astype(np.float32)
+        f_org[::16] = 0
+        f_org[::17] = 1
+        rows["f_org"] = f_org
+    if "ventilation" in kwargs:
+        rows["reynolds"] = np.exp(
+            rng.uniform(np.log(1e-3), np.log(30.0), n)
+        ).astype(np.float32)
+    return rows
 
 
 def settle_haze(formulae, rows, device, cell=1, max_rounds=60):
@@ -727,9 +848,10 @@ def k3_regrouped_rows(rows, n_cell):
     return regrouped
 
 
-def k3_evaluations(k3, formulae, settings, args, halving=False):
-    """minfun evaluations the twin counts on ``args``; ``halving``: with
-    every round of the root search in the middle of the bracket"""
+def k3_evaluations(k3, formulae, settings, args, halving=False, extra=None):
+    """minfun evaluations the twin counts on ``args`` (and the optional rows
+    ``extra``); ``halving``: with every round of the root search in the
+    middle of the bracket"""
     import torch
 
     from pysdm_tpu_torch.ops import condensation as cond_ops
@@ -741,7 +863,9 @@ def k3_evaluations(k3, formulae, settings, args, halving=False):
         if halving else contextlib.nullcontext()
     )
     with context:
-        k3.masses_new_reference(formulae, settings, *args, stats=stats)
+        k3.masses_new_reference(
+            formulae, settings, *args, stats=stats, **(extra or {})
+        )
     return stats["minfun_evaluations"]
 
 
@@ -3790,6 +3914,505 @@ def _pure_breakup_box(gpu, steps, label):
     return p, record
 
 
+# float32 operations charged to one minfun evaluation under each film form
+# of the surface tension, on top of K3_OPS_PER_MINFUN (counted from
+# csrc/condensation.cu film_sigma, each transcendental call one operation):
+# Ovadnevaite's volume, cbrt, cube, quotient and mean (14); Szyszkowski-
+# Langmuir's isotherm, quadratic root and log1p (29); Ruehl's isotherm and
+# 64 + 1 evaluations of its residual (17 each) with the halving
+K3_FILM_OPS_PER_MINFUN = {
+    "Constant": 0,
+    "CompressedFilmOvadnevaite": 14,
+    "SzyszkowskiLangmuir": 29,
+    "CompressedFilmRuehl": 8 + 65 * 17,
+}
+K3_VARIANT_NS = (N_PARCEL, N_MAIN)
+K3_PARENT_DIR = "build/k3_parent"
+# the build before the variant sets (commit 84c2b8f), whose ABI
+# ``_parent_k3`` mirrors: its condensation.cu is taken by git's blob id, so
+# that a later commit's file is never called through this ABI
+K3_PARENT_COMMIT = "84c2b8f"
+K3_PARENT_BLOB = "e41cc731a30a900ac07136ac6643d25b53ea7a9e"
+
+
+def k3_variant_bound(formulae, rows, evaluations):
+    """(ms, what sets it) for K3 on ``rows``: 29 bytes a drop, 4 more for
+    each optional row read; the operations of the minfun evaluations"""
+    n = rows["water_mass"].shape[0]
+    n_bytes = n * (29 + 4 * sum(k in rows for k in K3_OPTIONAL))
+    ops = K3_OPS_PER_MINFUN + K3_FILM_OPS_PER_MINFUN[
+        formulae.surface_tension.variant
+    ]
+    return bound_ms(n_bytes, evaluations * ops)
+
+
+def k3_near_saturation_rows(formulae, rows, RH=1.0002, cell=0):
+    """``rows`` with the vapour of ``cell`` set so that its RH (float64)
+    is ``RH``: the regime of ``compare_k3_near_saturation``"""
+    import torch
+
+    from pysdm_tpu_torch.ops.condensation import thermo
+
+    near = dict(rows)
+    cells = [torch.from_numpy(rows[k]).double() for k in (
+        "thd", "qv", "rhod", "rho_air", "mu_air",
+    )]
+    qv = rows["qv"].astype("float64")
+    for _ in range(3):  # RH goes with qv to within its pressure's weight
+        cells[1] = torch.from_numpy(qv)
+        rh = thermo(formulae, *cells)[2].numpy()
+        qv[cell] *= RH / rh[cell]
+    near["qv"] = qv.astype(rows["qv"].dtype)
+    return near
+
+
+def _k3_set_near_saturation(torch, k3, formulae, settings, rows, device):
+    """K3 against its twin on ``rows`` with their growing cell brought to
+    RH = 1.0002 (``k3_near_saturation_rows``), by
+    ``compare_k3_near_saturation``; returns what it saw"""
+    near = k3_near_saturation_rows(formulae, rows)
+    args = [torch.from_numpy(near[k]).to(device) for k in K3_ARGS]
+    extra = k3_optional(torch, near, device)
+
+    def twin_of(rs):
+        return k3.masses_new_reference(
+            formulae, settings, *rs,
+            **{k: v.to(rs[0].dtype) for k, v in extra.items()},
+        )
+
+    kernel = k3.masses_new(formulae, settings, *args, **extra)
+    return compare_k3_near_saturation(formulae, settings, args, kernel, twin_of)
+
+
+def _git_blob_id(data):
+    import hashlib
+
+    return hashlib.sha1(b"blob %d\0" % len(data) + data).hexdigest()
+
+
+def _parent_k3(torch):
+    """the parent build's K3 (the ``condensation.cu`` of
+    ``K3_PARENT_COMMIT``, from ``K3_PARENT_DIR`` where the file there is
+    that blob, else from git, built with the source's flags into
+    ``build/``) as a function of (params, args), or None where neither has
+    it"""
+    import ctypes
+    import os
+
+    from pysdm_tpu_torch.ops.cuda import _build
+
+    src = os.path.join(K3_PARENT_DIR, "condensation.cu")
+    data = b""
+    if os.path.exists(src):
+        with open(src, "rb") as f:
+            data = f.read()
+    if _git_blob_id(data) != K3_PARENT_BLOB:
+        found = subprocess.run(
+            ["git", "show",
+             f"{K3_PARENT_COMMIT}:pysdm_tpu_torch/csrc/condensation.cu"],
+            capture_output=True,
+        )
+        if found.returncode != 0 or _git_blob_id(found.stdout) != K3_PARENT_BLOB:
+            return None
+        os.makedirs(K3_PARENT_DIR, exist_ok=True)
+        with open(src, "wb") as out:
+            out.write(found.stdout)
+    lib_path = os.path.join(K3_PARENT_DIR, "libcondensation_parent.so")
+    subprocess.run(
+        [_build.nvcc_path(), *_build.flags("condensation"), "-o", lib_path,
+         src], check=True, capture_output=True,
+    )
+    lib = ctypes.CDLL(os.path.abspath(lib_path))
+
+    class ParentParams(ctypes.Structure):
+        _fields_ = [
+            *((name, ctypes.c_float) for name in (
+                "T0", "p1000", "Rd", "Rv", "eps", "T_exponent", "l_tri",
+                "c_pv_minus_c_pw", "T_tri",
+            )),
+            ("fwc", ctypes.c_float * 9),
+            *((name, ctypes.c_float) for name in (
+                "D0", "K0", "rho_w", "pi_4_3", "one_third", "koehler_A",
+                "lambdaK_coef", "two_Rd", "two_Rv", "mac_a", "mac_b",
+                "hac_a", "hac_b", "rho_w_Rv", "four_pi_rho_w", "x_max",
+                "RH_rtol", "rtol_x", "per_mass",
+            )),
+            *((name, ctypes.c_int) for name in (
+                "max_iters", "bisect_cap", "coordinate", "hygroscopicity",
+                "drop_growth", "kinetics",
+            )),
+        ]
+
+    def call(params, args):
+        old = ParentParams(**{
+            name: getattr(params, name) for name, _ in ParentParams._fields_
+            if name != "fwc"
+        })
+        old.fwc = (ctypes.c_float * 9)(*list(params.svp)[:9])
+        mass = torch.empty_like(args[0])
+        success = torch.empty(args[0].shape, dtype=torch.bool,
+                              device=args[0].device)
+        err = lib.pysdm_condensation_masses_new(
+            *(ctypes.c_void_p(t.data_ptr()) for t in args),
+            ctypes.c_int(args[0].shape[0]), ctypes.c_int(args[5].shape[0]),
+            ctypes.byref(old), ctypes.c_void_p(mass.data_ptr()),
+            ctypes.c_void_p(success.data_ptr()),
+            ctypes.c_void_p(torch.cuda.current_stream().cuda_stream),
+        )
+        if err != 0:
+            raise RuntimeError(f"the parent's K3 failed to launch ({err})")
+        return mass, success
+
+    return call
+
+
+def _k3_variant_sets(torch, k3, device, gpu):
+    """phase 34: K3 against its twin on the card for each set of
+    ``K3_VARIANT_SETS`` at 2^17 and 2^20 drops (``k3_variant_rows``, haze
+    settled by the kernel): the regimes, success equal and the log-mass
+    bound of ``compare_k3``, the drops shuffled bit-equal to the sorted run,
+    the minfun evaluations (counted by the twin), the kernel's device time
+    (and the twin's at 2^17) and the bound; then the parcel slice's set
+    against the parent build's kernel, bit-equal, timed in turns. Returns
+    {set: record}"""
+    from pysdm_tpu_torch.ops.condensation import DropSolveSettings
+
+    settings = DropSolveSettings(*K3_SETTINGS)
+    records = {}
+    for name in K3_VARIANT_SETS:
+        formulae = k3_variant_formulae(name)
+        record = {"max_abs_err": 0.0}
+        for n in K3_VARIANT_NS:
+            rows = settle_haze(
+                formulae, k3_variant_rows(name, n, seed=n), device
+            )
+            args = [torch.from_numpy(rows[k]).to(device) for k in K3_ARGS]
+            extra = k3_optional(torch, rows, device)
+            before = k3.masses_new.launches
+            kernel = k3_call(k3.masses_new, formulae, settings, rows, device)
+            if k3.masses_new.launches != before + 1:
+                raise AssertionError("K3's counter did not count the launch")
+            stats = {}
+            twin = k3.masses_new_reference(
+                formulae, settings, *args, stats=stats, **extra
+            )
+            twin = twin[0].cpu().numpy(), twin[1].cpu().numpy()
+            check_k3_regimes(rows, *kernel)
+            check_k3_regimes(rows, *twin)
+            abs_err, rel_err = compare_k3(rows, kernel, twin, settings.rtol_x)
+            record["max_abs_err"] = max(record["max_abs_err"], abs_err)
+            permuted, order = k3_permuted_rows(rows)
+            shuffled = k3_call(k3.masses_new, formulae, settings, permuted,
+                               device)
+            for got, want in zip(shuffled, kernel):
+                if (got != want[order]).any():
+                    raise AssertionError(
+                        f"phase 34: {name}: a drop's result depends on its block"
+                    )
+            ms = _time_ms(
+                torch, lambda: k3.masses_new(formulae, settings, *args, **extra),
+                20,
+            )
+            evaluations = stats["minfun_evaluations"]
+            bound = k3_variant_bound(formulae, rows, evaluations)
+            twin_ms = None
+            if n == N_PARCEL:
+                twin_ms = _time_ms(
+                    torch,
+                    lambda: k3.masses_new_reference(
+                        formulae, settings, *args, **extra
+                    ),
+                    2,
+                )
+                record.update(ms=ms, twin_ms=twin_ms, bound_ms=bound[0],
+                              bound_by=bound[1], evaluations=evaluations)
+            else:
+                record.update(ms_2_20=ms, bound_ms_2_20=bound[0],
+                              evaluations_2_20=evaluations)
+            if n == N_PARCEL:
+                record["near_saturation"] = _k3_set_near_saturation(
+                    torch, k3, formulae, settings, rows, device
+                )
+            print(f"phase 34: K3 set {name} n={n}: success equal, mass max"
+                  f" abs diff {abs_err!r} kg, max rel diff {rel_err!r}, the"
+                  f" drops shuffled bit-equal; kernel {ms!r} ms"
+                  + (f", twin {twin_ms!r} ms" if twin_ms is not None else "")
+                  + f"; {evaluations} minfun evaluations"
+                  f" ({evaluations / n!r} per drop), bound {bound[0]!r} ms"
+                  f" ({bound[1]})"
+                  + (f"; near saturation {record['near_saturation']}"
+                     if n == N_PARCEL else "")
+                  + f" [{gpu}]")
+        records[name] = record
+    parent = _parent_k3(torch)
+    if parent is None:
+        print(f"phase 34: the condensation.cu of {K3_PARENT_COMMIT} is not"
+              f" at hand ({K3_PARENT_DIR}, git): no comparison with it")
+        return records
+    from pysdm_tpu_torch import Formulae
+
+    formulae = Formulae(seed=44)
+    params = k3.kernel_params(formulae, settings)
+    for n in K3_VARIANT_NS:
+        rows = settle_haze(formulae, k3_rows(n, seed=n), device)
+        args = [torch.from_numpy(rows[k]).to(device).contiguous()
+                for k in K3_ARGS]
+        new = k3.masses_new(formulae, settings, *args)
+        old = parent(params, args)
+        for got, want in zip(new, old):
+            if not torch.equal(got, want):
+                raise AssertionError(
+                    f"phase 34: the parcel set at n={n} is not bit-equal to"
+                    " the parent build's kernel"
+                )
+        times = {"new": [], "parent": []}
+        for _ in range(3):
+            times["new"].append(_time_ms(
+                torch, lambda: k3.masses_new(formulae, settings, *args), 20
+            ))
+            times["parent"].append(_time_ms(
+                torch, lambda: parent(params, args), 20
+            ))
+        records.setdefault("parcel_vs_parent", {})[n] = times
+        print(f"phase 34: the parcel slice's set at n={n}: bit-equal to the"
+              f" parent build's kernel; kernel {times['new']!r} ms, parent"
+              f" {times['parent']!r} ms (in turns) [{gpu}]")
+    return records
+
+
+def _model_window(p, run, steps):
+    """run ``run()`` (``steps`` steps of ``p``) with K3's and K1's counts
+    set to 0 just before and read just after; returns a record of the
+    window: ms/step, launches, solves, collision substeps, host reads"""
+    from pysdm_tpu_torch.ops.cuda import collision as kern
+    from pysdm_tpu_torch.ops.cuda import condensation as k3
+
+    solver = p.dynamics["Condensation"].solver
+    collision = p.dynamics.get("Collision")
+    solves0, reads0 = solver.substep_solves, solver.host_reads
+    substeps0 = (int(p.get_counter("collision_n_substep").sum())
+                 if collision else 0)
+    collision_reads0 = collision.host_reads if collision else 0
+    k3.masses_new.launches = 0
+    kern.coalesce_mirror.launches = 0
+    t0 = time.perf_counter()
+    out = run()
+    p.block_until_ready()
+    wall = time.perf_counter() - t0
+    record = {
+        "k3_launches": k3.masses_new.launches,
+        "k1_launches": kern.coalesce_mirror.launches,
+        "solves": solver.substep_solves - solves0,
+        "ms_per_step": wall / steps * 1e3,
+        "host_reads_per_step": (solver.host_reads - reads0) / steps,
+    }
+    if collision:
+        record["collision_substeps"] = (
+            int(p.get_counter("collision_n_substep").sum()) - substeps0
+        )
+        record["host_reads_per_step"] += (
+            collision.host_reads - collision_reads0
+        ) / steps
+    if p.device.type == "cuda" and record["k3_launches"] != record["solves"]:
+        raise AssertionError(f"K3 launches != solves: {record}")
+    if collision and p.device.type == "cuda" and (
+        record["k1_launches"] != record["collision_substeps"]
+    ):
+        raise AssertionError(f"K1 launches != collision substeps: {record}")
+    return out, record
+
+
+LOWE_FULL_PER_MODE = 2**16
+LOWE_CPU_PER_MODE = 2**11
+
+
+def _lowe(gpu):
+    """phase 35: ``lowe_et_al_2019.Simulation`` on the card: the JAX test
+    (``AerosolMarine(Forg=0.2)``, 16 super-droplets per mode, dz = 5 m, the
+    200 m ascent) with ``Constant`` and ``CompressedFilmOvadnevaite``, CDNC
+    higher with the film; then the film at 2^16 per mode (2^17 drops) over
+    every step of the ascent, K3 launches = solves, against a float64 CPU
+    run of the port at 2^11 per mode (S_max and CDNC). Returns {model:
+    record}"""
+    import numpy as np
+
+    from pysdm_tpu_torch.backends import CPU, GPU
+    from pysdm_tpu_torch.models import lowe_et_al_2019 as model
+
+    wmv = 18.015e-3 / 1000.0
+    cdnc, records = {}, {}
+    for st in ("Constant", "CompressedFilmOvadnevaite"):
+        settings = model.Settings(
+            dz=5.0, n_sd_per_mode=16,
+            aerosol=model.AerosolMarine(water_molar_volume=wmv, Forg=0.2),
+            model=st,
+        )
+        sim = model.Simulation(settings)
+        out, record = _model_window(sim.particulator, sim.run, settings.nt)
+        cdnc[st] = out["CDNC"][-1]
+        records[st] = record
+    if not cdnc["CompressedFilmOvadnevaite"] > cdnc["Constant"]:
+        raise AssertionError(f"phase 35: CDNC with the film not higher: {cdnc}")
+    print(f"phase 35: Lowe et al. 2019, AerosolMarine(Forg=0.2), 32"
+          f" super-droplets, 40 steps on the card: CDNC {cdnc['Constant']!r}"
+          f" (Constant) < {cdnc['CompressedFilmOvadnevaite']!r} (film);"
+          f" {records} [{gpu}]")
+    full = {}
+    for per_mode, backend in ((LOWE_FULL_PER_MODE, GPU),
+                              (LOWE_CPU_PER_MODE, CPU)):
+        settings = model.Settings(
+            dz=5.0, n_sd_per_mode=per_mode,
+            aerosol=model.AerosolMarine(water_molar_volume=wmv, Forg=0.2),
+            model="CompressedFilmOvadnevaite",
+        )
+        sim = model.Simulation(settings, backend_class=backend)
+        out, record = _model_window(sim.particulator, sim.run, settings.nt)
+        record.update(S_max=float(np.nanmax(out["S_max"])),
+                      CDNC=out["CDNC"][-1])
+        if not (np.isfinite(out["CDNC"]).all()
+                and sim.particulator.get_counter("condensation_success").all()):
+            raise AssertionError(f"phase 35: {out}")
+        full["card" if backend is GPU else "cpu_float64"] = record
+    card, ref = full["card"], full["cpu_float64"]
+    if not (abs(card["S_max"] - ref["S_max"]) < 0.1 * ref["S_max"]
+            and abs(card["CDNC"] / ref["CDNC"] - 1) < 0.05):
+        raise AssertionError(f"phase 35: card {card} against float64 {ref}")
+    bound = bound_ms(
+        2 * LOWE_FULL_PER_MODE * 37 * card["solves"] / 40,
+    )
+    print(f"phase 35: Lowe et al. 2019 with the film at"
+          f" {2 * LOWE_FULL_PER_MODE} super-droplets, 40 steps on the card:"
+          f" {card['ms_per_step']!r} ms/step, {card['k3_launches']} K3"
+          f" launches = solves, {card['host_reads_per_step']!r} host"
+          f" reads/step, S_max {card['S_max']!r}, CDNC {card['CDNC']!r}; the"
+          f" float64 CPU run at {2 * LOWE_CPU_PER_MODE}: S_max"
+          f" {ref['S_max']!r}, CDNC {ref['CDNC']!r}; K3's bytes a step bound"
+          f" {bound[0]!r} ms [{gpu}]")
+    records["film_full_width"] = card
+    records["film_cpu_float64"] = ref
+    return records
+
+
+JN_FULL_N = 2**17
+
+
+def _jensen_nugent(gpu):
+    """phase 36: ``jensen_and_nugent_2017.Simulation`` on the card (Sc,
+    pristine, GCCN): the JAX test (24 super-droplets beside the GCCN, 600
+    steps of 2 s) at its bounds, then 2^17 beside the GCCN with
+    gravitational coalescence (``Geometric``, K1 on the mirror croupier),
+    600 steps: K3 launches = solves, K1 launches = collision substeps"""
+    import numpy as np
+
+    from pysdm_tpu_torch.models import jensen_and_nugent_2017 as model
+
+    records = {}
+    for n_sd, coalescence in ((24, False), (JN_FULL_N, True)):
+        settings = model.Settings(aerosol="pristine", cloud_type="Sc", dt=2.0)
+        sim = model.Simulation(
+            settings, gccn=True, n_sd_non_gccn=n_sd,
+            gravitational_coalescence=coalescence,
+        )
+        p = sim.particulator
+        out, record = _model_window(
+            p, lambda: sim.run(n_steps=600, steps_per_output_interval=100), 600
+        )
+        s_max = np.nanmax(out["products"]["S_max"])
+        checks = {
+            "0 < S_max < 0.05": 0.0 < s_max < 0.05,
+            "r_act above 1 um": np.nanmax(out["products"]["r_mean_act"]) > 1e-6,
+            "GCCN above 10 um": out["attributes"]["radius"][-1].max() > 10e-6,
+            "z rises": out["products"]["z"][-1] > out["products"]["z"][0],
+        }
+        failed = [k for k, ok in checks.items() if not ok]
+        if failed:
+            raise AssertionError(f"phase 36: n_sd={n_sd}: {failed}")
+        record["S_max"] = float(s_max)
+        records[n_sd] = record
+        print(f"phase 36: Jensen & Nugent 2017 (Sc, pristine, GCCN),"
+              f" {n_sd} super-droplets + GCCN, coalescence {coalescence},"
+              f" 600 steps on the card: {record} [{gpu}]")
+    return records
+
+
+YANG_FULL_N = 2**17
+# dry air of the Yang parcel at YANG_FULL_N: at the model's 1000 kg the
+# spectrum's tail takes multiplicities below 1 at 2^17 super-droplets
+YANG_FULL_MASS_OF_DRY_AIR = 1e6
+
+
+def yang_settings(n_sd):
+    """``yang_et_al_2018.Settings`` of the JAX test (2400 s, dt_max 5 s, 480
+    steps); above 2^12 super-droplets in a parcel of
+    ``YANG_FULL_MASS_OF_DRY_AIR``, its spectrum sampled anew (the same
+    concentrations per kilogram of air)"""
+    from pysdm_tpu_torch.initialisation import spectra
+    from pysdm_tpu_torch.initialisation.sampling import spectral_sampling
+    from pysdm_tpu_torch.models import yang_et_al_2018 as yang
+    from pysdm_tpu_torch.physics import si
+
+    settings = yang.Settings(n_sd=n_sd, total_time=2400.0, dt_max=5.0)
+    settings.n_steps = int(settings.total_time / 5.0)
+    if n_sd > 2**12:
+        settings.mass_of_dry_air = YANG_FULL_MASS_OF_DRY_AIR
+        settings.r_dry, settings.n = spectral_sampling.Logarithmic(
+            spectrum=spectra.Lognormal(
+                norm_factor=1000 / si.mg * settings.mass_of_dry_air,
+                m_mode=50 * si.nm, s_geom=1.4,
+            ),
+            size_range=(10.633 * si.nm, 513.06 * si.nm),
+        ).sample(n_sd)
+    return settings
+
+
+def _yang_and_arabas_shima(gpu):
+    """phase 37: ``yang_et_al_2018.Simulation`` on the card at the JAX
+    test's bounds with 32 super-droplets (2400 s, dt_max 5 s), then at 2^17
+    over the same 2400 s; ``arabas_and_shima_2017.Simulation`` at the JAX
+    test's settings, one super-droplet"""
+    import numpy as np
+
+    from pysdm_tpu_torch.models import arabas_and_shima_2017 as arabas_shima
+    from pysdm_tpu_torch.models import yang_et_al_2018 as yang
+    from pysdm_tpu_torch.physics import si
+
+    records = {}
+    for n_sd in (32, YANG_FULL_N):
+        settings = yang_settings(n_sd)
+        sim = yang.Simulation(settings)
+        out, record = _model_window(
+            sim.particulator, sim.run, settings.n_steps * sim.n_substeps
+        )
+        S, z = np.asarray(out["S"]), np.asarray(out["z"])
+        i_t0 = np.searchsorted(np.asarray(out["t"]), 1200.0)
+        checks = {
+            "S above 0": S.max() > 0.0,
+            "S falls after t0": S[i_t0:].min() < S.max(),
+            "z above 1100 m": z.max() > 1100.0,
+            "z descends": z[-1] < z.max(),
+            "r_act above 1 um": np.nanmax(np.asarray(out["r_act"])) > 1e-6,
+        }
+        failed = [k for k, ok in checks.items() if not ok]
+        if failed:
+            raise AssertionError(f"phase 37: Yang n_sd={n_sd}: {failed}")
+        records[f"yang_{n_sd}"] = record
+        print(f"phase 37: Yang et al. 2018, {n_sd} super-droplets, 2400 s:"
+              f" {record}, S max {S.max()!r} [{gpu}]")
+    settings = arabas_shima.Settings(
+        w_avg=1.0, N_STP=50 / si.cm**3, r_dry=0.1 * si.um,
+        mass_of_dry_air=1e3 * si.kg, n_output=100,
+    )
+    sim = arabas_shima.Simulation(settings)
+    out, record = _model_window(sim.particulator, sim.run, settings.n_output)
+    rh, r = np.asarray(out["RH"]), np.asarray(out["r"])
+    if not (rh.max() > 1.0 and r.max() > 1e-6 and rh[-1] < rh.max()):
+        raise AssertionError(f"phase 37: Arabas & Shima: {out}")
+    records["arabas_shima"] = record
+    print(f"phase 37: Arabas & Shima 2017, one super-droplet, 100 steps:"
+          f" {record}, RH max {rh.max()!r}, r max {r.max()!r} [{gpu}]")
+    return records
+
+
 def main():
     import torch
 
@@ -3879,6 +4502,20 @@ def main():
     straub, straub_k4 = _straub_on_card(gpu)
     bieli = _bieli_on_card(gpu)
     pure_breakup = _pure_breakup_handle_all(gpu)
+    variant_sets = _k3_variant_sets(torch, k3, device, gpu)
+    lowe = _lowe(gpu)
+    jensen_nugent = _jensen_nugent(gpu)
+    yang_arabas_shima = _yang_and_arabas_shima(gpu)
+    # K3's launches on the model path of each set (phases 35-37)
+    set_launches = {
+        "a_august_roche_magnus": (
+            yang_arabas_shima[f"yang_{YANG_FULL_N}"]["k3_launches"]
+            + yang_arabas_shima["arabas_shima"]["k3_launches"]
+        ),
+        "b_grabowski_2011": jensen_nugent[JN_FULL_N]["k3_launches"],
+        "c_lowe_film": lowe["film_full_width"]["k3_launches"],
+        "d_lowe_constant": lowe["Constant"]["k3_launches"],
+    }
 
     # least times on the card, from this run's inputs: K1 at N_MAIN with two
     # float32 rows (mult 8 + rows 8 + volume 4 in, mult 8 + rows 8 out per
@@ -3901,6 +4538,13 @@ def main():
     print(json.dumps({"paths": {
         "straub": straub, "straub_sort_k4": straub_k4, "bieli": bieli,
         "pure_breakup_handle_all": pure_breakup,
+        "lowe_et_al_2019": lowe,
+        "jensen_and_nugent_2017": {str(k): v for k, v in jensen_nugent.items()},
+        "yang_and_arabas_shima": yang_arabas_shima,
+        "k3_parcel_vs_parent": {
+            str(k): v
+            for k, v in variant_sets.get("parcel_vs_parent", {}).items()
+        },
     }}))
     print(json.dumps({"kernels": [{
         "name": "coalesce_mirror",
@@ -3937,6 +4581,23 @@ def main():
         "bound_ms": k3_bound[0],
         "bound_by": k3_bound[1],
         "library_ms": None,
+        "variant_sets": {
+            name: {
+                "max_err": record["max_abs_err"],
+                "ms": record["ms"],
+                "twin_ms": record["twin_ms"],
+                "bound_ms": record["bound_ms"],
+                "bound_by": record["bound_by"],
+                "ms_2_20": record["ms_2_20"],
+                "near_saturation_log_mass": record["near_saturation"][
+                    "log-mass"
+                ],
+                "bound_ms_2_20": record["bound_ms_2_20"],
+                "launches": set_launches.get(name),
+            }
+            for name, record in variant_sets.items()
+            if name in K3_VARIANT_SETS
+        },
     }, {
         "name": "coalesce_adjacent",
         "route": "cuda",

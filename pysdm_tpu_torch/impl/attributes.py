@@ -101,15 +101,25 @@ class AttributeResolver:
                 return state.ext("dry volume organic") / state.ext("dry volume")
             return torch.zeros_like(state.ext("signed water mass"))
         if name == "Reynolds number":
-            # the reference registers zeros when ventilation is Neglect (the
-            # coefficient is then 1 whatever Re is); Formulae admits no other
-            # ventilation variant yet
-            if f.ventilation.variant != "Neglect":
-                raise NotImplementedError(
-                    "the Reynolds number of ventilation variants other than"
-                    " Neglect come with the rest of physics/ (ROADMAP)"
-                )
-            return torch.zeros_like(state.ext("signed water mass"))
+            # Re = 2 r rho_air |v_rel| / eta_air, from the relative fall
+            # velocity and the cell's air density and viscosity (JAX
+            # ``impl/attributes.py:119-141``); zeros under ventilation
+            # Neglect (the coefficient is then 1 whatever Re is), as the
+            # reference registers, and where the env has no air density
+            if (
+                f.ventilation.variant == "Neglect"
+                or env is None
+                or "air_density" not in env
+            ):
+                return torch.zeros_like(state.ext("signed water mass"))
+            return f.particle_shape_and_density.reynolds_number(
+                radius=self.get(state, "radius"),
+                velocity_wrt_air=self.get(state, "relative fall velocity"),
+                dynamic_viscosity=_env_at_drops(
+                    env["air_viscosity"], state.cell_id
+                ),
+                density=_env_at_drops(env["air_density"], state.cell_id),
+            )
         if name in (
             "critical volume",
             "critical volume neglecting temperature variations",

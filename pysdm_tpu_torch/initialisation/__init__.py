@@ -3,3 +3,4 @@
 from . import spectra
 from .discretise_multiplicities import discretise_multiplicities
 from .equilibrate_wet_radii import equilibrate_wet_radii
+from .aerosol_composition import DryAerosolMixture

@@ -6,4 +6,6 @@ coalescence-breakup box, the Shipway and Hill 2012
 1D column (config #4), the Arabas et al. 2015 2D warm rain (config #5), and
 the ice models: the Alpert & Knopf 2016 freezing box and the Spichtinger et
 al. 2023, Abade & Albuquerque 2024 and Niedermeier et al. 2014 mixed-phase
-parcels (with the Ervens & Feingold 2012 CCN spectrum)"""
+parcels (with the Ervens & Feingold 2012 CCN spectrum), and the parcels of
+the rest of physics/: Arabas & Shima 2017, Yang et al. 2018, Jensen &
+Nugent 2017 and Lowe et al. 2019, with Singer & Ward's Koehler curves"""

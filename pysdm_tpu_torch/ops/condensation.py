@@ -68,7 +68,9 @@ def thermo(formulae, thd, qv, rhod, air_density, air_viscosity):
     return T, p, RH, lv, pvs, DTp, KTp, Sc
 
 
-def per_drop_minfun(formulae, *, x_old, dt_sub, kappa, rd3, T, RH, Fk, Fd):
+def per_drop_minfun(
+    formulae, *, x_old, dt_sub, kappa, rd3, T, RH, Fk, Fd, v_dry, f_org,
+):
     """K3's residual of the implicit step, ``x_old - x + dt dx/dt(x)``, as
     the kernel evaluates it: what does not depend on ``x`` is folded into
     per-drop constants once, the radius enters as its inverse, one
@@ -76,7 +78,10 @@ def per_drop_minfun(formulae, *, x_old, dt_sub, kappa, rd3, T, RH, Fk, Fd):
     log coordinate with the leading-terms Koehler curve (there dx/dt =
     3 r dr/dt / r^2, the mass cancels). The supersaturation difference is
     formed as (RH - 1) - A / r + B / r^3, without rounding RH_eq to an ulp
-    of 1 first. Only the variants K3 evaluates."""
+    of 1 first. Under a film form of the surface tension A = sigma(x) 2 /
+    Rv / T / rho_w, with sigma the variant's formula
+    (``physics/surface_tension.py``) at the volume mass / rho_w, rounded to
+    the dtype of x."""
     f = formulae
     const = f.constants
     k3.check_variants(f, families=(
@@ -85,11 +90,13 @@ def per_drop_minfun(formulae, *, x_old, dt_sub, kappa, rd3, T, RH, Fk, Fd):
     ))
     log_coordinate = f.diffusion_coordinate.variant == "WaterMassLogarithm"
     leading_terms = f.hygroscopicity.variant == "KappaKoehlerLeadingTerms"
+    film = f.surface_tension.variant != "Constant"
     x_max = f.diffusion_coordinate.x_max()
     inv_F = 1 / (Fd if f.drop_growth.variant == "Fick" else Fk + Fd)
     # r^3 = mass * per_mass
     per_mass = 1 / (const.rho_w * const.PI_4_3)
     A = 2 * const.sgm_w / const.Rv / T / const.rho_w
+    A_per_sgm = 2 / const.Rv / T / const.rho_w
     if log_coordinate:
         rate = dt_sub * 3 * inv_F
     else:
@@ -101,13 +108,21 @@ def per_drop_minfun(formulae, *, x_old, dt_sub, kappa, rd3, T, RH, Fk, Fd):
         rd3_solute = rd3 * (1 - kappa)
 
     def minfun(x_new):
-        r3 = (torch.exp(x_new) if log_coordinate else x_new) * per_mass
+        mass = torch.exp(x_new) if log_coordinate else x_new
+        r3 = mass * per_mass
+        kelvin = A
+        if film:
+            kelvin = f.surface_tension.sigma(
+                T, mass * (1 / const.rho_w), v_dry, f_org
+            ).to(mass.dtype) * A_per_sgm
         inv_r = r3 ** (-1 / 3)
         inv_r2 = inv_r * inv_r
         if leading_terms:
-            excess = RH_minus_1 - A * inv_r + B * (inv_r2 * inv_r)
+            excess = RH_minus_1 - kelvin * inv_r + B * (inv_r2 * inv_r)
         else:
-            excess = RH - torch.exp(A * inv_r) * (r3 - rd3) / (r3 - rd3_solute)
+            excess = RH - torch.exp(kelvin * inv_r) * (r3 - rd3) / (
+                r3 - rd3_solute
+            )
         growth = rate * excess * inv_r2 if log_coordinate else rate * excess / inv_r
         return torch.where(x_new > x_max, x_old - x_new, x_old - x_new + growth)
 
@@ -196,6 +211,8 @@ def drop_solve(
     )
     rd3 = vdry / const.PI_4_3
     sgm = f.surface_tension.sigma(T, v_drop, vdry, f_org)
+    if per_drop and isinstance(sgm, torch.Tensor):
+        sgm = sgm.to(ftype)  # Ruehl's sigma comes in float64
     RH_eq = f.hygroscopicity.RH_eq(r_old, T, kappa, rd3, sgm)
 
     lambdaK = f.diffusion_kinetics.lambdaK(T, p)
@@ -218,7 +235,7 @@ def drop_solve(
     if per_drop:
         minfun = per_drop_minfun(
             f, x_old=x_old, dt_sub=dt_sub, kappa=kappa, rd3=rd3, T=T, RH=RH,
-            Fk=Fk, Fd=Fd,
+            Fk=Fk, Fd=Fd, v_dry=vdry, f_org=f_org,
         )
     else:
         margs = (x_old, dt_sub, kappa, f_org, rd3, T, RH, Fk, Fd)
@@ -386,6 +403,16 @@ class CondensationSolver:
             return torch.stack([row.sum() for row in values])[:, None]
         return sorted_segment_sum(values, cell_start, self.n_cell)
 
+    def _k3_rows(self, attrs):
+        """the per-drop rows K3 reads under this variant set"""
+        f = self.formulae
+        rows = {}
+        if f.surface_tension.variant in k3.FILM_FORMS:
+            rows["f_org"] = attrs["f_org"]
+        if f.ventilation.variant != "Neglect":
+            rows["reynolds"] = attrs["reynolds_number"]
+        return rows
+
     def _zero(self, like):
         """a 0-d zero of ``like``'s dtype on its device (``torch.where``
         writes into ``out=`` only between tensors)"""
@@ -438,7 +465,7 @@ class CondensationSolver:
             mass_new, success_drop = k3.masses_new(
                 f, self.settings, water_mass, attrs["vdry"], attrs["kappa"],
                 multiplicity, cell_of_drop, thd, qv, rhod, dt_sub, act,
-                air_density, air_viscosity,
+                air_density, air_viscosity, **self._k3_rows(attrs),
             )
         mult_f = multiplicity.to(water_mass.dtype)
         # the liquid and the failed solves depend on the solve alone: both

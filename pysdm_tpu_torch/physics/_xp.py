@@ -43,6 +43,8 @@ def _unary(torch_fn, np_fn):
 
 
 sinh = _unary(torch.sinh, np.sinh)
+tanh = _unary(torch.tanh, np.tanh)
+log1p = _unary(torch.log1p, np.log1p)
 arcsinh = _unary(torch.asinh, np.arcsinh)
 arctanh = _unary(torch.atanh, np.arctanh)
 

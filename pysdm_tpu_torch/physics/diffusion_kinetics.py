@@ -1,7 +1,8 @@
-"""Transition-regime corrections for condensational growth: the
-``FuchsSutugin`` and ``Neglect`` variants of
-``pysdm_tpu/physics/diffusion_kinetics.py``. The other variants come with
-the rest of physics/ (ROADMAP)."""
+"""Transition-regime corrections for condensational growth (port of
+``pysdm_tpu/physics/diffusion_kinetics.py``; reference
+``PySDM/physics/diffusion_kinetics/``)."""
+
+import math
 
 from . import _xp
 
@@ -58,4 +59,46 @@ class Neglect:
         return K
 
 
-VARIANTS = {"FuchsSutugin": FuchsSutugin, "Neglect": Neglect}
+class PruppacherKlett:
+    """Pruppacher & Klett 2005 eq. 13-14 (Okuyama & Zung 1967)"""
+
+    @staticmethod
+    def lambdaD(const, D, T):
+        return D / _xp.sqrt(2 * const.Rv * T)
+
+    @staticmethod
+    def lambdaK(const, T, p):
+        return -1.0
+
+    @staticmethod
+    def D(const, D, r, lmbd):
+        return D / (
+            (r / (r + const.dv_pk05)) + 2 * math.sqrt(const.PI) * lmbd / r / const.MAC
+        )
+
+    @staticmethod
+    def K(const, K, r, lmbd):
+        return K
+
+
+class GrabowskiEtAl2011(PruppacherKlett):
+    pass
+
+
+class LoweEtAl2019(PruppacherKlett):
+    @staticmethod
+    def lambdaK(const, T, p):
+        return -1.0
+
+    @staticmethod
+    def K(const, K, r, lmbd):
+        return K
+
+
+VARIANTS = {
+    "FuchsSutugin": FuchsSutugin,
+    "Neglect": Neglect,
+    "PruppacherKlett": PruppacherKlett,
+    "GrabowskiEtAl2011": GrabowskiEtAl2011,
+    "LoweEtAl2019": LoweEtAl2019,
+}

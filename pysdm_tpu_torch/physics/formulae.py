@@ -1,13 +1,12 @@
 """Formulae engine (API parity with ``pysdm_tpu/physics/formulae.py``): one
 variant per physics family, bound to a frozen constants namespace.
 
-The port binds the families the liquid-phase configurations and the ice
-slice read, with the JAX package's defaults
-(``pysdm_tpu/physics/formulae.py:86-118``); the nucleation families and
-the bulk phase partitioning default to ``Null``, as there. Choosing a
-variant the port does not have yet raises ``NotImplementedError`` naming,
-by its title, the ROADMAP item that brings it; so does choosing any variant
-of a family the port does not bind yet (the isotope and optical families).
+The port binds every family of the JAX package but the isotope families,
+with its defaults (``pysdm_tpu/physics/formulae.py:86-118``); the
+nucleation families, the bulk phase partitioning and the optical families
+default to ``Null``, as there. Choosing any variant of an isotope family
+raises ``NotImplementedError`` naming, by its title, the ROADMAP item that
+brings it.
 """
 
 import os
@@ -25,103 +24,98 @@ from . import (
     misc_families,
     saturation_vapour_pressure,
     state_variable_triplet,
+    surface_tension,
 )
 from .constants import make_constants
 from .particle_shape_and_density import VARIANTS as SHAPE_VARIANTS
 from .trivia import Trivia
 
-_PHYSICS = "ROADMAP: the rest of physics/"
 _ISOTOPES = "ROADMAP: chemistry and isotopes (other dynamics)"
-_OPTICAL = "ROADMAP: the optical products (the rest of products/)"
 
 _NULL = {"Null": misc_families.Null}
 
-# family -> (ported variants, default, where the other variants come from)
+# family -> (variants, default)
 _FAMILIES = {
-    "trivia": ({"Trivia": Trivia}, "Trivia", None),
+    "trivia": ({"Trivia": Trivia}, "Trivia"),
     "particle_shape_and_density": (
-        SHAPE_VARIANTS, "LiquidSpheres", _PHYSICS,
+        SHAPE_VARIANTS, "LiquidSpheres",
     ),
     "diffusion_coordinate": (
         misc_families.DIFFUSION_COORDINATE_VARIANTS, "WaterMassLogarithm",
-        _PHYSICS,
     ),
     "saturation_vapour_pressure": (
-        saturation_vapour_pressure.VARIANTS, "FlatauWalkoCotton", _PHYSICS,
+        saturation_vapour_pressure.VARIANTS, "FlatauWalkoCotton",
     ),
     "latent_heat_vapourisation": (
-        latent_heat.VAPOURISATION_VARIANTS, "Kirchhoff", _PHYSICS,
+        latent_heat.VAPOURISATION_VARIANTS, "Kirchhoff",
     ),
     "latent_heat_sublimation": (
-        latent_heat.SUBLIMATION_VARIANTS, "MurphyKoop2005", _PHYSICS,
+        latent_heat.SUBLIMATION_VARIANTS, "MurphyKoop2005",
     ),
     "hygroscopicity": (
-        hygroscopicity.VARIANTS, "KappaKoehlerLeadingTerms", _PHYSICS,
+        hygroscopicity.VARIANTS, "KappaKoehlerLeadingTerms",
     ),
-    "drop_growth": (drop_growth.VARIANTS, "Mason1971", _PHYSICS),
+    "drop_growth": (drop_growth.VARIANTS, "Mason1971"),
     "surface_tension": (
-        misc_families.SURFACE_TENSION_VARIANTS, "Constant", _PHYSICS,
+        misc_families.SURFACE_TENSION_VARIANTS | surface_tension.VARIANTS,
+        "Constant",
     ),
-    "diffusion_kinetics": (diffusion_kinetics.VARIANTS, "FuchsSutugin", _PHYSICS),
+    "diffusion_kinetics": (diffusion_kinetics.VARIANTS, "FuchsSutugin"),
     "diffusion_ice_kinetics": (
-        diffusion_ice.KINETICS_VARIANTS, "Standard", None,
+        diffusion_ice.KINETICS_VARIANTS, "Standard",
     ),
     "diffusion_ice_capacity": (
-        diffusion_ice.CAPACITY_VARIANTS, "Spherical", None,
+        diffusion_ice.CAPACITY_VARIANTS, "Spherical",
     ),
-    "diffusion_thermics": (diffusion_thermics.VARIANTS, "Neglect", _PHYSICS),
-    "ventilation": (misc_families.VENTILATION_VARIANTS, "Neglect", _PHYSICS),
+    "diffusion_thermics": (diffusion_thermics.VARIANTS, "Neglect"),
+    "ventilation": (misc_families.VENTILATION_VARIANTS, "Neglect"),
     "state_variable_triplet": (
-        state_variable_triplet.VARIANTS, "LibcloudphPlusPlus", _PHYSICS,
+        state_variable_triplet.VARIANTS, "LibcloudphPlusPlus",
     ),
     "particle_advection": (
-        misc_families.PARTICLE_ADVECTION_VARIANTS, "ImplicitInSpace", _PHYSICS,
+        misc_families.PARTICLE_ADVECTION_VARIANTS, "ImplicitInSpace",
     ),
     "terminal_velocity": (
-        misc_families.TERMINAL_VELOCITY_VARIANTS, "GunnKinzer1949", _PHYSICS,
+        misc_families.TERMINAL_VELOCITY_VARIANTS, "GunnKinzer1949",
     ),
     "hydrostatics": (
         misc_families.HYDROSTATICS_VARIANTS,
-        "ConstantGVapourMixingRatioAndThetaStd", _PHYSICS,
+        "ConstantGVapourMixingRatioAndThetaStd",
     ),
     "air_dynamic_viscosity": (
         misc_families.AIR_DYNAMIC_VISCOSITY_VARIANTS, "ZografosEtAl1987",
-        _PHYSICS,
     ),
     "freezing_temperature_spectrum": (
         _NULL | ice_nucleation.FREEZING_TEMPERATURE_SPECTRUM_VARIANTS, "Null",
-        None,
     ),
     "heterogeneous_ice_nucleation_rate": (
-        _NULL | ice_nucleation.HETEROGENEOUS_RATE_VARIANTS, "Null", None,
+        _NULL | ice_nucleation.HETEROGENEOUS_RATE_VARIANTS, "Null",
     ),
     "homogeneous_ice_nucleation_rate": (
-        _NULL | ice_nucleation.HOMOGENEOUS_RATE_VARIANTS, "Null", None,
+        _NULL | ice_nucleation.HOMOGENEOUS_RATE_VARIANTS, "Null",
     ),
     "bulk_phase_partitioning": (
-        _NULL | misc_families.BULK_PHASE_PARTITIONING_VARIANTS, "Null", None,
+        _NULL | misc_families.BULK_PHASE_PARTITIONING_VARIANTS, "Null",
     ),
+    "optical_albedo": (misc_families.OPTICAL_ALBEDO_VARIANTS, "Null"),
+    "optical_depth": (misc_families.OPTICAL_DEPTH_VARIANTS, "Null"),
     # the names only: fragment sampling lives in
     # dynamics/collisions/breakup_fragmentations.py, as in the JAX package
     "fragmentation_function": (
-        misc_families.FRAGMENTATION_FUNCTION_VARIANTS, "AlwaysN", None,
+        misc_families.FRAGMENTATION_FUNCTION_VARIANTS, "AlwaysN",
     ),
 }
 
 # families of the JAX package that the port does not bind yet
 _LATER_FAMILIES = {
-    **{
-        name: _ISOTOPES
-        for name in (
-            "isotope_equilibrium_fractionation_factors",
-            "isotope_kinetic_fractionation_factors",
-            "isotope_meteoric_water_line", "isotope_ratio_evolution",
-            "isotope_diffusivity_ratios", "isotope_relaxation_timescale",
-            "isotope_temperature_inference", "isotope_ventilation_ratio",
-        )
-    },
-    "optical_albedo": _OPTICAL,
-    "optical_depth": _OPTICAL,
+    name: _ISOTOPES
+    for name in (
+        "isotope_equilibrium_fractionation_factors",
+        "isotope_kinetic_fractionation_factors",
+        "isotope_meteoric_water_line", "isotope_ratio_evolution",
+        "isotope_diffusivity_ratios", "isotope_relaxation_timescale",
+        "isotope_temperature_inference", "isotope_ventilation_ratio",
+    )
 }
 
 
@@ -178,12 +172,12 @@ class Formulae:
         self.fastmath = fastmath
         self.handle_all_breakups = handle_all_breakups
         self._variant_names = {}
-        for family, (variants, default, later) in _FAMILIES.items():
+        for family, (variants, default) in _FAMILIES.items():
             name = variant_choices.get(family, default)
             if name not in variants:
-                raise NotImplementedError(
-                    f"variant {name!r} of {family!r} is not ported yet: it"
-                    f" comes with {later}; ported: {sorted(variants)}"
+                raise ValueError(
+                    f"unknown variant {name!r} for family {family!r};"
+                    f" known: {sorted(variants)}"
                 )
             self._variant_names[family] = name
             setattr(self, family, _bind(variants[name], self.constants, name))

@@ -1,9 +1,15 @@
 """Latent heat of vapourisation and of sublimation (port of
-``pysdm_tpu/physics/latent_heat.py``): the ``Kirchhoff`` vapourisation
-variant and the ``MurphyKoop2005`` sublimation variant. The other
-vapourisation variants come with the rest of physics/ (ROADMAP)."""
+``pysdm_tpu/physics/latent_heat.py``; reference
+``PySDM/physics/latent_heat_vapourisation/`` and
+``latent_heat_sublimation/``)."""
 
 from . import _xp
+
+
+class Constant:
+    @staticmethod
+    def lv(const, T):
+        return const.l_tri
 
 
 class Kirchhoff:
@@ -12,7 +18,22 @@ class Kirchhoff:
         return const.l_tri + (const.c_pv - const.c_pw) * (T - const.T_tri)
 
 
-VAPOURISATION_VARIANTS = {"Kirchhoff": Kirchhoff}
+class SeinfeldPandis:
+    @staticmethod
+    def lv(const, T):
+        return const.l_tri * (const.T_tri / T) ** (const.l_l19_a + const.l_l19_b * T)
+
+
+class Lowe2019(SeinfeldPandis):
+    pass
+
+
+VAPOURISATION_VARIANTS = {
+    "Constant": Constant,
+    "Kirchhoff": Kirchhoff,
+    "SeinfeldPandis": SeinfeldPandis,
+    "Lowe2019": Lowe2019,
+}
 
 
 class MurphyKoop2005Sublimation:

@@ -1,10 +1,11 @@
-"""The smaller single-purpose families the parcel and the kinematic grids
-read (port of the matching parts of ``pysdm_tpu/physics/misc_families.py``):
-particle advection, hydrostatics, air dynamic viscosity, ventilation
-(``Neglect``), surface tension (``Constant``), the diffusion coordinate and
-the terminal velocity (``GunnKinzer1949``, whose table, and ``PowerSeries``,
-whose power law, live in ``dynamics/terminal_velocity.py``; ``RogersYau``)
-and the bulk phase partitioning (``KaulEtAl2015``)."""
+"""The smaller single-purpose families (port of
+``pysdm_tpu/physics/misc_families.py``): particle advection, hydrostatics,
+air dynamic viscosity, ventilation, surface tension (``Constant``; the film
+variants are in ``surface_tension.py``), the diffusion coordinate, the
+terminal velocity (``GunnKinzer1949``, whose table, and ``PowerSeries``,
+whose power law, live in ``dynamics/terminal_velocity.py``; ``RogersYau``),
+the optical albedo and depth, and the bulk phase partitioning
+(``KaulEtAl2015``)."""
 
 from . import _xp
 
@@ -96,8 +97,22 @@ class ConstantGVapourMixingRatioAndThetaStd:
         return const.p1000 * _xp.power(arg, 1 / const.Rd_over_c_pd)
 
 
+class VariableGIsothermal:
+    @staticmethod
+    def pressure(const, z, p0, temperature, molar_mass):
+        return p0 * _xp.exp(
+            -const.g_std
+            / const.R_str
+            * molar_mass
+            / temperature
+            * z
+            / (1 + z / const.celestial_body_radius)
+        )
+
+
 HYDROSTATICS_VARIANTS = {
     "ConstantGVapourMixingRatioAndThetaStd": ConstantGVapourMixingRatioAndThetaStd,
+    "VariableGIsothermal": VariableGIsothermal,
 }
 
 
@@ -124,7 +139,32 @@ class VentilationNeglect:
         return _xp.power(sqrt_re_times_cbrt_sc, 0)
 
 
-VENTILATION_VARIANTS = {"Neglect": VentilationNeglect}
+class Froessling1938:
+    @staticmethod
+    def ventilation_coefficient(const, sqrt_re_times_cbrt_sc):
+        return const.FROESSLING_1938_A + const.FROESSLING_1938_B * sqrt_re_times_cbrt_sc
+
+
+class PruppacherAndRasmussen1979:
+    @staticmethod
+    def ventilation_coefficient(const, sqrt_re_times_cbrt_sc):
+        return _xp.where(
+            sqrt_re_times_cbrt_sc < const.PRUPPACHER_RASMUSSEN_1979_XTHRES,
+            const.PRUPPACHER_RASMUSSEN_1979_CONSTSMALL
+            + const.PRUPPACHER_RASMUSSEN_1979_COEFFSMALL
+            * _xp.power(
+                sqrt_re_times_cbrt_sc, const.PRUPPACHER_RASMUSSEN_1979_POWSMALL
+            ),
+            const.PRUPPACHER_RASMUSSEN_1979_CONSTBIG
+            + const.PRUPPACHER_RASMUSSEN_1979_COEFFBIG * sqrt_re_times_cbrt_sc,
+        )
+
+
+VENTILATION_VARIANTS = {
+    "Neglect": VentilationNeglect,
+    "Froessling1938": Froessling1938,
+    "PruppacherAndRasmussen1979": PruppacherAndRasmussen1979,
+}
 
 
 # --- surface_tension --------------------------------------------------------
@@ -194,6 +234,31 @@ FRAGMENTATION_FUNCTION_VARIANTS = {
         "Feingold1988", "Gaussian", "LowList1982Nf", "SLAMS", "Straub2010Nf",
     )
 }
+
+
+# --- optical_albedo / optical_depth -----------------------------------------
+class Bohren1987:
+    """cloud albedo from optical depth (reference
+    ``physics/optical_albedo/bohren1987.py``, Bohren 1987 eq. 14)"""
+
+    @staticmethod
+    def albedo(const, tau):
+        return ((1.0 - const.asymmetry_g) * tau) / (
+            2.0 + (1.0 - const.asymmetry_g) * tau
+        )
+
+
+class Stephens1978:
+    """cloud optical depth from LWP and effective radius (reference
+    ``physics/optical_depth/stephens_1978.py``, Stephens 1978 eq. 7)"""
+
+    @staticmethod
+    def tau(const, LWP, reff):
+        return (1.5 * LWP) / (const.rho_w * reff)
+
+
+OPTICAL_ALBEDO_VARIANTS = {"Null": Null, "Bohren1987": Bohren1987}
+OPTICAL_DEPTH_VARIANTS = {"Null": Null, "Stephens1978": Stephens1978}
 
 
 # --- bulk_phase_partitioning -------------------------------------------------

@@ -2,7 +2,9 @@
 ``pysdm_tpu/physics/particle_shape_and_density.py``; reference
 ``PySDM/physics/particle_shape_and_density/``): ``LiquidSpheres``, and the
 mixed-phase ``MixedPhaseSpheres`` and ``ColumnarIce``, in which a negative
-signed water mass is ice. ``PorousSpheroid`` is not ported yet."""
+signed water mass is ice, and the geometry helpers of ``PorousSpheroid``
+(which has no ``mass_to_volume`` in either package, so condensation cannot
+take it)."""
 
 from . import _xp
 
@@ -146,3 +148,32 @@ VARIANTS = {
     "MixedPhaseSpheres": MixedPhaseSpheres,
     "ColumnarIce": ColumnarIce,
 }
+
+
+class PorousSpheroid:
+    """porous spheroids (Shima et al. 2020) and prolate spheroids
+    (Spichtinger & Gierens 2009): geometry helpers (reference
+    ``particle_shape_and_density/porous_spheroids.py``)"""
+
+    @staticmethod
+    def supports_mixed_phase(const=None):
+        return True
+
+    @staticmethod
+    def aspect_ratio(const, polar_radius, equatorial_radius):
+        return polar_radius / equatorial_radius
+
+    @staticmethod
+    def equatorial_radius(const, polar_radius, aspect_ratio):
+        return polar_radius / aspect_ratio
+
+    @staticmethod
+    def polar_radius(const, equatorial_radius, aspect_ratio):
+        return equatorial_radius * aspect_ratio
+
+    @staticmethod
+    def eccentricity(const, aspect_ratio):
+        return _xp.sqrt(1 - aspect_ratio**-2.0)
+
+
+VARIANTS["PorousSpheroid"] = PorousSpheroid

@@ -1,6 +1,6 @@
 """Products (diagnostics), port of ``pysdm_tpu/products/``: every
-liquid-phase product and the ice (``freezing``) products. The chemistry
-and optical products come with those slices (ROADMAP)."""
+liquid-phase product, the ice (``freezing``) products and the optical
+products. The chemistry products come with that slice (ROADMAP)."""
 
 from .impl import MomentProduct, Product
 from .size_spectral import (
@@ -89,3 +89,4 @@ from .freezing import (
     SpecificIceWaterContent,
     TotalUnfrozenImmersedSurfaceArea,
 )
+from .optical import CloudAlbedo, CloudOpticalDepth

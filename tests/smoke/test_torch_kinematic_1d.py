@@ -32,6 +32,7 @@ twin shares.
 import jax
 import numpy as np
 import pytest
+import torch
 
 import pysdm_tpu
 from pysdm_tpu import products as jax_products
@@ -50,6 +51,17 @@ CLOUD_STEPS = 50
 # the gamma draws' range in the coalescence steps that merge pairs
 MERGING_GAMMA_SCALE = 1e-8
 SETTINGS = dict(n_sd_per_gridbox=16, dz=100 * si.m, dt=5 * si.s, seed=44)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """one torch thread while this module runs: the tests run in several
+    processes at once, and torch's own threads on top of them oversubscribe
+    the cores (seen: a 68 s file took 850 s beside another torch file)"""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
 
 
 def _products(pkg):

@@ -26,6 +26,7 @@ cell), float64 on both sides.
 import jax
 import numpy as np
 import pytest
+import torch
 
 import pysdm_tpu
 import pysdm_tpu.builder
@@ -41,6 +42,17 @@ from pysdm_tpu_torch.physics import si
 GRID = (8, 8)
 SPIN_UP_STEPS = 20
 RAIN_STEPS = 10
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """one torch thread while this module runs: the tests run in several
+    processes at once, and torch's own threads on top of them oversubscribe
+    the cores (seen: a 68 s file took 850 s beside another torch file)"""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
 
 
 def _build(pkg, model, settings, backend):

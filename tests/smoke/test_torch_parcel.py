@@ -238,11 +238,12 @@ def test_counter_without_dtype_takes_the_backends():
 
 
 def test_multi_cell_and_other_ventilation_are_refused():
-    """other ventilation variants are still refused; multi-cell
-    condensation is not any more: it registers per-cell
-    counters"""
-    with pytest.raises(NotImplementedError, match="the rest of physics/"):
-        pysdm_tpu_torch.Formulae(ventilation="Froessling1938")
+    """neither is refused any more: the other ventilation variants came
+    with the rest of physics/ and bind, and multi-cell condensation
+    registers per-cell counters"""
+    assert pysdm_tpu_torch.Formulae(
+        ventilation="Froessling1938"
+    ).ventilation.variant == "Froessling1938"
     builder = pysdm_tpu_torch.Builder(
         n_sd=4, backend=CPU(pysdm_tpu_torch.Formulae(seed=1)),
         environment=Parcel(dt=1.0, mass_of_dry_air=1.0, p0=1e5,

@@ -42,6 +42,17 @@ from pysdm_tpu_torch.models import shipway_and_hill_2012 as model  # noqa: E402
 from pysdm_tpu_torch.physics import si  # noqa: E402
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """one torch thread while this module runs: the tests run in several
+    processes at once, and torch's own threads on top of them oversubscribe
+    the cores (seen: a 68 s file took 850 s beside another torch file)"""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 @pytest.fixture(scope="module")
 def column_simulation():
     """``test_kinematic_1d.py``'s column: 32 cells of 50 m, dt = 2 s, 16

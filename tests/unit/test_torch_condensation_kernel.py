@@ -190,11 +190,22 @@ def test_wrapper_checks_its_rows():
 
 
 def test_kernel_refuses_other_variants():
-    formulae = pysdm_tpu_torch.Formulae(seed=44)
+    """K3 takes every variant set the JAX package's condensation takes;
+    what it refuses are the particle shapes without the formulae
+    condensation needs, which the JAX package cannot condense on either"""
+    formulae = pysdm_tpu_torch.Formulae(seed=44, ventilation="Froessling1938")
     k3.check_variants(formulae)
-    formulae.ventilation.variant = "Froessling1938"
-    with pytest.raises(NotImplementedError, match="Froessling1938"):
+    formulae = pysdm_tpu_torch.Formulae(
+        seed=44, particle_shape_and_density="PorousSpheroid"
+    )
+    with pytest.raises(NotImplementedError, match="PorousSpheroid.*mass_to_volume"):
         k3.check_variants(formulae)
+    assert not hasattr(
+        pysdm_tpu.Formulae(
+            particle_shape_and_density="PorousSpheroid"
+        ).particle_shape_and_density,
+        "mass_to_volume",
+    )
 
 
 def test_constants_reach_the_kernel_params():
@@ -207,7 +218,7 @@ def test_constants_reach_the_kernel_params():
     assert params.bisect_cap == 40 and params.max_iters == MAX_ITERS
     assert params.coordinate == 1 and params.hygroscopicity == 1
     assert params.drop_growth == 2 and params.kinetics == 0
-    assert list(params.fwc) == [
+    assert list(params.svp)[:9] == [
         np.float32(getattr(const, f"FWC_C{k}")) for k in range(9)
     ]
 

@@ -32,6 +32,17 @@ class CPU32(TorchBackend):
         super().__init__(formulae, torch.float32, "cpu")
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """one torch thread while this module runs: the tests run in several
+    processes at once, and torch's own threads on top of them oversubscribe
+    the cores (seen: a 68 s file took 850 s beside another torch file)"""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _per_row_sum(self, values, cell_start):
     """the earlier form: one per-cell sum per row"""
     if values.dim() == 1:

@@ -178,9 +178,9 @@ def test_wrapper_raises_instead_of_falling_back(device):
     mixed = dict(rows, vdry=rows["vdry"].cpu())
     with pytest.raises(ValueError, match="cpu"):
         k3.masses_new(formulae, settings, *(mixed[k] for k in chip_smoke.K3_ARGS))
-    formulae.ventilation.variant = "Froessling1938"
+    formulae.particle_shape_and_density.variant = "PorousSpheroid"
     before = k3.masses_new.launches
-    with pytest.raises(NotImplementedError, match="Froessling1938"):
+    with pytest.raises(NotImplementedError, match="PorousSpheroid"):
         k3.masses_new(formulae, settings, *(rows[k] for k in chip_smoke.K3_ARGS))
     assert k3.masses_new.launches == before
 
@@ -203,3 +203,47 @@ def test_counter_without_dtype_takes_the_backends_on_card(device):
 
     p = chip_smoke.build_parcel(4, GPU, adaptive=True)
     assert p.sim_state["counters"]["condensation_RH_max"].dtype == torch.float32
+
+
+@pytest.mark.parametrize("name", tuple(chip_smoke.K3_VARIANT_SETS))
+def test_every_variant_set_matches_twin_on_card(device, name):
+    """the sets of ``chip_smoke.py`` phase 34 (``K3_VARIANT_SETS``): the
+    regimes, kernel against twin at ``compare_k3``'s bound, and the drops in
+    a random order bit-equal to the sorted ones"""
+    formulae = chip_smoke.k3_variant_formulae(name)
+    settings = DropSolveSettings(*chip_smoke.K3_SETTINGS)
+    rows = chip_smoke.settle_haze(
+        formulae, chip_smoke.k3_variant_rows(name, N, seed=5), device
+    )
+    kernel = chip_smoke.k3_call(k3.masses_new, formulae, settings, rows, device)
+    twin = chip_smoke.k3_call(
+        k3.masses_new_reference, formulae, settings, rows, device
+    )
+    chip_smoke.check_k3_regimes(rows, *kernel)
+    chip_smoke.check_k3_regimes(rows, *twin)
+    chip_smoke.compare_k3(rows, kernel, twin, settings.rtol_x)
+    permuted, order = chip_smoke.k3_permuted_rows(rows)
+    shuffled = chip_smoke.k3_call(
+        k3.masses_new, formulae, settings, permuted, device
+    )
+    for got, want in zip(shuffled, kernel):
+        np.testing.assert_array_equal(got, want[order])
+
+
+def test_parcel_set_bit_equal_to_the_parent_build(device):
+    """the parcel slice's variant set through this build and through the
+    build before the variant sets (the ``condensation.cu`` of
+    ``chip_smoke.K3_PARENT_COMMIT``, checked by its blob id, from
+    ``chip_smoke.K3_PARENT_DIR`` or git; skipped where neither has it):
+    bit-equal"""
+    parent = chip_smoke._parent_k3(torch)
+    if parent is None:
+        pytest.skip("the parent build's condensation.cu is not at hand")
+    formulae = Formulae(seed=44)
+    settings = DropSolveSettings(*chip_smoke.K3_SETTINGS)
+    rows = chip_smoke.settle_haze(formulae, chip_smoke.k3_rows(N), device)
+    args = [torch.from_numpy(rows[k]).to(device) for k in chip_smoke.K3_ARGS]
+    new = k3.masses_new(formulae, settings, *args)
+    old = parent(k3.kernel_params(formulae, settings), args)
+    for got, want in zip(new, old):
+        assert torch.equal(got, want)

@@ -188,8 +188,15 @@ _REST_OF_PHYSICS = "the rest of physics/"
     ),
 ))
 def test_unported_variant_names_where_it_comes(family, variant, later):
-    with pytest.raises(NotImplementedError, match=later):
-        pysdm_tpu_torch.Formulae(**{family: variant})
+    """these variants came with the rest of physics/ (``later``): each now
+    binds, and its formulae equal the JAX package's (every variant is held
+    at rtol 1e-12 in ``test_torch_physics_variants.py``)"""
+    port = getattr(pysdm_tpu_torch.Formulae(**{family: variant}), family)
+    assert port.variant == variant
+    reference = getattr(pysdm_tpu.Formulae(**{family: variant}), family)
+    assert sorted(k for k in vars(port) if k != "variant") == sorted(
+        k for k in vars(reference) if k != "variant"
+    )
 
 
 def test_defaults_are_the_jax_packages():

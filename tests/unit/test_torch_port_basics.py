@@ -73,12 +73,20 @@ def test_formula_matches_jax_package(family, name, args):
 def test_unported_formula_family_names_its_slice():
     with pytest.raises(NotImplementedError, match="chemistry and isotopes"):
         pysdm_tpu_torch.Formulae(isotope_meteoric_water_line="Dansgaard1964")
-    with pytest.raises(NotImplementedError, match="the rest of physics/"):
-        pysdm_tpu_torch.Formulae(ventilation="Froessling1938")
-    with pytest.raises(NotImplementedError, match="the rest of physics/"):
-        pysdm_tpu_torch.Formulae(saturation_vapour_pressure="AugustRocheMagnus")
-    with pytest.raises(NotImplementedError, match="the rest of physics/"):
-        pysdm_tpu_torch.Formulae(particle_shape_and_density="PorousSpheroid")
+    # the rest of physics/ is ported: these variants bind, as in the JAX
+    # package; a name neither package has is refused by both
+    for family, variant in (
+        ("ventilation", "Froessling1938"),
+        ("saturation_vapour_pressure", "AugustRocheMagnus"),
+        ("particle_shape_and_density", "PorousSpheroid"),
+    ):
+        formulae = pysdm_tpu_torch.Formulae(**{family: variant})
+        assert getattr(formulae, family).variant == variant
+        pysdm_tpu.Formulae(**{family: variant})
+    with pytest.raises(ValueError):
+        pysdm_tpu_torch.Formulae(ventilation="NoSuchVariant")
+    with pytest.raises(ValueError):
+        pysdm_tpu.Formulae(ventilation="NoSuchVariant")
     with pytest.raises(ValueError):
         pysdm_tpu_torch.Formulae(no_such_family="x")
 

@@ -16,12 +16,17 @@ arithmetic (Berry's Ec, the fragment mass, the transfer), each called once
 on loaded arguments, and counts their SASS instructions: what a pair with
 gamma > 0, or one that breaks up, adds to a pair that does neither.
 
+With ``--k3-parent SRC`` (another ``condensation.cu``, such as the one
+``chip_smoke.py`` keeps in ``build/k3_parent``), prints ptxas's lines and
+the SASS instructions of the solve's kernels of both sources, side by side.
+
 Run from the root of the checkout on a host with the CUDA toolkit:
-``python tools/kernel_resources.py [--out build/resources]``
+``python tools/kernel_resources.py [--out build/resources] [--k3-parent SRC]``
 """
 
 import argparse
 import os
+import pathlib
 import re
 import subprocess
 import sys
@@ -116,6 +121,7 @@ def k5_probe_counts(nvcc, out_dir):
 def main():
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--out", default="build/resources")
+    parser.add_argument("--k3-parent", default=None)
     args = parser.parse_args()
     os.makedirs(args.out, exist_ok=True)
     nvcc = _build.nvcc_path()
@@ -132,6 +138,20 @@ def main():
     print("== condensation.cu with the minfun probe: SASS instructions")
     for name, count in sass_counts(nvcc, cubin).items():
         print(f"  {count:6d}  {name}")
+    if args.k3_parent:
+        for label, source in (
+            ("this build", _build.CSRC / "condensation.cu"),
+            ("parent", pathlib.Path(args.k3_parent)),
+        ):
+            out = os.path.join(args.out, label.replace(" ", "_"))
+            os.makedirs(out, exist_ok=True)
+            cubin, report = ptxas_report(nvcc, source, out)
+            print(f"== K3, {label} ({source}): ptxas, SASS instructions")
+            for line in report.splitlines():
+                if "Compiling entry" in line or "registers" in line:
+                    print("  " + line.replace("ptxas info    : ", ""))
+            for name, count in sass_counts(nvcc, cubin).items():
+                print(f"  {count:6d}  {name}")
     print("== K5's per-pair pieces (collision_breakup.cu probes): SASS"
           " instructions")
     for name, count in k5_probe_counts(nvcc, args.out).items():
