@@ -209,7 +209,43 @@ Run from the root of the checkout: ``python3 chip_smoke.py``. Phases:
 37. ``yang_et_al_2018.Simulation`` at the JAX test's bounds with 32
    super-droplets and at 2^17 (``yang_settings``), 2400 s each, and
    ``arabas_and_shima_2017.Simulation`` at the JAX test's settings. In
-   phases 35-37 K3's launches equal the condensation solves.
+   phases 35-37 K3's launches equal the condensation solves;
+38. Morrison & Grabowski 2007's strato-cumulus with singular immersion
+   freezing on the mixed-phase grid (``Bigg_1953`` with a 33 K median,
+   ``MixedPhaseSpheres``) at config #5's width, 25 x 25 x 2^12, through
+   ``make_simulation`` on the card, one step and 30 timed: the collision
+   route "float64" (the max-merged freezing temperature), no K2 launch,
+   K3 launches = solves, K4 counted, one collision read per substep and
+   one a step; the total water to 1e-3 with the precipitation summed step
+   by step on the device, multiplicities >= 0, no ice, every final
+   freezing temperature one of the initial ones and fewer distinct; one
+   more step's K3 solve and K4 scans against their twins and its first
+   collision substep's per-cell rates (``compute_gamma``) against float64
+   host sums, a step with
+   collisions off that leaves the multiset of (T_fz, dry volume, kappa
+   times dry volume) rows as it was (the shared sort carries the max
+   row), 3 profiled steps; then the JAX test's 6 x 6 x 8 case at its
+   bounds;
+39. ``bartman_et_al_2021.benchmark`` on the card at 2^5, 2^8 and 2^12 per
+   cell of the 25 x 25 warm rain, 30 timed steps each, K2, K3 and K4
+   launches counted over the window the harness's clock sees; at 2^12
+   they equal phase 10's; at 2^5 and 2^8 one more step's K2 substep, K3
+   solve and K4 scans against their twins;
+40. ``pyrcel`` (2 x 16 and 2 x 2^16), ``grabowski_and_pawlowska_2023``
+   (pristine and polluted, 32 and 2^17) and ``abdul_razzak_ghan_2000``
+   (2 x 16 and 2 x 2^16) through their entry points with each JAX test's
+   bounds, K3 launches = solves, K3 against its twin on a solve of each
+   run;
+41. ``arabas_et_al_2025`` at 2^17 (the box and its particles scaled from
+   the test's 256), singular and time-dependent at the three cooling
+   rates, the four JAX tests' bounds;
+42. the seeding parcel at 2^17 + 2^12 graves, 2^12 super-droplets per 100
+   s in the 300-400 s window, collisions on: the JAX test's bounds, the
+   super-droplet count up by each step's injection until every grave is
+   filled, K1 launches = collision substeps and K3 = solves, condensation's
+   success; the first K1 substep and K3 solve from t = 330 s (injected
+   drops beside graves) against their twins; a 2^17 ``RelaxedVelocity``
+   box within rtol 1e-3 of the terminal velocity.
 
 Every box phase checks multiplicities >= 0, water mass conserved to 1e-6 and
 coalescence having happened. Any failure raises, and the script exits
@@ -226,9 +262,12 @@ its twin from phase 18 and its launches in phase 20, ``berry_launches``;
 K5's in phase 21, ``bulenok_launches``; K4's on phase 31's sort croupier,
 ``straub_sort_launches``; K1a's at Berry's 2^13, its main path's width,
 with its 2^20 times; K3's per variant set of phase 34, ``variant_sets``,
-with the launches on the model path of phases 35-37 that uses each),
-before them one line of the float64 paths' and the parcel models' records
-(phases 31-37), and one of the device.
+with the launches on the model path of phases 35-37 that uses each; the
+launches on phases 38-42's paths, ``mg2007_launches``,
+``bartman_launches``, ``parcel_model_launches`` and ``seeding_launches``,
+and the differences to the twins on those paths' inputs, ``*_max_abs_err``),
+before them one line of the float64 paths' and the models' records
+(phases 31-42), and one of the device.
 """
 
 import concurrent.futures
@@ -4183,7 +4222,10 @@ def _k3_variant_sets(torch, k3, device, gpu):
 def _model_window(p, run, steps):
     """run ``run()`` (``steps`` steps of ``p``) with K3's and K1's counts
     set to 0 just before and read just after; returns a record of the
-    window: ms/step, launches, solves, collision substeps, host reads"""
+    window: ms/step, launches, solves, collision substeps, and the reads
+    that the condensation solver and the collision loop make. The model's
+    own reads of attributes and products (``run``'s output) are not
+    counted"""
     from pysdm_tpu_torch.ops.cuda import collision as kern
     from pysdm_tpu_torch.ops.cuda import condensation as k3
 
@@ -4204,13 +4246,15 @@ def _model_window(p, run, steps):
         "k1_launches": kern.coalesce_mirror.launches,
         "solves": solver.substep_solves - solves0,
         "ms_per_step": wall / steps * 1e3,
-        "host_reads_per_step": (solver.host_reads - reads0) / steps,
+        "solver_and_collision_reads_per_step": (
+            (solver.host_reads - reads0) / steps
+        ),
     }
     if collision:
         record["collision_substeps"] = (
             int(p.get_counter("collision_n_substep").sum()) - substeps0
         )
-        record["host_reads_per_step"] += (
+        record["solver_and_collision_reads_per_step"] += (
             collision.host_reads - collision_reads0
         ) / steps
     if p.device.type == "cuda" and record["k3_launches"] != record["solves"]:
@@ -4220,6 +4264,86 @@ def _model_window(p, run, steps):
     ):
         raise AssertionError(f"K1 launches != collision substeps: {record}")
     return out, record
+
+
+@contextlib.contextmanager
+def _keeping_calls(module, name, keep, limit=None):
+    """``module.name``, a kernel's wrapper, replaced inside the block by one
+    that passes every call on and keeps a clone of the arguments
+    (positional, keyword) of each call whose index ``keep`` selects, at
+    most ``limit`` of them; yields the list of kept ``(args, kwargs)``. The
+    replacement's ``launches`` starts at 0: a wrapper that counts through
+    its module's name (K3's) counts there inside the block"""
+    import torch
+
+    real, kept, calls = getattr(module, name), [], [0]
+
+    def cloned(values):
+        return [v.clone() if torch.is_tensor(v) else v for v in values]
+
+    def keeping(*args, **kwargs):
+        if (limit is None or len(kept) < limit) and keep(calls[0]):
+            kept.append((cloned(args), dict(zip(kwargs, cloned(kwargs.values())))))
+        calls[0] += 1
+        return real(*args, **kwargs)
+
+    keeping.launches = 0
+    with _replaced(module, name, keeping):
+        yield kept
+
+
+def k3_on_kept_solve(kept, label):
+    """K3 on a kept solve's inputs (``_keeping_calls``) against its twin on
+    the same device: ``compare_k3_near_saturation``'s bounds, and on the
+    graves (multiplicity 0) the twin's results exactly. Returns what
+    ``compare_k3_near_saturation`` saw, with the drop and grave counts"""
+    import torch
+
+    from pysdm_tpu_torch.ops.cuda import condensation as k3
+
+    (formulae, settings, *rows), optional = kept
+
+    def twin_of(rows):
+        return k3.masses_new_reference(formulae, settings, *rows, **optional)
+
+    kernel = k3.masses_new(formulae, settings, *rows, **optional)
+    graves = rows[3] == 0
+    twin = twin_of(rows)
+    for got, want in zip(kernel, twin):
+        if not torch.equal(got[graves], want[graves]):
+            raise AssertionError(f"{label}: K3 on the graves differs from the twin")
+    seen = compare_k3_near_saturation(formulae, settings, rows, kernel, twin_of)
+    return {**seen, "drops": rows[0].shape[0], "graves": int(graves.sum())}
+
+
+def k1_on_kept_substep(args, label):
+    """K1 on a kept substep's inputs against its twin on the same device, at
+    phase 20's bounds (xi equal, the extensive rows to rtol 1e-6, the rates
+    to 1e-5); then with the substep's probability scale times 2^10, so that
+    pairs merge (xi equal, the rows to 1e-6). Returns {case: (slots
+    changed, the rows' max abs err)}"""
+    import numpy as np
+
+    from pysdm_tpu_torch.ops.cuda import collision as kern
+
+    mult = args[0].cpu().numpy()
+    seen = {}
+    for case, factor in (("as drawn", 1.0), ("probabilities x 2^10", 2.0**10)):
+        call = [*args[:5], args[5] * factor, *args[6:]]
+        got = [x.cpu().numpy() for x in kern.coalesce_mirror(*call)]
+        want = [x.cpu().numpy() for x in kern.coalesce_mirror_reference(*call)]
+        np.testing.assert_array_equal(got[0], want[0])
+        np.testing.assert_allclose(got[1], want[1], rtol=1e-6)
+        if factor == 1.0:
+            for g, w in zip(got[2:], want[2:]):
+                np.testing.assert_allclose(g, w, rtol=1e-5)
+        seen[case] = (
+            int((got[0] != mult).sum()),
+            float(np.abs(got[1].astype(np.float64) - want[1]).max()),
+        )
+    if seen["probabilities x 2^10"][0] == 0:
+        raise AssertionError(f"{label}: K1 merged no pair: {seen}")
+    return seen
 
 
 LOWE_FULL_PER_MODE = 2**16
@@ -4283,7 +4407,8 @@ def _lowe(gpu):
     print(f"phase 35: Lowe et al. 2019 with the film at"
           f" {2 * LOWE_FULL_PER_MODE} super-droplets, 40 steps on the card:"
           f" {card['ms_per_step']!r} ms/step, {card['k3_launches']} K3"
-          f" launches = solves, {card['host_reads_per_step']!r} host"
+          f" launches = solves,"
+          f" {card['solver_and_collision_reads_per_step']!r} solver"
           f" reads/step, S_max {card['S_max']!r}, CDNC {card['CDNC']!r}; the"
           f" float64 CPU run at {2 * LOWE_CPU_PER_MODE}: S_max"
           f" {ref['S_max']!r}, CDNC {ref['CDNC']!r}; K3's bytes a step bound"
@@ -4413,6 +4538,716 @@ def _yang_and_arabas_shima(gpu):
     return records
 
 
+
+# --- phases 38-42: the models that need only what is ported ----------------
+MG_GRID = (25, 25)
+MG_SD_PER_CELL = 2**12
+MG_STEPS = 30
+MG_PROFILED_STEPS = 3
+# Bigg's median freezing-temperature depression (K): the constant is NaN by
+# default, and so are the freezing temperatures the JAX test samples
+MG_BIGG_DT_MEDIAN = 33.0
+MG_TEST_GRID = (6, 6)
+MG_TEST_SD_PER_CELL = 8
+
+
+def mg2007_mixed_phase(backend, grid, n_sd_per_gridbox, rhod_w_max=0.6,
+                       size=(1500.0, 1500.0), bigg=MG_BIGG_DT_MEDIAN):
+    """the Morrison & Grabowski 2007 strato-cumulus with singular immersion
+    freezing on the mixed-phase grid (``Bigg_1953``, ``MixedPhaseSpheres``,
+    dt 5 s, from the haze start) through the port's ``make_simulation``;
+    ``backend`` None takes its default (the card), ``bigg`` None the
+    constant's default (NaN). Returns (particulator, spin_up)"""
+    from pysdm_tpu_torch import Formulae
+    from pysdm_tpu_torch.models import morrison_and_grabowski_2007 as model
+
+    settings = model.StratoCumulus(
+        Formulae(
+            seed=44, freezing_temperature_spectrum="Bigg_1953",
+            particle_shape_and_density="MixedPhaseSpheres",
+            constants=None if bigg is None else {"BIGG_DT_MEDIAN": bigg},
+        ),
+        rhod_w_max=rhod_w_max, grid=grid, size=size, dt=5.0,
+        n_sd_per_gridbox=n_sd_per_gridbox, spin_up_time=0,
+    )
+    settings.processes["freezing"] = True
+    kwargs = {} if backend is None else {"backend_class": backend}
+    return model.make_simulation(settings, **kwargs)
+
+
+def _sorted_rows(p, names):
+    """the rows ``names`` of every slot, as a (n_sd, len(names)) array in
+    lexicographic order (a multiset that no permutation changes)"""
+    import numpy as np
+
+    rows = np.stack([p.attributes[name] for name in names], axis=1)
+    return rows[np.lexsort(rows.T[::-1])]
+
+
+def _gamma_rates_vs_float64(p, compute_gamma, prob, rand, mult, pairing,
+                            cell_start, n_cell):
+    """``compute_gamma`` on a captured substep's inputs, into zeroed
+    counters: its per-cell collision rates (float32 products summed by K4
+    as prefix differences) against the float64 per-cell sums of gamma x
+    xi_k on the host, within 1e-5 of the float64 prefix (phase 8's K4
+    bound). Returns {cells with collisions, max abs err, the prefix}"""
+    import numpy as np
+    import torch
+
+    counters = {k: torch.zeros_like(v) for k, v in p.sim_state["counters"].items()}
+    gamma = compute_gamma(prob, rand, mult, pairing, counters, cell_start, n_cell)
+    mk = torch.minimum(mult, pairing.partner(mult))
+    rate = torch.where(pairing.is_first, gamma.double() * mk.double(), 0.0)
+    prefix = np.concatenate([[0.0], np.cumsum(rate.cpu().numpy())])
+    starts = cell_start.cpu().numpy()
+    want = prefix[starts[1:n_cell + 1]] - prefix[starts[:n_cell]]
+    got = counters["collision_rate"].double().cpu().numpy()
+    err = float(np.abs(got - want).max())
+    if not ((want > 0).any() and err <= 1e-5 * prefix[-1]):
+        raise AssertionError(
+            f"per-cell collision rates: max abs err {err} of {prefix[-1]},"
+            f" {(want > 0).sum()} cells with collisions"
+        )
+    return {"cells_with_collisions": int((want > 0).sum()),
+            "max_abs_err": err, "prefix": float(prefix[-1])}
+
+
+def _mg2007_on_card(gpu):
+    """phase 38: MG2007's mixed-phase grid at config #5's full width (25 x
+    25 cells x 2^12) on the card, through ``make_simulation``: the
+    float64 collision route with the max-merged freezing temperature, K2
+    never launched, K3 launches = solves, K4 counted; the water budget, the
+    freezing temperatures, the adaptive loop's reads, the shared sort
+    carrying the max row, K3 and K4 on one step's inputs against their
+    twins, the profiled busy share; then the JAX test's 6 x 6 x 8 case at
+    its bounds. Returns the path's record"""
+    import numpy as np
+    import torch
+
+    from pysdm_tpu_torch.ops import collisions as coll_ops
+    from pysdm_tpu_torch.ops import segments
+    from pysdm_tpu_torch.ops.cuda import collision as kern
+    from pysdm_tpu_torch.ops.cuda import condensation as k3
+    from pysdm_tpu_torch.ops.cuda import scan
+
+    t0 = time.perf_counter()
+    p, spin_up = mg2007_mixed_phase(None, MG_GRID, MG_SD_PER_CELL)
+    build_s = time.perf_counter() - t0
+    collision = p.dynamics["Collision"]
+    solver = p.dynamics["Condensation"].solver
+    if p.device.type != "cuda" or p.n_sd != 625 * MG_SD_PER_CELL:
+        raise AssertionError(f"phase 38: built {p.n_sd} on {p.device}")
+    if collision.route() != "float64" or "Freezing" not in p.dynamics:
+        raise AssertionError(f"phase 38: route {collision.route()}")
+    t_fz0 = np.unique(p.attributes["freezing temperature"])
+    if not np.isfinite(t_fz0).all():
+        raise AssertionError("phase 38: freezing temperatures not finite")
+    spin_up.finish()
+    p.run(1)
+    p.block_until_ready()
+
+    water0 = _column_water(p)
+    precipitated = torch.zeros((), dtype=torch.float64, device=p.device)
+    substeps0, solves0 = collision.substeps_run, solver.substep_solves
+    reads0, collision_reads0 = _host_reads(p), collision.host_reads
+    kern.coalesce_adjacent.launches = 0
+    k3.masses_new.launches = 0
+    scan.cumsum.launches = 0
+    scan.cumsum.rows = 0
+    t0 = time.perf_counter()
+    for _ in range(MG_STEPS):
+        p.run(1)
+        # this step's precipitation, summed on the device
+        precipitated += p.sim_state["counters"]["precipitated_mass"].double().sum()
+    p.block_until_ready()
+    elapsed = time.perf_counter() - t0
+    launches = {
+        "coalesce_adjacent": kern.coalesce_adjacent.launches,
+        "masses_new": k3.masses_new.launches,
+        "cumsum": scan.cumsum.launches,
+        "cumsum rows": scan.cumsum.rows,
+    }
+    substeps = collision.substeps_run - substeps0
+    solves = solver.substep_solves - solves0
+    collision_reads = collision.host_reads - collision_reads0
+    reads = _host_reads(p) - reads0
+    if launches["coalesce_adjacent"] != 0:
+        raise AssertionError(f"phase 38: K2 launched on the float64 route: {launches}")
+    if launches["masses_new"] != solves or launches["cumsum"] == 0:
+        raise AssertionError(f"phase 38: {launches} for {solves} solves")
+    # the adaptive loop reads once per substep and once to end each step
+    if substeps < MG_STEPS or collision_reads != substeps + MG_STEPS:
+        raise AssertionError(
+            f"phase 38: {collision_reads} collision reads for {substeps}"
+            f" substeps in {MG_STEPS} steps"
+        )
+    precipitated = float(precipitated)
+    drift = (_column_water(p) + precipitated - water0) / water0
+    signed = p.attributes["signed water mass"]
+    mult = p.attributes["multiplicity"]
+    t_fz = p.attributes["freezing temperature"]
+    t_fz1 = np.unique(t_fz)
+    checks = {
+        "water to 1e-3": abs(drift) < 1e-3,
+        "finite": np.isfinite(signed).all() and np.isfinite(t_fz).all(),
+        "no ice": (signed[mult > 0] > 0).all(),
+        "multiplicities >= 0": (mult >= 0).all(),
+        "T_fz among the initial": np.isin(t_fz1, t_fz0).all(),
+        "fewer distinct T_fz": len(t_fz1) < len(t_fz0),
+        "condensation success": p.get_counter("condensation_success").all(),
+    }
+    failed = [k for k, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError(f"phase 38: {failed}: drift {drift}")
+    per_step = {k: v / MG_STEPS for k, v in launches.items()}
+    record = {
+        "n_sd": p.n_sd,
+        "build_s": build_s,
+        "ms_per_step": elapsed / MG_STEPS * 1e3,
+        "launches_per_step": per_step,
+        "collision_substeps_per_step": substeps / MG_STEPS,
+        "solves_per_step": solves / MG_STEPS,
+        "host_reads_per_step": reads / MG_STEPS,
+        "water_drift": drift,
+        "precipitated_kg": precipitated,
+        "distinct_T_fz": [len(t_fz0), len(t_fz1)],
+        "coalescence_rate": float(p.get_counter("coalescence_rate").sum()),
+    }
+    print(f"phase 38: MG2007 mixed-phase {MG_GRID} x {MG_SD_PER_CELL}"
+          f" ({p.n_sd} super-droplets, built in {build_s!r} s), route"
+          f" float64, {MG_STEPS} steps after one: {record['ms_per_step']!r}"
+          f" ms/step; launches per step {per_step} (K2 none), collision"
+          f" substeps {substeps / MG_STEPS!r}/step with one read each and"
+          f" one a step, condensation solves {solves / MG_STEPS!r}/step,"
+          f" host reads {reads / MG_STEPS!r}/step; water drift {drift!r}"
+          f" with {precipitated!r} kg precipitated; distinct freezing"
+          f" temperatures {len(t_fz0)} -> {len(t_fz1)}, each an initial one;"
+          f" no ice [{gpu}]")
+
+    # one more step: K3's first solve, every scan given to K4 and the
+    # first collision substep's gamma inputs captured
+    captured = {"k4": {}, "gamma": []}
+    real_k4 = segments.cumsum
+    real_gamma = coll_ops.compute_gamma
+
+    def capture_gamma(prob, rand, mult_s, pairing, counters=None,
+                      cell_start=None, n_cell=1):
+        if not captured["gamma"]:
+            captured["gamma"].append((prob.clone(), rand.clone(),
+                                      mult_s.clone(), pairing,
+                                      cell_start.clone(), n_cell))
+        return real_gamma(prob, rand, mult_s, pairing, counters, cell_start,
+                          n_cell)
+
+    def capture_k4(x):
+        captured["k4"].setdefault((x.dtype, x.dim(), x.shape[-1]), x.clone())
+        return real_k4(x)
+
+    with contextlib.ExitStack() as stack:
+        k3_kept = stack.enter_context(
+            _keeping_calls(k3, "masses_new", lambda _: True, limit=1)
+        )
+        stack.enter_context(_replaced(segments, "cumsum", capture_k4))
+        stack.enter_context(_replaced(coll_ops, "compute_gamma", capture_gamma))
+        p.run(1)
+        p.block_until_ready()
+    if not (k3_kept and captured["k4"] and captured["gamma"]):
+        raise AssertionError(f"phase 38: a kernel was not called: {captured}")
+    rate_err = _gamma_rates_vs_float64(p, real_gamma, *captured["gamma"][0])
+    print(f"phase 38: compute_gamma's per-cell collision rates on the"
+          f" step's first substep against float64 host sums of gamma x"
+          f" xi_k: {rate_err} [{gpu}]")
+    k4_err, seen = _k4_on_scans(real_k4, captured["k4"].values(), "phase 38")
+    for line in seen:
+        print(f"phase 38: K4 on a scan of the mixed-phase step {line}")
+    k3_seen = k3_on_kept_solve(k3_kept[0], "phase 38")
+    print(f"phase 38: K3 on the first solve of a mixed-phase step"
+          f" ({k3_seen['drops']} drops in 625 cells): success equal to the"
+          f" twin's, every log-mass inside the twin's interval for +-32 ulps"
+          f" of qv; largest differences {k3_seen} [{gpu}]")
+
+    # the shared sort carries the max row with its drop: a step with
+    # collisions off (the sort still runs) leaves the multiset of (T_fz,
+    # dry volume, kappa times dry volume) rows as it was
+    names = ("freezing temperature", "dry volume", "kappa times dry volume")
+    before = _sorted_rows(p, names)
+    p.set_flag("collision_enable", False)
+    p.run(1)
+    p.set_flag("collision_enable", True)
+    if not np.array_equal(_sorted_rows(p, names), before):
+        raise AssertionError("phase 38: the sort lost a drop's max row")
+
+    profile = _profile_steps(p, MG_PROFILED_STEPS, "mg2007")
+    print(f"phase 38: {MG_PROFILED_STEPS} steps profiled: {profile}; the"
+          f" shared sort kept each drop's freezing temperature with it"
+          f" [{gpu}]")
+    record.update(profile=profile, k4_max_abs_err=k4_err,
+                  k3_vs_twin=k3_seen, launches=launches,
+                  gamma_rates_vs_float64=rate_err)
+    del p
+
+    # the JAX test_mixed_phase_simulation at its size and bounds
+    p, _ = mg2007_mixed_phase(None, MG_TEST_GRID, MG_TEST_SD_PER_CELL,
+                              rhod_w_max=1.0, bigg=None)
+    if "Freezing" not in p.dynamics or "freezing temperature" not in p.attributes:
+        raise AssertionError("phase 38: the test case has no freezing")
+    mass0 = float((p.attributes["multiplicity"]
+                   * np.abs(p.attributes["signed water mass"])).sum())
+    p.run(3)
+    p.block_until_ready()
+    signed = p.attributes["signed water mass"]
+    mass1 = float((p.attributes["multiplicity"] * np.abs(signed)).sum())
+    if not (np.isfinite(signed).all() and (signed > 0).all() and mass1 != mass0):
+        raise AssertionError(f"phase 38: the JAX test's bounds: {mass0} {mass1}")
+    print(f"phase 38: the JAX test's {MG_TEST_GRID} x {MG_TEST_SD_PER_CELL}"
+          f" case on the card: finite, no ice, the water mass moved"
+          f" ({mass0!r} -> {mass1!r}) [{gpu}]")
+    return record
+
+
+BARTMAN_SD_PER_CELL = (2**5, 2**8, 2**12)
+
+
+def _bartman_on_card(gpu, phase10):
+    """phase 39: ``bartman_et_al_2021.benchmark`` on the ``GPU`` backend, the
+    25 x 25 warm rain at 2^5, 2^8 and 2^12 super-droplets per cell,
+    ``WARM_RAIN_STEPS`` timed steps each. The timed window is the one the
+    harness's clock sees, between its two ``block_until_ready`` (the end of
+    the warm-up and the end of the steps): K2, K3 and K4 launches are set
+    to 0 as it opens and read as it closes. At 2^12 the run is phase 10's
+    (the same seed, warm-up and steps): its launches equal ``phase10``'s.
+    At 2^5 and 2^8 one more step's K2 substep, K3 solve and K4 scans are
+    held against their twins (``_column_kernels_vs_twins``; phase 10 holds
+    them at 2^12). Returns {n_sd_per_gridbox: record}"""
+    from pysdm_tpu_torch.backends import GPU
+    from pysdm_tpu_torch.models import bartman_et_al_2021 as model
+    from pysdm_tpu_torch.ops.cuda import collision as kern
+    from pysdm_tpu_torch.ops.cuda import condensation as k3
+    from pysdm_tpu_torch.ops.cuda import scan
+
+    windows, made = {}, {}
+    real_make = model.make_simulation
+
+    def counting_make(settings, **kwargs):
+        p, spin_up = real_make(settings, **kwargs)
+        run, block = p.run, p.block_until_ready
+        window = {"steps": None}
+        windows.setdefault(settings.n_sd_per_gridbox, []).append(window)
+
+        def counted_run(steps):
+            if window["steps"] is not None and "launches" not in window:
+                window["steps"] += steps
+            return run(steps)
+
+        def marking_block():
+            block()
+            if window["steps"] is None:
+                # the warm-up has ended: the harness starts its clock
+                collision = p.dynamics["Collision"]
+                solver = p.dynamics["Condensation"].solver
+                window["before"] = (collision.substeps_run,
+                                    solver.substep_solves, _host_reads(p))
+                kern.coalesce_adjacent.launches = 0
+                k3.masses_new.launches = 0
+                scan.cumsum.launches = 0
+                window["steps"] = 0
+            elif "launches" not in window:
+                # the steps have ended: the harness stops its clock
+                collision = p.dynamics["Collision"]
+                solver = p.dynamics["Condensation"].solver
+                before = window["before"]
+                window["launches"] = {
+                    "coalesce_adjacent": kern.coalesce_adjacent.launches,
+                    "masses_new": k3.masses_new.launches,
+                    "cumsum": scan.cumsum.launches,
+                    "collision substeps": collision.substeps_run - before[0],
+                    "condensation solves": solver.substep_solves - before[1],
+                    "host reads": _host_reads(p) - before[2],
+                }
+
+        p.run, p.block_until_ready = counted_run, marking_block
+        made[settings.n_sd_per_gridbox] = p
+        return p, spin_up
+
+    records = {}
+    with _replaced(model, "make_simulation", counting_make):
+        for n_sd in BARTMAN_SD_PER_CELL:
+            seconds = model.benchmark(
+                backend_classes=(GPU,), n_sd_per_gridbox_list=(n_sd,),
+                n_steps=WARM_RAIN_STEPS,
+            )["GPU"][n_sd]
+            p = made.pop(n_sd)
+            window, = windows[n_sd]
+            if window.get("steps") != WARM_RAIN_STEPS or "launches" not in window:
+                raise AssertionError(f"phase 39: {n_sd}: the timed window {window}")
+            counts = window["launches"]
+            if (counts["coalesce_adjacent"] != counts["collision substeps"]
+                    or counts["masses_new"] != counts["condensation solves"]
+                    or counts["cumsum"] == 0):
+                raise AssertionError(f"phase 39: {n_sd}: {counts}")
+            per_step = {k: v / WARM_RAIN_STEPS for k, v in counts.items()}
+            records[n_sd] = {"seconds": seconds,
+                             "ms_per_step": seconds / WARM_RAIN_STEPS * 1e3,
+                             "launches": counts, "per_step": per_step}
+            print(f"phase 39: Bartman et al. 2021 sweep on GPU, 25 x 25 x"
+                  f" {n_sd}: {seconds!r} s for {WARM_RAIN_STEPS} steps,"
+                  f" {seconds / WARM_RAIN_STEPS * 1e3!r} ms/step; per step"
+                  f" {per_step} [{gpu}]")
+            if n_sd != BARTMAN_SD_PER_CELL[-1]:
+                records[n_sd]["max_abs_err"] = _column_kernels_vs_twins(
+                    p, gpu, label=f"phase 39 at {n_sd}"
+                )
+            del p
+    at_full = records[BARTMAN_SD_PER_CELL[-1]]["launches"]
+    same = {k: (at_full[k], phase10[k]) for k in phase10}
+    if any(a != b for a, b in same.values()):
+        raise AssertionError(f"phase 39: 2^12 launches against phase 10: {same}")
+    print(f"phase 39: at 2^12 the launches equal phase 10's {phase10}"
+          f" [{gpu}]")
+    return records
+
+
+PYRCEL_FULL_PER_MODE = 2**16
+GP_FULL_N = 2**17
+ARG_FULL_PER_MODE = 2**16
+
+
+def pyrcel_settings(n_sd_per_mode):
+    """``TestPyrcel``'s settings (two modes, dz 10 m, the 250 m ascent)"""
+    from pysdm_tpu_torch import Formulae
+    from pysdm_tpu_torch.initialisation import spectra
+    from pysdm_tpu_torch.models import pyrcel
+
+    return pyrcel.Settings(
+        dz=10.0, n_sd_per_mode=(n_sd_per_mode, n_sd_per_mode),
+        aerosol_modes_by_kappa={
+            0.54: spectra.Lognormal(norm_factor=850e6, m_mode=15e-9, s_geom=1.6),
+            1.2: spectra.Lognormal(norm_factor=10e6, m_mode=850e-9, s_geom=1.2),
+        },
+        vertical_velocity=1.0, initial_pressure=77500.0,
+        initial_temperature=274.0, initial_relative_humidity=0.98,
+        displacement=250.0, formulae=Formulae(constants={"MAC": 0.3}, seed=44),
+    )
+
+
+def _power_of_two(index):
+    return index & (index - 1) == 0
+
+
+def _activation_parcels(gpu):
+    """phase 40: pyrcel, Grabowski & Pawlowska 2023 (pristine, polluted)
+    and Abdul-Razzak & Ghan 2000 through their entry points on the card,
+    at the JAX tests' sizes and at 2^16 per mode / 2^17, each JAX test's
+    bounds, K3 launches = solves (``_model_window``); in each run the
+    solves numbered 0, 1, 2, 4, ... kept and K3 held against its twin on
+    the last of them (``k3_on_kept_solve``). Returns {case: record}"""
+    import numpy as np
+
+    from pysdm_tpu_torch.models import abdul_razzak_ghan_2000 as arg
+    from pysdm_tpu_torch.models import grabowski_and_pawlowska_2023 as gp
+    from pysdm_tpu_torch.models import pyrcel
+    from pysdm_tpu_torch.ops.cuda import condensation as k3
+
+    def held(kept, record, case):
+        index = len(kept) - 1
+        record["k3_vs_twin"] = {
+            "solve": 0 if index == 0 else 2 ** (index - 1),
+            **k3_on_kept_solve(kept[-1], f"phase 40: {case}"),
+        }
+
+    records = {}
+    for per_mode in (16, PYRCEL_FULL_PER_MODE):
+        settings = pyrcel_settings(per_mode)
+        sim = pyrcel.Simulation(settings)
+        with _keeping_calls(k3, "masses_new", _power_of_two) as kept:
+            out, record = _model_window(sim.particulator, sim.run, settings.nt)
+        held(kept, record, f"pyrcel {per_mode}")
+        smax = float(np.nanmax(out["products"]["S_max"]))
+        vol = out["attributes"]["volume"][-1]
+        r_final = (3 * vol / 4 / np.pi) ** (1 / 3)
+        if not (0.001 < smax < 0.01 and (r_final[per_mode:] > 1e-6).all()):
+            raise AssertionError(f"phase 40: pyrcel {per_mode}: S_max {smax}")
+        record["S_max"] = smax
+        records[f"pyrcel_{2 * per_mode}"] = record
+        print(f"phase 40: pyrcel, {2 * per_mode} super-droplets,"
+              f" {settings.nt} steps: {record} [{gpu}]")
+    for aerosol in ("pristine", "polluted"):
+        for n_sd in (32, GP_FULL_N):
+            settings = gp.Settings(aerosol=aerosol, vertical_velocity=1.0,
+                                   dt=2.0, n_sd=n_sd, displacement=100.0)
+            sim = gp.Simulation(settings)
+            with _keeping_calls(k3, "masses_new", _power_of_two) as kept:
+                out, record = _model_window(sim.particulator, sim.run, settings.nt)
+            held(kept, record, f"G&P {aerosol} {n_sd}")
+            s_max = float(np.nanmax(out["products"]["S_max"]))
+            v0, v1 = out["attributes"]["volume"][0], out["attributes"]["volume"][-1]
+            if not (0.0 < s_max < 0.05 and v1.sum() > v0.sum()
+                    and np.isfinite(out["products"]["ripening rate"]).all()):
+                raise AssertionError(f"phase 40: G&P {aerosol} {n_sd}: {s_max}")
+            record["S_max"] = s_max
+            records[f"gp_{aerosol}_{n_sd}"] = record
+            print(f"phase 40: Grabowski & Pawlowska 2023 {aerosol}, {n_sd}"
+                  f" super-droplets, {settings.nt} steps: {record} [{gpu}]")
+    for per_mode in (16, ARG_FULL_PER_MODE):
+        # run_parcel builds and runs in one call: its window holds the
+        # build, and its particulator comes back with the result
+        with _keeping_calls(k3, "masses_new", _power_of_two) as kept:
+            t0 = time.perf_counter()
+            out = arg.run_parcel(w=0.5, sol2=1.0, N2=100e6, rad2=50e-9,
+                                 n_sd_per_mode=per_mode, n_steps=30)
+            wall = time.perf_counter() - t0
+            launches = k3.masses_new.launches
+        solver = out.particulator.dynamics["Condensation"].solver
+        s, v = out.activated_fraction_S, out.activated_fraction_V
+        if launches != solver.substep_solves:
+            raise AssertionError(f"phase 40: ARG K3 {launches}"
+                                 f" launches for {solver.substep_solves} solves")
+        if not (abs(s[0] - s[1]) <= 0.12 and 0.05 < s[0] < 0.95
+                and (np.abs(s - v) <= 0.25).all()):
+            raise AssertionError(f"phase 40: ARG {per_mode}: {s} {v}")
+        record = {"k3_launches": launches,
+                  "solves": solver.substep_solves,
+                  "ms_per_step_with_build": wall / 30 * 1e3,
+                  "solver_reads_per_step": solver.host_reads / 30,
+                  "activated_fraction_S": s.tolist(),
+                  "activated_fraction_V": v.tolist()}
+        held(kept, record, f"ARG {per_mode}")
+        records[f"arg_{2 * per_mode}"] = record
+        print(f"phase 40: Abdul-Razzak & Ghan 2000, {2 * per_mode}"
+              f" super-droplets, 30 steps: {record} [{gpu}]")
+    return records
+
+
+ARABAS_2025_N = 2**17
+ARABAS_2025_STEPS = 60
+
+
+def arabas_2025_run(n_sd, singular, cooling_rate, backend=None):
+    """the JAX test's ``_run`` of Arabas et al. 2025 (a 10 um droplet per
+    particle, 1e6 of them in 1 m^3 for its 256 super-droplets, 60 steps
+    from 250 K to 230 K) through ``make_particulator`` and
+    ``run_simulation``, the box and its particles scaled with ``n_sd``
+    (above 256 the test's 1e6 would leave multiplicities of a few, which
+    the builder refuses to round); returns (output, frozen fraction per
+    step, wall seconds of run_simulation)"""
+    import numpy as np
+
+    from pysdm_tpu_torch import Formulae
+    from pysdm_tpu_torch.models import arabas_et_al_2025 as model
+
+    droplet_volume = float(Formulae().trivia.volume(radius=10e-6))
+    scale = max(1.0, n_sd / 256)
+    dt = (model.TEMP_RANGE[0] - model.TEMP_RANGE[1]) / -cooling_rate / ARABAS_2025_STEPS
+    kwargs = {} if backend is None else {"backend_class": backend}
+    p = model.make_particulator(
+        constants=model.FREEZING_CONSTANTS["dust"], n_sd=n_sd, dt=dt,
+        initial_temperature=model.TEMP_RANGE[0], singular=singular, seed=44,
+        shima_T_fz="Niemand_et_al_2012", ABIFM_spec=model.abifm_spec(),
+        droplet_volume=droplet_volume, total_particle_number=1e6 * scale,
+        volume=scale, **kwargs,
+    )
+    profile = lambda t: model.TEMP_RANGE[0] + cooling_rate * t
+    t0 = time.perf_counter()
+    out = model.run_simulation(p, profile, ARABAS_2025_STEPS)
+    wall = time.perf_counter() - t0
+    ff = model.FrozenFraction(volume=scale, droplet_volume=droplet_volume,
+                              total_particle_number=1e6 * scale,
+                              rho_w=p.formulae.constants.rho_w)
+    return out, np.asarray([ff.qi2ff(qi) for qi in out["products"]["qi"]]), wall
+
+
+def _arabas_2025_on_card(gpu):
+    """phase 41: Arabas et al. 2025 on the card at 2^17, singular and
+    time-dependent at the three cooling rates of the JAX tests, with the
+    four tests' bounds. Returns {case: ms/step}"""
+    import numpy as np
+
+    from pysdm_tpu_torch.models import arabas_et_al_2025 as model
+
+    ff, records = {}, {}
+    for singular in (True, False):
+        for rate in model.COOLING_RATES:
+            _, ff[singular, rate], wall = arabas_2025_run(
+                ARABAS_2025_N, singular, rate
+            )
+            f = ff[singular, rate]
+            if not (f[0] == 0 and (np.diff(f) >= -1e-12).all()):
+                raise AssertionError(f"phase 41: {singular} {rate}: {f}")
+            key = f"{'singular' if singular else 'ABIFM'} {rate * 60!r} K/min"
+            records[key] = {"ms_per_step": wall / ARABAS_2025_STEPS * 1e3,
+                            "frozen_fraction_end": float(f[-1])}
+    mid, (fast, medium, slow) = 30, model.COOLING_RATES
+    checks = {
+        "singular ends above 0.9": ff[True, medium][-1] > 0.9,
+        "time-dependent ends above 0.5": ff[False, medium][-1] > 0.5,
+        "singular rate-independent": abs(ff[True, fast][mid] - ff[True, slow][mid]) <= 0.05,
+        "ABIFM freezes more when slower": ff[False, slow][mid] > ff[False, fast][mid] + 0.05,
+    }
+    failed = [k for k, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError(f"phase 41: {failed}: {records}")
+    print(f"phase 41: Arabas et al. 2025, {ARABAS_2025_N} super-droplets,"
+          f" {ARABAS_2025_STEPS} steps each, the four tests' bounds hold:"
+          f" {records} [{gpu}]")
+    return records
+
+
+SEEDING_INITIAL_N = 2**17
+SEEDING_POOL_N = 2**12
+RELAXED_N = 2**17
+
+
+def seeding_rate(dt, pool=SEEDING_POOL_N):
+    """``pool`` super-droplets per 100 s within the 300-400 s window, as a
+    count per step of ``dt``"""
+    import numpy as np
+
+    return lambda t: np.where((t >= 300.0) & (t < 400.0), pool * dt / 100.0, 0.0)
+
+
+SEEDING_KEPT_T = 330.0
+
+
+def seeding_window(sim):
+    """``sim.run`` (the seeding parcel) in ``_model_window``, keeping the
+    first K1 substep and the first K3 solve at or after ``SEEDING_KEPT_T``
+    on the parcel's host clock, two steps into the injection; returns
+    (output, record, {"k1": kept, "k3": kept})"""
+    from pysdm_tpu_torch.dynamics.collisions import collision
+    from pysdm_tpu_torch.ops.cuda import condensation as k3
+
+    p = sim.particulator
+
+    def injecting(_):
+        return p.sim_state["host"]["t"] >= SEEDING_KEPT_T
+
+    with contextlib.ExitStack() as stack:
+        k1_kept = stack.enter_context(
+            _keeping_calls(collision, "coalesce_mirror", injecting, limit=1)
+        )
+        k3_kept = stack.enter_context(
+            _keeping_calls(k3, "masses_new", injecting, limit=1)
+        )
+        out, record = _model_window(p, sim.run, sim.n_steps)
+    return out, record, {"k1": k1_kept, "k3": k3_kept}
+
+
+def seeding_kernels_vs_twins(kept, n_sd_initial, label):
+    """``seeding_window``'s kept K1 substep and K3 solve, each holding
+    injected drops and graves (multiplicity 0), against their twins
+    (``k1_on_kept_substep``, ``k3_on_kept_solve``); returns
+    {"k1_vs_twin": ..., "k3_vs_twin": ...}"""
+    from pysdm_tpu_torch.ops.cuda import collision as kern
+
+    if not (kept["k1"] and kept["k3"]):
+        raise AssertionError(f"{label}: no substep or solve kept: {kept}")
+    args = kept["k1"][0][0]
+    live = int((args[0] > 0).sum())
+    if not (n_sd_initial < live < args[0].shape[0] and args[3] == kern.GEOMETRIC):
+        raise AssertionError(
+            f"{label}: the kept K1 substep has {live} live slots of"
+            f" {args[0].shape[0]}, kernel {args[3]}"
+        )
+    k3_seen = k3_on_kept_solve(kept["k3"][0], label)
+    if not n_sd_initial + k3_seen["graves"] < k3_seen["drops"]:
+        raise AssertionError(f"{label}: the kept K3 solve has no injected drop")
+    if not k3_seen["graves"] > 0:
+        raise AssertionError(f"{label}: the kept K3 solve has no grave")
+    return {"k1_vs_twin": k1_on_kept_substep(args, label), "k3_vs_twin": k3_seen}
+
+
+def _seeding_on_card(gpu):
+    """phase 42: the seeding parcel (``models/seeding.py``) at 2^17 + a pool
+    of 2^12 graves, collisions on (K1, Geometric), through ``Simulation.run``:
+    the JAX test's bounds, the super-droplet count up by exactly what was
+    injected (the pool's 2^12: the last injecting step finds fewer graves
+    than it asks for), K1 launches = collision substeps and K3 = solves,
+    condensation's success; the first K1 substep and K3 solve two steps
+    into the injection against their twins; then a 2^17 box with
+    ``RelaxedVelocity`` at the JAX test's bound"""
+    import numpy as np
+
+    from pysdm_tpu_torch import Builder, Formulae
+    from pysdm_tpu_torch.backends import GPU
+    from pysdm_tpu_torch.dynamics import RelaxedVelocity
+    from pysdm_tpu_torch.dynamics.terminal_velocity import gunn_kinzer_v_term
+    from pysdm_tpu_torch.environments import Box
+    from pysdm_tpu_torch.initialisation import init_fall_momenta
+    from pysdm_tpu_torch.models import seeding
+
+    settings = seeding.Settings(
+        super_droplet_injection_rate=seeding_rate(15.0),
+        formulae=Formulae(seed=44), n_sd_initial=SEEDING_INITIAL_N,
+        n_sd_seeding=SEEDING_POOL_N,
+    )
+    sim = seeding.Simulation(settings)
+    p = sim.particulator
+    if p.device.type != "cuda" or p.dynamics["Collision"].route() != "k1":
+        raise AssertionError(f"phase 42: {p.device}, {p.dynamics['Collision'].route()}")
+    out, record, kept = seeding_window(sim)
+    sd_count = out["products"]["sd_count"]
+    # each step's ask, as many as the graves left take; coalescence later
+    # empties slots (multiplicity 0), so the count is held up to the end of
+    # the window, where no drop has died yet
+    rate, graves, expected = seeding_rate(15.0), SEEDING_POOL_N, [SEEDING_INITIAL_N]
+    for step in range(1, sim.n_steps + 1):
+        placed = min(int(rate(15.0 * step)), graves)
+        graves -= placed
+        expected.append(expected[-1] + placed)
+    end = int(400.0 // 15.0) + 1
+    injected = expected[end] - SEEDING_INITIAL_N
+    checks = {
+        "sd_count starts at n_sd_initial": sd_count[0] == SEEDING_INITIAL_N,
+        "sd_count up by the injected": list(sd_count[:end + 1]) == expected[:end + 1],
+        "every grave filled": injected == SEEDING_POOL_N,
+        "sd_count above n_sd_initial at the end": sd_count[-1] > SEEDING_INITIAL_N,
+        "r_eff above 1 um": np.nanmax(out["products"]["r_eff"]) > 1e-6,
+        "collisions ran": record["collision_substeps"] >= sim.n_steps,
+        "condensation success": p.get_counter("condensation_success").all(),
+    }
+    failed = [k for k, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError(f"phase 42: {failed}: {record}, sd_count {sd_count}")
+    record.update(injected=injected,
+                  r_eff_max=float(np.nanmax(out["products"]["r_eff"])))
+    print(f"phase 42: seeding parcel, {SEEDING_INITIAL_N} + {SEEDING_POOL_N}"
+          f" graves, {sim.n_steps} steps, collisions on: {record};"
+          f" sd_count {int(sd_count[0])} -> {int(sd_count[-1])} [{gpu}]")
+    record.update(seeding_kernels_vs_twins(kept, SEEDING_INITIAL_N, "phase 42"))
+    print(f"phase 42: on the first K1 substep and the first K3 solve from"
+          f" t = {SEEDING_KEPT_T} s, injected drops and graves side by side:"
+          f" K1 xi equal to the twin, rows within rtol 1e-6, rates within"
+          f" 1e-5, (slots changed, rows' max abs err) {record['k1_vs_twin']};"
+          f" K3's success equal to the twin's, every log-mass inside its"
+          f" interval for +-32 ulps of qv, the graves' results equal,"
+          f" {record['k3_vs_twin']} [{gpu}]")
+
+    formulae = Formulae(seed=6)
+    builder = Builder(n_sd=RELAXED_N, backend=GPU(formulae),
+                      environment=Box(dt=0.1, dv=1.0))
+    builder.add_dynamic(RelaxedVelocity(c=8.0))
+    water_mass = np.geomspace(1e-12, 1e-7, RELAXED_N)
+    p = builder.build({
+        "multiplicity": np.ones(RELAXED_N), "water mass": water_mass,
+        "relative fall momentum": init_fall_momenta(water_mass, formulae, zero=True),
+    })
+    t0 = time.perf_counter()
+    p.run(205)
+    p.block_until_ready()
+    wall = time.perf_counter() - t0
+    v = p.get_attribute("relative fall velocity")
+    v_term = gunn_kinzer_v_term(p.get_attribute("radius"))
+    err = float(((v - v_term).abs() / v_term).max())
+    if not err < 1e-3:
+        raise AssertionError(f"phase 42: relaxed velocity off by {err}")
+    relaxed = {"ms_per_step": wall / 205 * 1e3, "max_rel_err": err}
+    print(f"phase 42: RelaxedVelocity box, {RELAXED_N} drops, 205 steps of"
+          f" 0.1 s: {relaxed}, within rtol 1e-3 of the terminal velocity"
+          f" [{gpu}]")
+    record["relaxed_velocity"] = relaxed
+    return record
+
+
 def main():
     import torch
 
@@ -4506,6 +5341,20 @@ def main():
     lowe = _lowe(gpu)
     jensen_nugent = _jensen_nugent(gpu)
     yang_arabas_shima = _yang_and_arabas_shima(gpu)
+    model_phases = {}
+    for name, phase in (
+        ("mg2007_mixed_phase", _mg2007_on_card),
+        ("bartman_et_al_2021",
+         lambda gpu: _bartman_on_card(gpu, warm_launches)),
+        ("activation_parcels", _activation_parcels),
+        ("arabas_et_al_2025", _arabas_2025_on_card),
+        ("seeding", _seeding_on_card),
+    ):
+        t0 = time.perf_counter()
+        model_phases[name] = phase(gpu)
+        print(f"{name}: {time.perf_counter() - t0!r} s")
+    mg2007, bartman = model_phases["mg2007_mixed_phase"], model_phases["bartman_et_al_2021"]
+    parcels, seeded = model_phases["activation_parcels"], model_phases["seeding"]
     # K3's launches on the model path of each set (phases 35-37)
     set_launches = {
         "a_august_roche_magnus": (
@@ -4541,6 +5390,11 @@ def main():
         "lowe_et_al_2019": lowe,
         "jensen_and_nugent_2017": {str(k): v for k, v in jensen_nugent.items()},
         "yang_and_arabas_shima": yang_arabas_shima,
+        "mg2007_mixed_phase": mg2007,
+        "bartman_et_al_2021": {str(k): v for k, v in bartman.items()},
+        "activation_parcels": parcels,
+        "arabas_et_al_2025": model_phases["arabas_et_al_2025"],
+        "seeding": seeded,
         "k3_parcel_vs_parent": {
             str(k): v
             for k, v in variant_sets.get("parcel_vs_parent", {}).items()
@@ -4553,6 +5407,8 @@ def main():
         "replaces": "pysdm_tpu/ops/pallas/collision.py:582",
         "launches": launches,
         "berry_launches": berry_launches,
+        "seeding_launches": seeded["k1_launches"],
+        "seeding_max_abs_err": seeded["k1_vs_twin"]["as drawn"][1],
         "max_abs_err": max_abs_err,
         "geometric_max_abs_err": geo_err,
         "ms": kernel_ms,
@@ -4572,6 +5428,23 @@ def main():
         "column_launches": column["masses_new"],
         "column_max_abs_err": column_err["masses_new"],
         "spichtinger_launches": spichtinger_launches,
+        "mg2007_launches": mg2007["launches"]["masses_new"],
+        "mg2007_max_abs_err": mg2007["k3_vs_twin"]["mass"],
+        "bartman_launches": {
+            str(n): r["launches"]["masses_new"] for n, r in bartman.items()
+        },
+        "parcel_model_launches": {
+            name: r["k3_launches"] for name, r in parcels.items()
+        },
+        "seeding_launches": seeded["k3_launches"],
+        "seeding_max_abs_err": seeded["k3_vs_twin"]["mass"],
+        "parcel_model_max_abs_err": {
+            name: r["k3_vs_twin"]["mass"] for name, r in parcels.items()
+        },
+        "bartman_max_abs_err": {
+            str(n): r["max_abs_err"]["masses_new"]
+            for n, r in bartman.items() if "max_abs_err" in r
+        },
         "max_abs_err": max(k3_err, k3_mixed_err),
         "ms": k3_times[N_PARCEL][0],
         "k3_mixed_phase_ms": k3_mixed_ms,
@@ -4606,7 +5479,15 @@ def main():
         "launches": warm_launches["coalesce_adjacent"],
         "column_launches": column["coalesce_adjacent"],
         "dejong_column_launches": dejong["coalesce_adjacent"],
+        "mg2007_launches": mg2007["launches"]["coalesce_adjacent"],
+        "bartman_launches": {
+            str(n): r["launches"]["coalesce_adjacent"] for n, r in bartman.items()
+        },
         "column_max_abs_err": column_err["coalesce_adjacent"],
+        "bartman_max_abs_err": {
+            str(n): r["max_abs_err"]["coalesce_adjacent"]
+            for n, r in bartman.items() if "max_abs_err" in r
+        },
         "max_abs_err": k2_err,
         "ms": k2_ms,
         "plain_ms": k2_twin_ms,
@@ -4623,7 +5504,17 @@ def main():
         "dejong_column_launches": dejong["cumsum"],
         "column_max_abs_err": column_err["cumsum"],
         "straub_sort_launches": straub_k4["launches"],
-        "max_abs_err": max(k4_err, straub_k4["max_abs_err"]),
+        "mg2007_launches": mg2007["launches"]["cumsum"],
+        "mg2007_max_abs_err": mg2007["k4_max_abs_err"],
+        "bartman_launches": {
+            str(n): r["launches"]["cumsum"] for n, r in bartman.items()
+        },
+        "bartman_max_abs_err": {
+            str(n): r["max_abs_err"]["cumsum"]
+            for n, r in bartman.items() if "max_abs_err" in r
+        },
+        "max_abs_err": max(k4_err, straub_k4["max_abs_err"],
+                           mg2007["k4_max_abs_err"]),
         "straub_sort_max_abs_err": straub_k4["max_abs_err"],
         "ms": k4_ms,
         "plain_ms": k4_twin_ms,

@@ -6,6 +6,11 @@ thd and the water-vapour mixing ratio are MPDATA advectees; rhod is a fixed
 hydrostatic profile. The initial advectee fields live in the MPDATA_2D
 solver (the reference's API) and enter the env state at build. Every env
 field is a flat tensor of one value per cell, in row-major (x, z) order.
+
+``mixed_phase`` is stored only, as in the JAX package and the parcel: the
+freezing and deposition steps compute the water activity of ice and the RH
+over ice from the cell's T and RH themselves, and the attributes resolve
+volumes and terminal velocities from the signed water mass.
 """
 
 import numpy as np
@@ -20,11 +25,6 @@ from .impl.moist import (
 
 class Kinematic2D:
     def __init__(self, *, dt, grid, size, rhod_of, mixed_phase=False):
-        if mixed_phase:
-            raise NotImplementedError(
-                "the mixed-phase kinematic grid comes with ice, chemistry and"
-                " isotopes (other dynamics)"
-            )
         self.dt = dt
         self.mesh = Mesh(grid, size)
         self.rhod_of = rhod_of

@@ -1,14 +1,15 @@
 """Derived-attribute computation (port of ``pysdm_tpu/impl/attributes.py``)
 for the names the liquid-phase slices read: multiplicity, cell id, cell
 origin, position in cell, signed water mass, water mass, volume, radius,
-area, dry radius, kappa, dry volume organic fraction, Reynolds number,
-critical volume (also "... neglecting temperature variations"), wet to
-critical volume ratio (likewise), critical saturation, the terminal
-(relative fall) velocity of the chosen variant and the cooling rate. Stored
-extensive and max-merged rows resolve by name ("immersed surface area",
-"freezing temperature", "temperature of last freezing", "cooling rate prev
-T"). Derived attributes of the chemistry and isotope slices raise
-``KeyError``.
+sqrt radius, area, dry radius, kappa, dry volume organic fraction,
+Reynolds number, critical volume (also "... neglecting temperature
+variations"), wet to critical volume ratio (likewise), critical
+saturation, the terminal (relative fall) velocity of the chosen variant,
+or momentum / mass where the state keeps a "relative fall momentum" row,
+and the cooling rate. Stored extensive and max-merged rows resolve by name
+("immersed surface area", "freezing temperature", "temperature of last
+freezing", "cooling rate prev T"). Derived attributes of the chemistry and
+isotope slices raise ``KeyError``.
 
 Names that depend on the ambient state (critical volume and what reads it)
 read the cell's env row at each drop by a gather, ``env_row[cell_id]`` (the
@@ -90,6 +91,8 @@ class AttributeResolver:
             )
         if name == "radius":
             return f.trivia.radius(self.get(state, "volume"))
+        if name == "sqrt radius":
+            return torch.sqrt(self.get(state, "radius"))
         if name == "area":
             return f.trivia.area(self.get(state, "radius"))
         if name == "dry radius":

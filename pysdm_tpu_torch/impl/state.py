@@ -121,7 +121,9 @@ class ParticleState:
 def sim_state_from_numpy(sim, particulator):
     """the port's sim-state from the JAX package's whole ``sim_state`` as
     host arrays (e.g. ``jax.device_get(jax_particulator.sim_state)``):
-    particles (their max-merged rows included), env, counters and flags,
+    particles (their max-merged rows, such as the mixed-phase grid's
+    freezing temperatures, the "relative fall momentum" row and grave
+    slots of multiplicity 0 included), env, counters and flags,
     on the particulator's device, with
     its float dtype for particles and env and each counter in the dtype the
     port registered it with (the JAX package's dtype for a counter the port

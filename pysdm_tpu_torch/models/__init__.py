@@ -8,4 +8,9 @@ the ice models: the Alpert & Knopf 2016 freezing box and the Spichtinger et
 al. 2023, Abade & Albuquerque 2024 and Niedermeier et al. 2014 mixed-phase
 parcels (with the Ervens & Feingold 2012 CCN spectrum), and the parcels of
 the rest of physics/: Arabas & Shima 2017, Yang et al. 2018, Jensen &
-Nugent 2017 and Lowe et al. 2019, with Singer & Ward's Koehler curves"""
+Nugent 2017 and Lowe et al. 2019, with Singer & Ward's Koehler curves;
+the parcels that need only what is ported: pyrcel, Grabowski & Pawlowska
+2023 and Abdul-Razzak & Ghan 2000, with Rogers 1975's ODE study (host
+NumPy); the Arabas et al. 2025 freezing box; the Morrison & Grabowski 2007
+strato-cumulus, warm or on the mixed-phase grid; Bartman et al. 2021's
+n_sd sweep of the warm rain; and the seeding parcel"""

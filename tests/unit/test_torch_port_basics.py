@@ -24,7 +24,16 @@ def test_import_leaves_jax_out():
         ".sampling.spectral_sampling, pysdm_tpu_torch.ops.cuda.collision,"
         " pysdm_tpu_torch.ops.cuda.condensation, pysdm_tpu_torch.ops"
         ".condensation, pysdm_tpu_torch.environments.parcel,"
-        " pysdm_tpu_torch.dynamics.condensation, pysdm_tpu_torch.impl.state;"
+        " pysdm_tpu_torch.dynamics.condensation, pysdm_tpu_torch.impl.state,"
+        " pysdm_tpu_torch.initialisation.init_fall_momenta,"
+        " pysdm_tpu_torch.models.morrison_and_grabowski_2007,"
+        " pysdm_tpu_torch.models.pyrcel,"
+        " pysdm_tpu_torch.models.grabowski_and_pawlowska_2023,"
+        " pysdm_tpu_torch.models.abdul_razzak_ghan_2000,"
+        " pysdm_tpu_torch.models.rogers_1975,"
+        " pysdm_tpu_torch.models.arabas_et_al_2025,"
+        " pysdm_tpu_torch.models.bartman_et_al_2021,"
+        " pysdm_tpu_torch.models.seeding;"
         " bad = [m for m in sys.modules if m.split('.')[0] in"
         " ('jax', 'flax', 'pysdm_tpu')]; print(bad); assert not bad"
     )
@@ -89,6 +98,28 @@ def test_unported_formula_family_names_its_slice():
         pysdm_tpu.Formulae(ventilation="NoSuchVariant")
     with pytest.raises(ValueError):
         pysdm_tpu_torch.Formulae(no_such_family="x")
+
+
+def test_unported_options_name_their_roadmap_items():
+    """what is still refused names its ROADMAP item by title: the SciPy ODE
+    condensation solver comes with "exporters and utils"; the mixed-phase
+    2D grid is ported, and no message of the port names it as unported"""
+    from pysdm_tpu_torch.backends import CPU as TorchCPU
+    from pysdm_tpu_torch.environments.kinematic_2d import Kinematic2D
+    from pysdm_tpu_torch.models import pyrcel
+
+    with pytest.raises(NotImplementedError, match="exporters and utils"):
+        pyrcel.Simulation(None, backend_class=TorchCPU, scipy_solver=True)
+    env = Kinematic2D(
+        dt=1.0, grid=(2, 2), size=(100.0, 100.0),
+        rhod_of=lambda zZ: np.ones_like(zZ), mixed_phase=True,
+    )
+    assert env.mixed_phase
+    sources = (REPO / "pysdm_tpu_torch").rglob("*.py")
+    assert not [
+        path for path in sources
+        if "mixed-phase kinematic grid comes with" in path.read_text()
+    ]
 
 
 def test_cpu_backend_policy():
