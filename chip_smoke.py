@@ -245,7 +245,25 @@ Run from the root of the checkout: ``python3 chip_smoke.py``. Phases:
    filled, K1 launches = collision substeps and K3 = solves, condensation's
    success; the first K1 substep and K3 solve from t = 330 s (injected
    drops beside graves) against their twins; a 2^17 ``RelaxedVelocity``
-   box within rtol 1e-3 of the terminal velocity.
+   box within rtol 1e-3 of the terminal velocity;
+43. ``kreidenweis_et_al_2003.Simulation`` with the default backend at 2^17,
+   dt = 1 s and 5 chemistry substeps (``run_convergence_point``'s), over
+   the first 400 s of the ascent: the JAX test's bounds at the end, S(VI)
+   grown, every aqueous amount and gas row finite, K3 launches = solves,
+   K4's counted; one more step's K3 solve, in cloud, against its twin,
+   and K3 and its twin timed on it beside its bound; 3 steps timed
+   dynamic by dynamic and 3 + 3 profiled;
+43b. the same at 2^10 on the card (float32) and on the CPU (float64) from
+   the same initial attributes over 300 s: the largest differences in pH,
+   gas S(IV), aqueous S(VI) and liquid water against ``KW_F32_BOUNDS``,
+   printed (a miss is a finding, not a failure);
+44. ``jaruga_and_pawlowska_2018.run_convergence_point`` at 2^17, dt = 2
+   s, one substep, the whole ascent: the JAX test's bounds, K3 launches =
+   solves, the four numbers beside the paper's;
+45. every isotope formula on float32 CUDA tensors against float64 within
+   ``ISOTOPE_F32_BOUND``, and Rozanski & Sonntag's one-drop parcel
+   (``run_parcel``, default backend) over its first 1080 m against a
+   float64 CPU run, K3 launches = solves.
 
 Every box phase checks multiplicities >= 0, water mass conserved to 1e-6 and
 coalescence having happened. Any failure raises, and the script exits
@@ -265,9 +283,11 @@ with its 2^20 times; K3's per variant set of phase 34, ``variant_sets``,
 with the launches on the model path of phases 35-37 that uses each; the
 launches on phases 38-42's paths, ``mg2007_launches``,
 ``bartman_launches``, ``parcel_model_launches`` and ``seeding_launches``,
-and the differences to the twins on those paths' inputs, ``*_max_abs_err``),
-before them one line of the float64 paths' and the models' records
-(phases 31-42), and one of the device.
+and the differences to the twins on those paths' inputs, ``*_max_abs_err``;
+K3's and K4's on phases 43-45, ``kreidenweis_launches``,
+``jaruga_launches``, ``rozanski_launches``), before them one line of the
+float64 paths' and the models' records (phases 31-45), and one of the
+device.
 """
 
 import concurrent.futures
@@ -5248,6 +5268,477 @@ def _seeding_on_card(gpu):
     return record
 
 
+# --- phases 43-45: chemistry and isotopes -----------------------------------
+KW_N = 2**17
+# the first 400 s of the ascent (cloud base near 196 s): the whole 2596 s
+# would take ~6 min at the chemistry's eager launches (PERF.md §4)
+KW_WINDOW = 400.0
+KW_PROFILED_STEPS = 3
+KW_F32_N = 2**10
+KW_F32_WINDOW = 300.0
+# phase 43b's bounds, set before its first run (PERF.md §6): pH
+# absolute, the rest relative; liquid water where it exceeds 1e-5 kg/kg
+KW_F32_BOUNDS = {"pH": 0.01, "gas_S_IV": 0.01, "aq_S_VI": 0.01,
+                 "liquid water mixing ratio": 0.01}
+JP_N = 2**17
+# Jaruga & Pawlowska 2018 fig. 2 at their finest resolution, as the JAX
+# test quotes it (``tests/smoke/test_models.py:310-311``)
+JP_PAPER = {"S_max_percent": (0.24, 0.61), "pH": (4.7, 5.2)}
+# Rozanski & Sonntag's parcel on the card: the first six 180 m levels of
+# the 7.2 km ascent, three of them in cloud (base at the third)
+ROZANSKI_Z = 1080.0
+# the parcel's K3 solves kept for the check against the twin (~450 a level)
+ROZANSKI_KEEP_EVERY = 256
+# float32 on the card against float64 on the host, each isotope formula,
+# the error over the largest float64 value of its sample (set before the
+# first run from a float32 CPU evaluation of these inputs, 6.0e-6 at
+# most; PERF.md §6)
+ISOTOPE_F32_BOUND = 5e-5
+ISOTOPE_FAMILIES = {
+    "isotope_equilibrium_fractionation_factors": "EQUILIBRIUM_VARIANTS",
+    "isotope_kinetic_fractionation_factors": "KINETIC_VARIANTS",
+    "isotope_diffusivity_ratios": "DIFFUSIVITY_RATIO_VARIANTS",
+    "isotope_meteoric_water_line": "MWL_VARIANTS",
+    "isotope_ratio_evolution": "RATIO_EVOLUTION_VARIANTS",
+    "isotope_relaxation_timescale": "RELAXATION_TIMESCALE_VARIANTS",
+    "isotope_temperature_inference": "TEMPERATURE_INFERENCE_VARIANTS",
+    "isotope_ventilation_ratio": "VENTILATION_RATIO_VARIANTS",
+}
+
+
+def isotope_arguments(n, seed=13):
+    """each isotope formula's arguments by name over the ranges the isotope
+    models use, away from the poles of ``ZabaEtAl`` and
+    ``GedzelmanAndArnold1994`` (subsaturated exchange, vapour lighter than
+    the rain)"""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+
+    def u(lo, hi):
+        return rng.uniform(lo, hi, n)
+
+    args = {
+        "T": u(230.0, 310.0), "temperature": u(230.0, 310.0),
+        "_": np.full(n, np.nan), "alpha_l_18O": u(1.005, 1.02),
+        "relative_humidity": u(0.0, 1.0), "turbulence_parameter_n": u(0.5, 1.0),
+        "delta_diff": u(0.01, 0.05), "theta": u(0.5, 1.0),
+        "alpha_equilibrium": u(1.0, 1.2), "saturation": u(1.0, 1.4),
+        "D_ratio_heavy_to_light": u(0.97, 0.99), "delta_17O": u(-0.05, 0.01),
+        "delta_18O": u(-0.1, 0.02), "delta_2H": u(-0.4, 0.0),
+        "alpha": u(1.0, 1.1), "d_alpha": u(-1e-5, 1e-5),
+        "n_vapour": u(1e-3, 2e-2), "d_n_vapour": u(-1e-5, 0.0),
+        "n_liquid": u(1e-4, 1e-3), "X_over_X0": u(0.05, 1.0),
+        "a": u(1.0, 1.1), "diff_rat": u(1.0, 1.03),
+        "iso_ratio_x": u(1.5e-4, 2e-4), "iso_ratio_r": u(1.5e-4, 2e-4),
+        "iso_ratio_v": u(0.5e-4, 0.8e-4), "b": u(0.5, 1.0),
+        "alpha_w": u(1.0, 1.1), "dm_dt_over_m": u(1e-3, 1.0),
+        "rho_s": u(3e-3, 3e-2), "radius": np.exp(u(np.log(1e-5), np.log(2e-3))),
+        "D_iso": u(2e-5, 3e-5), "D": u(2e-5, 3e-5), "S": u(0.5, 0.9),
+        "R_liq": u(0.9, 1.1), "Fk": u(1e8, 1e10),
+        "ventilation_coefficient": u(1.0, 10.0),
+        "diffusivity_ratio": u(0.97, 1.03),
+    }
+    args["R_vap"] = args["R_liq"] / args["alpha"] * 0.99
+    return args
+
+
+def kreidenweis_settings(n_sd, t_max, dt=1.0, n_substep=5):
+    """``kreidenweis_et_al_2003.Settings`` with ``run_convergence_point``'s
+    default dt and substeps, over the first ``t_max`` seconds"""
+    from pysdm_tpu_torch.models import kreidenweis_et_al_2003 as kw
+
+    settings = kw.Settings(dt=dt, n_sd=n_sd, n_substep=n_substep)
+    settings.t_max = t_max
+    return settings
+
+
+def _nonfinite_chemistry(p):
+    """every aqueous amount of a live drop and every trace-gas row finite"""
+    import numpy as np
+
+    from pysdm_tpu_torch.dynamics.impl.chemistry_utils import (
+        AQUEOUS_COMPOUNDS, GASEOUS_COMPOUNDS,
+    )
+
+    alive = p.attributes["multiplicity"] > 0
+    bad = [k for k in AQUEOUS_COMPOUNDS
+           if not np.isfinite(p.attributes[f"moles_{k}"][alive]).all()]
+    bad += [c for c in GASEOUS_COMPOUNDS.values()
+            if not np.isfinite(p.get_env(f"chem_{c}")).all()]
+    return bad
+
+
+def acidity_minfun_verbatim(H, conc, K, K_H2O):
+    """``pysdm_tpu/ops/chemistry.py`` ``acidity_minfun``'s body in torch:
+    every factor formed again at each call"""
+    ammonia = (conc["N_mIII"] * H * K["K_NH3"]) / (K_H2O + K["K_NH3"] * H)
+    nitric = conc["N_V"] * K["K_HNO3"] / (H + K["K_HNO3"])
+    sulfous = (
+        conc["S_IV"]
+        * K["K_SO2"]
+        * (H + 2 * K["K_HSO3"])
+        / (H * H + H * K["K_SO2"] + K["K_SO2"] * K["K_HSO3"])
+    )
+    water = K_H2O / H
+    sulfuric = conc["S_VI"] * (H + 2 * K["K_HSO4"]) / (H + K["K_HSO4"])
+    carbonic = (
+        conc["C_IV"]
+        * K["K_CO2"]
+        * (H + 2 * K["K_HCO3"])
+        / (H * H + H * K["K_CO2"] + K["K_CO2"] * K["K_HCO3"])
+    )
+    return H + ammonia - (nitric + sulfous + water + sulfuric + carbonic)
+
+
+def equilibrate_H_verbatim(*, conc, K_drop, K_H2O, H_min, H_max, iters=48):
+    """``pysdm_tpu/ops/chemistry.py`` ``equilibrate_H`` in torch"""
+    import math
+
+    import torch
+
+    lo = torch.full_like(conc["S_VI"], math.log(H_min))
+    hi = torch.full_like(conc["S_VI"], math.log(H_max))
+    for _ in range(iters):
+        mid = 0.5 * (lo + hi)
+        go_lo = acidity_minfun_verbatim(torch.exp(mid), conc, K_drop, K_H2O) > 0
+        hi = torch.where(go_lo, mid, hi)
+        lo = torch.where(go_lo, lo, mid)
+    return torch.exp(0.5 * (lo + hi))
+
+
+def _pH_solve_forms(p, steps=KW_PROFILED_STEPS):
+    """phase 43's pH solve in two forms on ``p``'s next steps: the port's
+    (``equilibrate_H``, the residual's H-free factors formed once a solve)
+    and the JAX package's body as it stands (``equilibrate_H_verbatim``).
+    The same H to the bit on the next step's first solve; then ``steps``
+    steps with each form in turn, twice (host ms/step, and the chemistry's
+    ms by the per-dynamic timers); then the device kernels a step of each
+    (``_profile_steps`` over 1 + 1 steps)"""
+    import torch
+
+    from pysdm_tpu_torch.ops import chemistry as chem_ops
+
+    forms = {"split": chem_ops.equilibrate_H, "verbatim": equilibrate_H_verbatim}
+    with _keeping_calls(chem_ops, "equilibrate_H", lambda i: i == 0, limit=1) as kept:
+        p.run(1)
+    solve = kept[0][1]
+    H = {name: form(**solve) for name, form in forms.items()}
+    if not torch.equal(H["split"], H["verbatim"]):
+        raise AssertionError(
+            "phase 43: the two pH solve forms differ by up to"
+            f" {float((H['split'] - H['verbatim']).abs().max())!r}"
+        )
+    rounds = {name: [] for name in forms}
+    for name in (*forms, *forms):
+        with _replaced(chem_ops, "equilibrate_H", forms[name]):
+            p.timers = {}
+            p.enable_per_dynamic_timing()
+            p.run(steps)
+            p.enable_per_dynamic_timing(False)
+        rounds[name].append({
+            "ms_per_step": p.timers["total"] / steps * 1e3,
+            "chemistry_ms": p.timers["AqueousChemistry"] / steps * 1e3,
+        })
+    profiles = {}
+    for name, form in forms.items():
+        with _replaced(chem_ops, "equilibrate_H", form):
+            profiles[name] = _profile_steps(p, 1, f"kreidenweis_pH_{name}")
+    return {"H_bit_equal": True, "timed": rounds,
+            "kernels_per_step": {k: v["kernels_per_step"] for k, v in profiles.items()},
+            "profiled": profiles}
+
+
+def _kreidenweis_on_card(gpu, n_sd=KW_N, window=KW_WINDOW):
+    """phase 43: ``kreidenweis_et_al_2003.Simulation`` with the default
+    backend (the card) at ``run_convergence_point``'s dt = 1 s and 5
+    substeps, over the first ``window`` seconds: the JAX test's bounds at
+    the window's end, S(VI) grown, every amount and gas row finite, K3
+    launches = solves, K4's launches counted; then one more step's first
+    K3 solve, in cloud, against its twin, and K3 and its twin timed on it
+    beside its bound; 3 steps timed dynamic by dynamic and 3 + 3
+    profiled; the pH solve's two forms timed (``_pH_solve_forms``)"""
+    import numpy as np
+    import torch
+
+    from pysdm_tpu_torch.models import kreidenweis_et_al_2003 as kw
+    from pysdm_tpu_torch.ops.cuda import condensation as k3
+    from pysdm_tpu_torch.ops.cuda import scan
+
+    settings = kreidenweis_settings(n_sd, window)
+    sim = kw.Simulation(settings)
+    p = sim.particulator
+    if p.device.type != "cuda":
+        raise AssertionError(f"phase 43: the default backend is {p.device}")
+    scan.cumsum.launches = 0
+    out, record = _model_window(p, sim.run, settings.nt)
+    record["k4_launches"] = scan.cumsum.launches
+    series = {k: np.asarray(v) for k, v in out.items()}
+    checks = {
+        "3 < pH < 6": 3.0 < series["pH"][-1] < 6.0,
+        "gas S(IV) below its start": series["gas_S_IV"][-1] < series["gas_S_IV"][0],
+        "liquid water above 1e-5": series["liquid water mixing ratio"][-1] > 1e-5,
+        "S(VI) grown": series["aq_S_VI"][-1] > series["aq_S_VI"][0],
+        "series finite past cloud base": all(
+            np.isfinite(v[-10:]).all() for v in series.values()
+        ),
+        "condensation success": p.get_counter("condensation_success").all(),
+    }
+    failed = [k for k, ok in checks.items() if not ok]
+    failed += [f"not finite: {k}" for k in _nonfinite_chemistry(p)]
+    if failed:
+        raise AssertionError(f"phase 43: {failed}: {record}")
+    record.update({k: float(v[-1]) for k, v in series.items() if k != "t"})
+    print(f"phase 43: Kreidenweis et al. 2003 at {n_sd} super-droplets,"
+          f" dt = 1 s, 5 chemistry substeps, {settings.nt} steps to"
+          f" t = {window} s on the card: {record} [{gpu}]")
+    with _keeping_calls(k3, "masses_new", lambda i: i == 0, limit=1) as kept:
+        p.run(1)
+    record["k3_vs_twin"] = k3_on_kept_solve(kept[0], "phase 43")
+    # K3's time on that solve, its twin's, and its bound: 29 B a drop and
+    # the minfun evaluations these drops need
+    (formulae, k3_settings, *rows), optional = kept[0]
+    evaluations = k3_evaluations(k3, formulae, k3_settings, rows, extra=optional)
+    bound = bound_ms(rows[0].shape[0] * 29, evaluations * K3_OPS_PER_MINFUN)
+    record["k3_on_solve"] = {
+        "ms": _time_ms(torch, lambda: k3.masses_new(
+            formulae, k3_settings, *rows, **optional), 200),
+        "plain_ms": _time_ms(torch, lambda: k3.masses_new_reference(
+            formulae, k3_settings, *rows, **optional), 5),
+        "bound_ms": bound[0], "bound_by": bound[1],
+        "minfun_evaluations": evaluations,
+    }
+    p.timers = {}
+    p.enable_per_dynamic_timing()
+    p.run(KW_PROFILED_STEPS)
+    p.enable_per_dynamic_timing(False)
+    record["ms_per_dynamic"] = {
+        name: t / KW_PROFILED_STEPS * 1e3 for name, t in p.timers.items()
+    }
+    record["profile"] = _profile_steps(p, KW_PROFILED_STEPS, "kreidenweis")
+    record["pH_solve_forms"] = _pH_solve_forms(p)
+    if _nonfinite_chemistry(p):
+        raise AssertionError("phase 43: not finite after the profiled steps")
+    print(f"phase 43: in cloud from t = {window} s: K3 on one solve against"
+          f" its twin {record['k3_vs_twin']}, timed {record['k3_on_solve']};"
+          f" ms a step by dynamic"
+          f" {record['ms_per_dynamic']}; profiled {record['profile']}; the"
+          f" pH solve's two forms {record['pH_solve_forms']} [{gpu}]")
+    return record
+
+
+def _kreidenweis_float32_vs_float64(gpu, n_sd=KW_F32_N, window=KW_F32_WINDOW):
+    """phase 43b: the phase-43 settings at ``n_sd`` on the card (float32)
+    and on the CPU (float64) from the same initial attributes over the
+    first ``window`` seconds; the largest differences of the series: pH
+    (absolute, where both are defined), gas S(IV) and aqueous S(VI)
+    (relative), liquid water (relative, where it exceeds 1e-5 kg/kg).
+    Held to ``KW_F32_BOUNDS``: a miss is printed as such, for ROADMAP queue
+    3, and does not fail the script; a non-finite series does"""
+    import numpy as np
+
+    from pysdm_tpu_torch.backends import CPU, GPU
+    from pysdm_tpu_torch.models import kreidenweis_et_al_2003 as kw
+
+    runs, walls = {}, {}
+    for name, backend in (("card", GPU), ("cpu_float64", CPU)):
+        sim = kw.Simulation(kreidenweis_settings(n_sd, window),
+                            backend_class=backend)
+        t0 = time.perf_counter()
+        runs[name] = {k: np.asarray(v) for k, v in sim.run().items()}
+        walls[name] = (time.perf_counter() - t0) / sim.settings.nt * 1e3
+        if _nonfinite_chemistry(sim.particulator):
+            raise AssertionError(f"phase 43b: {name}: not finite")
+    card, ref = runs["card"], runs["cpu_float64"]
+    # the mean pH is defined once a drop is above 0.5 um: a drop may cross
+    # it an output apart in the two runs
+    defined = np.isfinite(ref["pH"]) & np.isfinite(card["pH"])
+    cloud = ref["liquid water mixing ratio"] > 1e-5
+    diffs = {
+        "pH": float(np.abs(card["pH"] - ref["pH"])[defined].max()),
+        "gas_S_IV": float(np.abs(card["gas_S_IV"] / ref["gas_S_IV"] - 1).max()),
+        "aq_S_VI": float(np.abs(card["aq_S_VI"] / ref["aq_S_VI"] - 1).max()),
+        "liquid water mixing ratio": float(np.abs(
+            card["liquid water mixing ratio"][cloud]
+            / ref["liquid water mixing ratio"][cloud] - 1
+        ).max()),
+    }
+    within = {k: diffs[k] <= bound for k, bound in KW_F32_BOUNDS.items()}
+    record = {"max_diff": diffs, "within_bounds": within,
+              "ms_per_step": walls, "outputs_with_pH": int(defined.sum()),
+              "outputs_with_pH_in_one_run_only": int(
+                  (np.isfinite(ref["pH"]) != np.isfinite(card["pH"])).sum()
+              ),
+              "outputs_in_cloud": int(cloud.sum())}
+    print(f"phase 43b: Kreidenweis at {n_sd}, {window} s, float32 on the card"
+          f" against float64 on the CPU from the same attributes: {record};"
+          f" bounds {KW_F32_BOUNDS} [{gpu}]")
+    return record
+
+
+def _jaruga_on_card(gpu, n_sd=JP_N):
+    """phase 44: ``jaruga_and_pawlowska_2018.run_convergence_point`` with
+    the default backend at ``n_sd``, dt = 2 s, one substep and 50 s
+    outputs, the whole ascent: the JAX test's bounds, K3 launches = solves,
+    K4's launches counted, the four numbers beside the paper's"""
+    import numpy as np
+
+    from pysdm_tpu_torch.models import jaruga_and_pawlowska_2018 as jp
+    from pysdm_tpu_torch.models import kreidenweis_et_al_2003 as kw
+    from pysdm_tpu_torch.ops.cuda import condensation as k3
+    from pysdm_tpu_torch.ops.cuda import scan
+
+    k3.masses_new.launches = scan.cumsum.launches = 0
+    with _capturing_builder(kw) as built:
+        t0 = time.perf_counter()
+        s_max, n_c, ph, sulfate_ppt = jp.run_convergence_point(
+            n_sd, dt=2.0, n_substep=1, output_interval=50.0
+        )
+        wall = time.perf_counter() - t0
+    (p, _), = built
+    solver = p.dynamics["Condensation"].solver
+    steps = p.n_steps
+    record = {
+        "S_max_percent": float(s_max), "n_c_per_cm3": float(n_c),
+        "pH": float(ph), "sulfate_ppt": float(sulfate_ppt),
+        "k3_launches": k3.masses_new.launches,
+        "k4_launches": scan.cumsum.launches,
+        "solves": solver.substep_solves, "steps": steps,
+        "ms_per_step_with_build_and_reads": wall / steps * 1e3,
+        "solver_reads_per_step": solver.host_reads / steps,
+        "paper": JP_PAPER,
+    }
+    checks = {
+        "device": p.device.type == "cuda",
+        "0.1 < S_max < 1.0 %": 0.1 < s_max < 1.0,
+        "4 < pH < 6": 4.0 < ph < 6.0,
+        "sulfate > 0": sulfate_ppt > 0.0,
+        "K3 launches = solves": record["k3_launches"] == record["solves"] > 0,
+        "finite": not _nonfinite_chemistry(p) and np.isfinite(n_c),
+    }
+    failed = [k for k, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError(f"phase 44: {failed}: {record}")
+    print(f"phase 44: Jaruga & Pawlowska 2018's convergence point at {n_sd}"
+          f" super-droplets, dt = 2 s, one substep, {steps} steps on the"
+          f" card: {record} [{gpu}]")
+    return record
+
+
+def _isotopes_on_card(gpu):
+    """phase 45: every function of every isotope variant on float32 CUDA
+    tensors against float64 NumPy on the same (float32-rounded) inputs,
+    the error over the sample's largest float64 value within
+    ``ISOTOPE_F32_BOUND``; Rozanski & Sonntag's one-drop parcel through
+    ``run_parcel`` with the default backend over its first ``ROZANSKI_Z``
+    of ascent, K3 launches = solves, K4's launches counted, its profiles
+    against a float64 CPU run; K3 held against its twin on the last kept
+    one-drop solve (every ``ROZANSKI_KEEP_EVERY``-th), in cloud"""
+    import inspect
+
+    import numpy as np
+    import torch
+
+    from pysdm_tpu_torch import Formulae
+    from pysdm_tpu_torch.backends import CPU
+    from pysdm_tpu_torch.models import rozanski_and_sonntag_1982 as rs
+    from pysdm_tpu_torch.ops.condensation import thermo
+    from pysdm_tpu_torch.ops.cuda import condensation as k3
+    from pysdm_tpu_torch.ops.cuda import scan
+    from pysdm_tpu_torch.physics import isotopes
+
+    args = {k: np.asarray(v, np.float32).astype(np.float64)
+            for k, v in isotope_arguments(2**16).items()}
+    errors = {}
+    t0 = time.perf_counter()
+    for family, table in ISOTOPE_FAMILIES.items():
+        for variant, cls in getattr(isotopes, table).items():
+            formulae = Formulae(**{family: variant}, constants={
+                "BOLIN_ISOTOPE_TIMESCALE_COEFF_C1": 1.63,
+            })
+            bound = getattr(formulae, family)
+            for name in (n for n in dir(cls) if not n.startswith("_")):
+                params = list(inspect.signature(getattr(cls, name))
+                              .parameters.values())[1:]
+
+                def call(wrap):
+                    return getattr(bound, name)(
+                        *[wrap(args[q.name]) for q in params
+                          if q.kind is not q.KEYWORD_ONLY],
+                        **{q.name: wrap(args[q.name]) for q in params
+                           if q.kind is q.KEYWORD_ONLY},
+                    )
+
+                want = np.broadcast_to(call(lambda x: x), (2**16,))
+                got = call(lambda x: torch.as_tensor(
+                    x, dtype=torch.float32, device="cuda"))
+                if isinstance(got, torch.Tensor):
+                    if got.device.type != "cuda" or got.dtype != torch.float32:
+                        raise AssertionError(f"phase 45: {variant}.{name}: {got.dtype}")
+                    got = got.double().cpu().numpy()
+                err = float(np.abs(got - want).max() / np.abs(want).max())
+                errors[f"{variant}.{name}"] = err
+    isotope_ms = (time.perf_counter() - t0) * 1e3
+    worst = max(errors, key=errors.get)
+    if not (all(np.isfinite(list(errors.values())))
+            and errors[worst] <= ISOTOPE_F32_BOUND):
+        raise AssertionError(f"phase 45: {worst} {errors[worst]}: {errors}")
+    print(f"phase 45: {len(errors)} isotope formulae (every variant's every"
+          f" function) on 2^16 float32 CUDA values against float64: the"
+          f" largest error over the sample's scale {errors[worst]!r}"
+          f" ({worst}), bound {ISOTOPE_F32_BOUND}, {isotope_ms!r} ms in all"
+          f" [{gpu}]")
+
+    profiles, kept = {}, {}
+    record = {"isotope_formulae": len(errors), "isotope_max_err": errors[worst]}
+    for name, kwargs in (("card", {}), ("cpu_float64", {"backend_class": CPU})):
+        settings = rs.Settings(z_range=ROZANSKI_Z)
+        scan.cumsum.launches = 0
+        with _capturing_builder(rs) as built, _keeping_calls(
+            k3, "masses_new", lambda i: i % ROZANSKI_KEEP_EVERY == 0
+        ) as kept[name]:
+            t0 = time.perf_counter()
+            profiles[name] = rs.run_parcel(settings, **kwargs)
+            wall = time.perf_counter() - t0
+            launches = k3.masses_new.launches
+        (p, _), = built
+        solver = p.dynamics["Condensation"].solver
+        record[name] = {
+            "steps": p.n_steps, "solves": solver.substep_solves,
+            "k3_launches": launches, "k4_launches": scan.cumsum.launches,
+            "ms_per_step": wall / p.n_steps * 1e3,
+            "solver_reads_per_step": solver.host_reads / p.n_steps,
+            "device": p.device.type,
+        }
+    card = record["card"]
+    if not (card["device"] == "cuda" and card["k3_launches"] == card["solves"] > 0):
+        raise AssertionError(f"phase 45: Rozanski on the card: {record}")
+    record["profile_max_rel_diff"] = {
+        k: float(np.abs(profiles["card"][k] / profiles["cpu_float64"][k] - 1).max())
+        for k in ("T", "RH", "qv")
+    }
+    rh = profiles["card"]["RH"]
+    if not (rh.max() > 0.99 and np.isfinite(rh).all()
+            and record["profile_max_rel_diff"]["T"] < 1e-4):
+        raise AssertionError(f"phase 45: Rozanski profiles: {record}")
+    # K3 on the one drop at the shape the parcel gives it: the last kept
+    # solve, in a level past cloud base
+    (formulae, _, *rows), _ = kept["card"][-1]
+    thd, qv, rhod, _, _, rho_air, mu_air = rows[5:]
+    solve_rh = float(thermo(formulae, thd, qv, rhod, rho_air, mu_air)[2].max())
+    if not solve_rh > 0.99:
+        raise AssertionError(f"phase 45: the kept solve is not in cloud: RH {solve_rh}")
+    record["k3_vs_twin"] = {
+        "solve": ROZANSKI_KEEP_EVERY * (len(kept["card"]) - 1), "RH": solve_rh,
+        **k3_on_kept_solve(kept["card"][-1], "phase 45"),
+    }
+    print(f"phase 45: Rozanski & Sonntag 1982's parcel, one drop, the first"
+          f" {ROZANSKI_Z} m (cloud base at the third of {card['steps']}"
+          f" levels), card against float64 CPU: {record} [{gpu}]")
+    return record
+
+
+
 def main():
     import torch
 
@@ -5349,12 +5840,19 @@ def main():
         ("activation_parcels", _activation_parcels),
         ("arabas_et_al_2025", _arabas_2025_on_card),
         ("seeding", _seeding_on_card),
+        ("kreidenweis_et_al_2003", _kreidenweis_on_card),
+        ("kreidenweis_float32_vs_float64", _kreidenweis_float32_vs_float64),
+        ("jaruga_and_pawlowska_2018", _jaruga_on_card),
+        ("isotopes", _isotopes_on_card),
     ):
         t0 = time.perf_counter()
         model_phases[name] = phase(gpu)
         print(f"{name}: {time.perf_counter() - t0!r} s")
     mg2007, bartman = model_phases["mg2007_mixed_phase"], model_phases["bartman_et_al_2021"]
     parcels, seeded = model_phases["activation_parcels"], model_phases["seeding"]
+    kreidenweis = model_phases["kreidenweis_et_al_2003"]
+    jaruga, isotope_record = (model_phases["jaruga_and_pawlowska_2018"],
+                              model_phases["isotopes"])
     # K3's launches on the model path of each set (phases 35-37)
     set_launches = {
         "a_august_roche_magnus": (
@@ -5395,6 +5893,11 @@ def main():
         "activation_parcels": parcels,
         "arabas_et_al_2025": model_phases["arabas_et_al_2025"],
         "seeding": seeded,
+        "kreidenweis_et_al_2003": kreidenweis,
+        "kreidenweis_float32_vs_float64":
+            model_phases["kreidenweis_float32_vs_float64"],
+        "jaruga_and_pawlowska_2018": jaruga,
+        "isotopes": isotope_record,
         "k3_parcel_vs_parent": {
             str(k): v
             for k, v in variant_sets.get("parcel_vs_parent", {}).items()
@@ -5438,6 +5941,14 @@ def main():
         },
         "seeding_launches": seeded["k3_launches"],
         "seeding_max_abs_err": seeded["k3_vs_twin"]["mass"],
+        "kreidenweis_launches": kreidenweis["k3_launches"],
+        "kreidenweis_max_abs_err": kreidenweis["k3_vs_twin"]["mass"],
+        "kreidenweis_ms": kreidenweis["k3_on_solve"]["ms"],
+        "kreidenweis_plain_ms": kreidenweis["k3_on_solve"]["plain_ms"],
+        "kreidenweis_bound_ms": kreidenweis["k3_on_solve"]["bound_ms"],
+        "jaruga_launches": jaruga["k3_launches"],
+        "rozanski_launches": isotope_record["card"]["k3_launches"],
+        "rozanski_max_abs_err": isotope_record["k3_vs_twin"]["mass"],
         "parcel_model_max_abs_err": {
             name: r["k3_vs_twin"]["mass"] for name, r in parcels.items()
         },
@@ -5504,6 +6015,9 @@ def main():
         "dejong_column_launches": dejong["cumsum"],
         "column_max_abs_err": column_err["cumsum"],
         "straub_sort_launches": straub_k4["launches"],
+        "kreidenweis_launches": kreidenweis["k4_launches"],
+        "jaruga_launches": jaruga["k4_launches"],
+        "rozanski_launches": isotope_record["card"]["k4_launches"],
         "mg2007_launches": mg2007["launches"]["cumsum"],
         "mg2007_max_abs_err": mg2007["k4_max_abs_err"],
         "bartman_launches": {

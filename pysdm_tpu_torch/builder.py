@@ -41,6 +41,7 @@ class Builder:
         self._counters = {}
         self._flags = {}
         self._u01_purposes = []
+        self._extra_env = {}
         self.u01_injection = False
         self.environment = environment
         if environment is not None:
@@ -84,6 +85,13 @@ class Builder:
         """on/off switch of a dynamic, togglable between steps"""
         self._flags[name] = bool(default)
 
+    def add_env_field(self, name, value):
+        """a dynamic-owned env-state row (``pysdm_tpu/builder.py:81-83``),
+        e.g. the trace-gas mixing ratios ``chem_<compound>``: host values
+        now, at build a tensor in the env's dtype (the backend's float
+        dtype) on the particulator's device, as every env row"""
+        self._extra_env[name] = np.asarray(value, dtype=np.float64)
+
     def build(self, attributes: dict, products=()):
         particulator = self.particulator
         attributes = dict(attributes)
@@ -100,6 +108,21 @@ class Builder:
             )
 
             multiplicity = discretise_multiplicities(multiplicity)
+        # with AqueousChemistry the dry volume follows the S(VI) amount
+        # (``pysdm_tpu/builder.py:109-123``; reference
+        # ``attributes/physics/dry_volume.py`` DryVolumeDynamic)
+        chemistry = particulator.dynamics.get("AqueousChemistry")
+        if (
+            "dry volume" not in attributes
+            and "moles_S_VI" in attributes
+            and chemistry is not None
+            and chemistry.dry_rho is not None
+        ):
+            attributes["dry volume"] = (
+                np.asarray(attributes["moles_S_VI"])
+                * chemistry.dry_molar_mass
+                / chemistry.dry_rho
+            )
         cell_id = attributes.pop("cell id", None)
         cell_origin = attributes.pop("cell origin", None)
         position_in_cell = attributes.pop("position in cell", None)
@@ -145,6 +168,13 @@ class Builder:
         particulator._resolver.dt = particulator.dt
 
         ext_names = tuple(extensive)
+        env = self.environment.init_env_state(
+            particulator.dtype, particulator.device
+        )
+        for name, value in self._extra_env.items():
+            env[name] = torch.as_tensor(
+                value, dtype=particulator.dtype, device=particulator.device
+            )
         particulator.rng = torch.Generator(device="cpu").manual_seed(
             self.formulae.seed
         )
@@ -167,9 +197,7 @@ class Builder:
                 mult_dtype=particulator.mult_dtype,
                 device=particulator.device,
             ),
-            "env": self.environment.init_env_state(
-                particulator.dtype, particulator.device
-            ),
+            "env": env,
             "counters": dict(self._counters),
             "flags": dict(self._flags),
             # host-side scalars of the environment (the parcel's clock)

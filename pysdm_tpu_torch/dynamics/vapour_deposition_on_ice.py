@@ -7,7 +7,7 @@ form), one explicit Euler step in the diffusion coordinate, with the
 vapour and heat fed back into the cell's predicted qv and thd.
 
 The per-cell vapour demand and vapour change are sums over the cell's
-drops: in float64 in a fixed order (``ops/moments.py`` ``segment_sums``,
+drops: in float64 in a fixed order (``ops/moments.py`` ``cell_sums``,
 or one sum for a single cell), never by a float atomic add, so a step is
 deterministic on the card. As in the JAX package, a NaN increment is
 zeroed, a growth beyond the cell's whole vapour excess over ice
@@ -18,7 +18,7 @@ reads nothing back from the device.
 
 import torch
 
-from ..ops.moments import segment_sums
+from ..ops.moments import cell_sums
 
 
 class VapourDepositionOnIce:
@@ -40,11 +40,6 @@ class VapourDepositionOnIce:
         dt = particulator.dt
         n_cell = particulator.mesh.n_cell
         dv = particulator.mesh.dv
-
-        def per_cell_sum(values, cell):
-            if n_cell == 1:
-                return values.sum(dtype=torch.float64).to(values.dtype)[None]
-            return segment_sums(values[:, None], cell, n_cell)[:, 0]
 
         def step(sim):
             particles = sim["particles"]
@@ -114,7 +109,7 @@ class VapourDepositionOnIce:
             cap = (avail * m_d_cell)[cell]
             dm = torch.where(dm.isnan(), 0.0, dm)
             dm = torch.minimum(dm, cap)
-            demand = per_cell_sum(dm.clamp(min=0.0) * mult_f, cell) / m_d_cell
+            demand = cell_sums(dm.clamp(min=0.0) * mult_f, cell, n_cell) / m_d_cell
             scale = torch.where(
                 demand > avail, avail / demand.clamp(min=1e-300), 1.0
             )
@@ -122,7 +117,7 @@ class VapourDepositionOnIce:
             new_mass = (ice_mass + dm).clamp(min=1e-21)
 
             # the vapour and heat fed back into the predicted fields
-            delta_rv = per_cell_sum(-dm * mult_f, cell) / m_d_cell
+            delta_rv = cell_sums(-dm * mult_f, cell, n_cell) / m_d_cell
             env["pred_qv"] = env["pred_qv"] + delta_rv
             dthd = f.state_variable_triplet.dthd_dt(
                 rhod=env["rhod"],

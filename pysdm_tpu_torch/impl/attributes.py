@@ -6,10 +6,12 @@ Reynolds number, critical volume (also "... neglecting temperature
 variations"), wet to critical volume ratio (likewise), critical
 saturation, the terminal (relative fall) velocity of the chosen variant,
 or momentum / mass where the state keeps a "relative fall momentum" row,
-and the cooling rate. Stored extensive and max-merged rows resolve by name
-("immersed surface area", "freezing temperature", "temperature of last
-freezing", "cooling rate prev T"). Derived attributes of the chemistry and
-isotope slices raise ``KeyError``.
+the cooling rate, the chemistry attributes ("pH", "conc_H" and the aqueous
+concentrations "conc_<compound>") and the isotope attributes ("delta_<heavy
+isotope>", "moles light water"). Stored extensive and max-merged rows
+resolve by name ("immersed surface area", "freezing temperature",
+"temperature of last freezing", "cooling rate prev T", "moles_<...>"). Any
+other name raises ``KeyError``, as in the JAX package.
 
 Names that depend on the ambient state (critical volume and what reads it)
 read the cell's env row at each drop by a gather, ``env_row[cell_id]`` (the
@@ -173,6 +175,67 @@ class AttributeResolver:
                 raise KeyError("cooling rate requires the env (cell T)")
             prev_T = state.max_attr("cooling rate prev T")
             return (prev_T - _env_at_drops(env["T"], state.cell_id)) / self.dt
+        if name.startswith("delta_"):
+            # heavy-to-light isotopic ratio against the VSMOW reference
+            heavy = name[len("delta_"):]
+            light = "1H" if heavy.endswith("H") else "16O"
+            ratio = state.ext(f"moles_{heavy}") / state.ext(f"moles_{light}")
+            return f.trivia.isotopic_ratio_2_delta(
+                ratio, getattr(f.constants, f"VSMOW_R_{heavy}")
+            )
+        if name.startswith("conc_") and name != "conc_H":
+            # aqueous concentration: mole amount over the drop's volume
+            return state.ext("moles_" + name[len("conc_"):]) / self.get(
+                state, "volume"
+            )
+        if name == "moles light water":
+            # moles of the light isotopologue (1H2 16O) from the water mass
+            # less the heavy isotopologues' masses (reference
+            # ``attributes/isotopes/moles.py`` MolesLightWater)
+            const = f.constants
+            mass = self.get(state, "water mass")
+            for heavy, M_heavy in (
+                ("2H", const.M_1H + const.M_2H + const.M_16O),
+                ("3H", const.M_1H + const.M_3H + const.M_16O),
+                ("17O", 2 * const.M_1H + const.M_17O),
+                ("18O", 2 * const.M_1H + const.M_18O),
+            ):
+                if state.has_ext(f"moles_{heavy}"):
+                    mass = mass - state.ext(f"moles_{heavy}") * M_heavy
+            return mass / (2 * const.M_1H + const.M_16O)
+        if name == "pH":
+            # the equilibrium hydrogen-ion concentration from
+            # electroneutrality, by the AqueousChemistry dynamic's bisection
+            # (reference ``attributes/chemistry/acidity.py``); an empty slot
+            # takes the volume 1 (the ``Acidity`` product takes 1e-30)
+            from ..dynamics.impl import chemistry_utils as chem
+            from ..ops import chemistry as chem_ops
+
+            if env is None:
+                raise KeyError("pH requires the env (cell T)")
+            volume = self.get(state, "volume")
+            safe_vol = torch.where(state.alive, volume, torch.ones_like(volume))
+            conc = {
+                key: state.ext(f"moles_{key}") / safe_vol
+                for key in chem.AQUEOUS_COMPOUNDS
+                if len(chem.AQUEOUS_COMPOUNDS[key]) > 1
+            }
+            K = {
+                k: _env_at_drops(v.at(env["T"]), state.cell_id)
+                for k, v in chem.equilibrium_consts(f).items()
+            }
+            H = chem_ops.equilibrate_H(
+                conc=conc,
+                K_drop=K,
+                K_H2O=f.constants.K_H2O,
+                H_min=float(f.trivia.pH2H(14.0)),
+                H_max=float(f.trivia.pH2H(-1.0)),
+            )
+            return f.trivia.H2pH(H)
+        if name == "conc_H":
+            # hydrogen-ion concentration from the pH (reference
+            # ``attributes/chemistry/hydrogen_ion_concentration.py``)
+            return f.trivia.pH2H(self.get(state, "pH", env))
         if name in ("terminal velocity", "relative fall velocity"):
             # relative fall velocity equals terminal velocity unless the
             # state keeps a momentum row
@@ -181,7 +244,7 @@ class AttributeResolver:
                     state, "water mass"
                 )
             return self.terminal_velocity(state)
-        raise KeyError(f"attribute {name!r} is not resolved by the port yet")
+        raise KeyError(f"unknown attribute: {name}")
 
     def terminal_velocity(self, state):
         """the terminal velocity of the Formulae's variant

@@ -13,4 +13,9 @@ the parcels that need only what is ported: pyrcel, Grabowski & Pawlowska
 2023 and Abdul-Razzak & Ghan 2000, with Rogers 1975's ODE study (host
 NumPy); the Arabas et al. 2025 freezing box; the Morrison & Grabowski 2007
 strato-cumulus, warm or on the mixed-phase grid; Bartman et al. 2021's
-n_sd sweep of the warm rain; and the seeding parcel"""
+n_sd sweep of the warm rain; the seeding parcel; the aqueous-chemistry
+parcels of Kreidenweis et al. 2003 and Jaruga & Pawlowska 2018; and the
+isotope models: the formula studies of ``isotopes``, ``isotope_papers``,
+Merlivat & Nief 1967, Van Hook 1968, Gonfiantini 1986, Jouzel & Merlivat
+1984 and Gedzelman & Arnold 1994 (host NumPy), and Rozanski & Sonntag
+1982's multibox over a one-drop parcel"""

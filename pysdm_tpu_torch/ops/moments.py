@@ -55,6 +55,15 @@ def segment_sums(values, segment, n_segments):
     return sums[:n_segments].to(values.dtype)
 
 
+def cell_sums(values, cell, n_cell):
+    """per-cell sums of ``values`` (n,) for cell ids ``cell`` (n,), added in
+    float64 in a fixed order and returned in ``values``' dtype: one sum for
+    a single cell, ``segment_sums`` otherwise"""
+    if n_cell == 1:
+        return values.sum(dtype=torch.float64).to(values.dtype)[None]
+    return segment_sums(values[:, None], cell, n_cell)[:, 0]
+
+
 def _weights(multiplicity, ftype, weighting_attribute, weighting_rank):
     weight = multiplicity.to(ftype)
     if weighting_rank != 0 and weighting_attribute is not None:

@@ -42,6 +42,7 @@ def _unary(torch_fn, np_fn):
     return fn
 
 
+log10 = _unary(torch.log10, np.log10)
 sinh = _unary(torch.sinh, np.sinh)
 tanh = _unary(torch.tanh, np.tanh)
 log1p = _unary(torch.log1p, np.log1p)

@@ -1,12 +1,13 @@
 """Formulae engine (API parity with ``pysdm_tpu/physics/formulae.py``): one
 variant per physics family, bound to a frozen constants namespace.
 
-The port binds every family of the JAX package but the isotope families,
-with its defaults (``pysdm_tpu/physics/formulae.py:86-118``); the
-nucleation families, the bulk phase partitioning and the optical families
-default to ``Null``, as there. Choosing any variant of an isotope family
-raises ``NotImplementedError`` naming, by its title, the ROADMAP item that
-brings it.
+The port binds every family of the JAX package, with its defaults
+(``pysdm_tpu/physics/formulae.py:86-168``): the nucleation families, the
+bulk phase partitioning, the optical families and the isotope families
+default to ``Null`` (the isotope ventilation ratio to ``Neglect``), as
+there. A variant name may join variants of one family with "+"; the
+namespace then has the union of their formulae, the earliest listed
+winning a name they share (reference ``formulae.py:336-372``).
 """
 
 import os
@@ -20,6 +21,7 @@ from . import (
     drop_growth,
     hygroscopicity,
     ice_nucleation,
+    isotopes,
     latent_heat,
     misc_families,
     saturation_vapour_pressure,
@@ -29,8 +31,6 @@ from . import (
 from .constants import make_constants
 from .particle_shape_and_density import VARIANTS as SHAPE_VARIANTS
 from .trivia import Trivia
-
-_ISOTOPES = "ROADMAP: chemistry and isotopes (other dynamics)"
 
 _NULL = {"Null": misc_families.Null}
 
@@ -104,30 +104,43 @@ _FAMILIES = {
     "fragmentation_function": (
         misc_families.FRAGMENTATION_FUNCTION_VARIANTS, "AlwaysN",
     ),
+    "isotope_equilibrium_fractionation_factors": (
+        _NULL | isotopes.EQUILIBRIUM_VARIANTS, "Null",
+    ),
+    "isotope_kinetic_fractionation_factors": (
+        _NULL | isotopes.KINETIC_VARIANTS, "Null",
+    ),
+    "isotope_meteoric_water_line": (_NULL | isotopes.MWL_VARIANTS, "Null"),
+    "isotope_ratio_evolution": (
+        _NULL | isotopes.RATIO_EVOLUTION_VARIANTS, "Null",
+    ),
+    "isotope_diffusivity_ratios": (
+        _NULL | isotopes.DIFFUSIVITY_RATIO_VARIANTS, "Null",
+    ),
+    "isotope_relaxation_timescale": (
+        _NULL | isotopes.RELAXATION_TIMESCALE_VARIANTS, "Null",
+    ),
+    "isotope_temperature_inference": (
+        _NULL | isotopes.TEMPERATURE_INFERENCE_VARIANTS, "Null",
+    ),
+    "isotope_ventilation_ratio": (
+        _NULL | isotopes.VENTILATION_RATIO_VARIANTS, "Neglect",
+    ),
 }
 
-# families of the JAX package that the port does not bind yet
-_LATER_FAMILIES = {
-    name: _ISOTOPES
-    for name in (
-        "isotope_equilibrium_fractionation_factors",
-        "isotope_kinetic_fractionation_factors",
-        "isotope_meteoric_water_line", "isotope_ratio_evolution",
-        "isotope_diffusivity_ratios", "isotope_relaxation_timescale",
-        "isotope_temperature_inference", "isotope_ventilation_ratio",
-    )
-}
 
-
-def _bind(variant_cls, const, variant_name):
-    """bind a variant class's staticmethods to ``const`` as a namespace"""
+def _bind(variant_classes, const, variant_name):
+    """bind the staticmethods of ``variant_classes`` (one class, or the parts
+    of a "+" name in order) to ``const`` as a namespace; on a name two
+    parts share, the earlier part's formula is bound"""
     ns = SimpleNamespace()
-    for name in dir(variant_cls):
-        if name.startswith("_"):
-            continue
-        fn = getattr(variant_cls, name)
-        if callable(fn):
-            setattr(ns, name, _partial_const(fn, const))
+    for variant_cls in variant_classes:
+        for name in dir(variant_cls):
+            if name.startswith("_") or hasattr(ns, name):
+                continue
+            fn = getattr(variant_cls, name)
+            if callable(fn):
+                setattr(ns, name, _partial_const(fn, const))
     ns.variant = variant_name
     return ns
 
@@ -160,11 +173,6 @@ class Formulae:
         **variant_choices,
     ):
         for family in variant_choices:
-            if family in _LATER_FAMILIES:
-                raise NotImplementedError(
-                    f"formula family {family!r} is not ported yet: it comes"
-                    f" with {_LATER_FAMILIES[family]}"
-                )
             if family not in _FAMILIES:
                 raise ValueError(f"unknown formula family: {family}")
         self.constants = make_constants(constants)
@@ -174,13 +182,16 @@ class Formulae:
         self._variant_names = {}
         for family, (variants, default) in _FAMILIES.items():
             name = variant_choices.get(family, default)
-            if name not in variants:
+            parts = name.split("+")
+            if not all(part in variants for part in parts):
                 raise ValueError(
                     f"unknown variant {name!r} for family {family!r};"
                     f" known: {sorted(variants)}"
                 )
             self._variant_names[family] = name
-            setattr(self, family, _bind(variants[name], self.constants, name))
+            setattr(self, family, _bind(
+                [variants[part] for part in parts], self.constants, name
+            ))
 
     def __str__(self):
         return "Formulae(" + ", ".join(

@@ -1,5 +1,7 @@
-"""Shared helper formulae ("trivia"), the part of
-``pysdm_tpu/physics/trivia.py`` that the liquid-phase and ice slices read.
+"""Shared helper formulae ("trivia"), port of
+``pysdm_tpu/physics/trivia.py``: the liquid-phase and ice helpers, the
+chemistry helpers (pH, van 't Hoff, Arrhenius, mixing ratios) and the
+isotopic ratio helpers.
 
 Each body is arithmetic on its arguments or goes through ``_xp``, so the
 same function serves Python floats, NumPy arrays (set-up) and torch tensors
@@ -99,3 +101,51 @@ class Trivia:
     @staticmethod
     def poissonian_avoidance_function(const, r, dt):
         return _xp.exp(-r * dt)
+
+    @staticmethod
+    def H2pH(const, H):
+        return -_xp.log10(H * 1e-3)
+
+    @staticmethod
+    def pH2H(const, pH):
+        return _xp.power(10.0, -pH) * 1e3
+
+    @staticmethod
+    def vant_hoff(const, K, dH, T, *, T_0):
+        return K * _xp.exp(-dH / const.R_str * (1 / T - 1 / T_0))
+
+    @staticmethod
+    def tdep2enthalpy(const, tdep):
+        return -tdep * const.R_str
+
+    @staticmethod
+    def arrhenius(const, A, Ea, T):
+        return A * _xp.exp(-Ea / (const.R_str * T))
+
+    @staticmethod
+    def mole_fraction_2_mixing_ratio(const, mole_fraction, specific_gravity):
+        return specific_gravity * mole_fraction / (1 - mole_fraction)
+
+    @staticmethod
+    def mixing_ratio_2_mole_fraction(const, mixing_ratio, specific_gravity):
+        return mixing_ratio / (specific_gravity + mixing_ratio)
+
+    @staticmethod
+    def mixing_ratio_to_specific_content(const, mixing_ratio):
+        return mixing_ratio / (1 + mixing_ratio)
+
+    @staticmethod
+    def dn_dlogr(const, r, dn_dr):
+        return _xp.log(10.0) * r * dn_dr
+
+    @staticmethod
+    def isotopic_delta_2_ratio(const, delta, reference_ratio):
+        return (delta + 1) * reference_ratio
+
+    @staticmethod
+    def isotopic_ratio_2_delta(const, ratio, reference_ratio):
+        return ratio / reference_ratio - 1
+
+    @staticmethod
+    def isotopic_enrichment_to_delta_SMOW(const, E, delta_0_SMOW):
+        return (E + 1) * (delta_0_SMOW + 1) - 1

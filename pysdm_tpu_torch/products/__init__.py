@@ -1,6 +1,6 @@
 """Products (diagnostics), port of ``pysdm_tpu/products/``: every
-liquid-phase product, the ice (``freezing``) products and the optical
-products. The chemistry products come with that slice (ROADMAP)."""
+liquid-phase product, the ice (``freezing``) products, the optical products
+and the aqueous-chemistry products."""
 
 from .impl import MomentProduct, Product
 from .size_spectral import (
@@ -90,3 +90,11 @@ from .freezing import (
     TotalUnfrozenImmersedSurfaceArea,
 )
 from .optical import CloudAlbedo, CloudOpticalDepth
+from .chemistry import (
+    Acidity,
+    AqueousMassSpectrum,
+    AqueousMoleFraction,
+    GaseousMoleFraction,
+    SpecificAqueousMassSpectrum,
+    TotalDryMassMixingRatio,
+)

@@ -14,7 +14,11 @@ skipped where torch sees no CUDA device; run on a GPU host with
 - pyrcel at its test's size: K3 launches = solves, the test's bounds, K3
   against its twin on a kept solve;
 - the warm rain of Bartman's sweep (6 x 6 x 32, as ``benchmark`` builds
-  it): one step's K2 substep, K3 solve and K4 scans against their twins.
+  it): one step's K2 substep, K3 solve and K4 scans against their twins;
+- Kreidenweis et al. 2003 at its JAX test's settings (16 super-droplets,
+  dt = 10 s, 5 chemistry substeps, 400 s) with the default backend: the
+  test's bounds, K3 launches = solves, K3 against its twin on an in-cloud
+  solve, every aqueous amount finite.
 """
 
 import os
@@ -121,3 +125,20 @@ def test_bartman_warm_rain_kernels_on_card(gpu):
     p.run(1)
     seen = chip_smoke._column_kernels_vs_twins(p, "card", label="warm rain 6 x 6 x 32")
     assert seen["masses_new"] is not None
+
+
+def test_kreidenweis_on_card(gpu):
+    from pysdm_tpu_torch.models import kreidenweis_et_al_2003 as kw
+
+    settings = chip_smoke.kreidenweis_settings(16, 400.0, dt=10.0)
+    sim = kw.Simulation(settings)
+    p = sim.particulator
+    assert p.device.type == "cuda"
+    with chip_smoke._keeping_calls(k3, "masses_new", chip_smoke._power_of_two) as kept:
+        out, record = chip_smoke._model_window(p, sim.run, settings.nt)
+    assert record["k3_launches"] == record["solves"] > 0
+    assert 3.0 < out["pH"][-1] < 6.0
+    assert out["gas_S_IV"][-1] < out["gas_S_IV"][0]
+    assert out["liquid water mixing ratio"][-1] > 1e-5
+    assert not chip_smoke._nonfinite_chemistry(p)
+    chip_smoke.k3_on_kept_solve(kept[-1], "kreidenweis")

@@ -33,7 +33,18 @@ def test_import_leaves_jax_out():
         " pysdm_tpu_torch.models.rogers_1975,"
         " pysdm_tpu_torch.models.arabas_et_al_2025,"
         " pysdm_tpu_torch.models.bartman_et_al_2021,"
-        " pysdm_tpu_torch.models.seeding;"
+        " pysdm_tpu_torch.models.seeding,"
+        " pysdm_tpu_torch.models.kreidenweis_et_al_2003,"
+        " pysdm_tpu_torch.models.jaruga_and_pawlowska_2018,"
+        " pysdm_tpu_torch.models.isotopes,"
+        " pysdm_tpu_torch.models.isotope_papers,"
+        " pysdm_tpu_torch.models.merlivat_and_nief_1967,"
+        " pysdm_tpu_torch.models.van_hook_1968,"
+        " pysdm_tpu_torch.models.gonfiantini_1986,"
+        " pysdm_tpu_torch.models.jouzel_and_merlivat_1984,"
+        " pysdm_tpu_torch.models.gedzelman_and_arnold_1994,"
+        " pysdm_tpu_torch.models.rozanski_and_sonntag_1982,"
+        " pysdm_tpu_torch.products.chemistry;"
         " bad = [m for m in sys.modules if m.split('.')[0] in"
         " ('jax', 'flax', 'pysdm_tpu')]; print(bad); assert not bad"
     )
@@ -80,11 +91,15 @@ def test_formula_matches_jax_package(family, name, args):
 
 
 def test_unported_formula_family_names_its_slice():
-    with pytest.raises(NotImplementedError, match="chemistry and isotopes"):
-        pysdm_tpu_torch.Formulae(isotope_meteoric_water_line="Dansgaard1964")
-    # the rest of physics/ is ported: these variants bind, as in the JAX
-    # package; a name neither package has is refused by both
+    """every family of the JAX package is ported: the isotope families and
+    the rest of physics/ bind as in the JAX package, and no message of the
+    port names "chemistry and isotopes"; a name neither package has is
+    refused by both"""
     for family, variant in (
+        ("isotope_meteoric_water_line", "Dansgaard1964"),
+        ("isotope_equilibrium_fractionation_factors",
+         "MerlivatAndNief1967+Majoube1970"),
+        ("isotope_ventilation_ratio", "Brutsaert1982"),
         ("ventilation", "Froessling1938"),
         ("saturation_vapour_pressure", "AugustRocheMagnus"),
         ("particle_shape_and_density", "PorousSpheroid"),
@@ -98,18 +113,32 @@ def test_unported_formula_family_names_its_slice():
         pysdm_tpu.Formulae(ventilation="NoSuchVariant")
     with pytest.raises(ValueError):
         pysdm_tpu_torch.Formulae(no_such_family="x")
+    with pytest.raises(ValueError):
+        pysdm_tpu_torch.Formulae(isotope_ratio_evolution="NoSuchVariant")
+    with pytest.raises(ValueError):
+        pysdm_tpu.Formulae(isotope_ratio_evolution="NoSuchVariant")
+    sources = (REPO / "pysdm_tpu_torch").rglob("*.py")
+    assert not [
+        path for path in sources
+        if "chemistry and isotopes" in path.read_text()
+    ]
 
 
 def test_unported_options_name_their_roadmap_items():
     """what is still refused names its ROADMAP item by title: the SciPy ODE
-    condensation solver comes with "exporters and utils"; the mixed-phase
-    2D grid is ported, and no message of the port names it as unported"""
+    condensation solver comes with "exporters and utils", the shard halos
+    with "multi-GPU"; the mixed-phase 2D grid is ported, and no message of
+    the port names it as unported"""
     from pysdm_tpu_torch.backends import CPU as TorchCPU
     from pysdm_tpu_torch.environments.kinematic_2d import Kinematic2D
     from pysdm_tpu_torch.models import pyrcel
 
+    from pysdm_tpu_torch.ops import mpdata
+
     with pytest.raises(NotImplementedError, match="exporters and utils"):
         pyrcel.Simulation(None, backend_class=TorchCPU, scipy_solver=True)
+    with pytest.raises(NotImplementedError, match="multi-GPU"):
+        mpdata._pad1(torch.zeros(4, dtype=torch.float64), 0, ("halo", 1))
     env = Kinematic2D(
         dt=1.0, grid=(2, 2), size=(100.0, 100.0),
         rhod_of=lambda zZ: np.ones_like(zZ), mixed_phase=True,
