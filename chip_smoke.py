@@ -254,7 +254,7 @@ Run from the root of the checkout: ``python3 chip_smoke.py``. Phases:
    and K3 and its twin timed on it beside its bound; 3 steps timed
    dynamic by dynamic and 3 + 3 profiled;
 43b. the same at 2^10 on the card (float32) and on the CPU (float64) from
-   the same initial attributes over 300 s: the largest differences in pH,
+   the same initial attributes over 250 s: the largest differences in pH,
    gas S(IV), aqueous S(VI) and liquid water against ``KW_F32_BOUNDS``,
    printed (a miss is a finding, not a failure);
 44. ``jaruga_and_pawlowska_2018.run_convergence_point`` at 2^17, dt = 2
@@ -263,7 +263,34 @@ Run from the root of the checkout: ``python3 chip_smoke.py``. Phases:
 45. every isotope formula on float32 CUDA tensors against float64 within
    ``ISOTOPE_F32_BOUND``, and Rozanski & Sonntag's one-drop parcel
    (``run_parcel``, default backend) over its first 1080 m against a
-   float64 CPU run, K3 launches = solves.
+   float64 CPU run, K3 launches = solves;
+46. checkpoint and resume (``pysdm_tpu_torch/utils/checkpoint.py``): the
+   box of phase 3 at 2^20 and the full-width warm rain through
+   ``make_simulation`` (2 spin-up steps, then collisions and
+   sedimentation on) each take 5 steps, ``save_npz`` and 10 more (run
+   A); a new build of each, its flags as built, ``restore_npz`` and 10
+   steps (run B): every leaf of the sim-state, ``n_steps``, the host
+   clock and both generator states equal (``state_differences``), K1's
+   launches (the box) and K2's, K3's and K4's (the warm rain) equal over
+   the two stretches, each counted with the counts set to 0 just before
+   a step and read just after; B's first step's K1 substep, K2
+   substep, K3 solve and K4 scans against their twins; the warm rain's
+   ``save_dcp`` at step 5 restored into A: every leaf as ``save_npz``
+   wrote it; the checkpoints' bytes and the seconds to save and restore;
+47. the exporters (``pysdm_tpu_torch/exporters/``) on the card's output:
+   three 2D products captured after each of B's 10 steps, written by
+   ``NetCDFExporter`` and read back equal to the float32 arrays;
+   ``VTKExporter.export_products`` at 625 cells and ``export_attributes``
+   of a 25 x 25 x 2^8 warm rain, with their seconds;
+48. the SciPy ODE solver (``utils/scipy_ode_condensation_solver.py``)
+   against K3: the JAX test's parcel (32 drops, 200 steps) and
+   ``pyrcel.Simulation`` at ``TestPyrcel``'s 16 + 16, each with K3 and
+   with ``scipy_solver``: T, qv and liquid water within
+   ``SCIPY_BOUNDS``, K3's launches = solves on its side and none on the
+   SciPy side, the ms/step of each;
+49. ``utils/profiling.py``'s ``profile_run`` over 3 steps of B into a
+   trace: every dynamic's seconds > 0, every dynamic's scope and K2's,
+   K3's and K4's kernels in the trace.
 
 Every box phase checks multiplicities >= 0, water mass conserved to 1e-6 and
 coalescence having happened. Any failure raises, and the script exits
@@ -285,9 +312,11 @@ launches on phases 38-42's paths, ``mg2007_launches``,
 ``bartman_launches``, ``parcel_model_launches`` and ``seeding_launches``,
 and the differences to the twins on those paths' inputs, ``*_max_abs_err``;
 K3's and K4's on phases 43-45, ``kreidenweis_launches``,
-``jaruga_launches``, ``rozanski_launches``), before them one line of the
-float64 paths' and the models' records (phases 31-45), and one of the
-device.
+``jaruga_launches``, ``rozanski_launches``; K1's, K2's, K3's and K4's on
+phase 46's resumed runs and their differences to their twins there,
+``resume_launches`` and ``resume_max_abs_err``, and K3's on phase 48's
+parcel, ``scipy_parcel_launches``), before them one line of the float64
+paths' and the models' records (phases 31-49), and one of the device.
 """
 
 import concurrent.futures
@@ -1303,7 +1332,8 @@ def _k2_vs_twin(torch, kern, device, gpu):
     return err, kernel_ms, twin_ms, n_bytes
 
 
-def warm_rain(backend, grid, n_sd_per_gridbox, seed=44, spin_up_time=0.0):
+def warm_rain(backend, grid, n_sd_per_gridbox, seed=44, spin_up_time=0.0,
+              products=()):
     """config #5, the Arabas et al. 2015 2D warm rain, through the port's
     entry point; ``backend`` None takes make_simulation's default (the
     card)"""
@@ -1315,7 +1345,9 @@ def warm_rain(backend, grid, n_sd_per_gridbox, seed=44, spin_up_time=0.0):
         n_sd_per_gridbox=n_sd_per_gridbox, spin_up_time=spin_up_time,
     )
     kwargs = {} if backend is None else {"backend_class": backend}
-    particulator, spin_up = model.make_simulation(settings, **kwargs)
+    particulator, spin_up = model.make_simulation(
+        settings, products=products, **kwargs
+    )
     return settings, particulator, spin_up
 
 
@@ -2216,23 +2248,19 @@ def _k4_on_scans(real_k4, scans, label):
     return k4_err, seen
 
 
-def _column_kernels_vs_twins(p, gpu, label="phase 16"):
-    """phase 16 at t = 400 s (and phase 22): one more step whose first K2
-    substep, first K3 solve (where the column condenses) and first K4 scan
-    of each dtype and rank are captured; on those inputs each kernel
-    against its twin on the card at the bounds of phases 9, 10 and 8 (K2:
-    xi equal, rows and rates to rtol 1e-6, also with the gamma draws scaled
-    by 2^-30 so that pairs merge; K3: ``compare_k3_near_saturation``; K4:
-    integers equal to torch.cumsum, floats within 1e-5 of the float64
-    prefix of |x|). Returns the largest absolute differences to the
-    twins"""
-    import numpy as np
+@contextlib.contextmanager
+def _capturing_kernels():
+    """inside the block, the first K2 substep, the first K3 solve and the
+    first K4 scan of each dtype and rank are kept (clones of their inputs);
+    yields {"k2": [args], "k3": [args], "k4": {(dtype, rank): x}}. K3's
+    wrapper counts its launches on the module's ``masses_new``, here the
+    capture: they are added to its count after the block, so that the
+    launch counts stay those of the path"""
     import torch
 
     from pysdm_tpu_torch.dynamics.collisions import collision
     from pysdm_tpu_torch.ops import segments
     from pysdm_tpu_torch.ops.cuda import condensation as k3
-    from pysdm_tpu_torch.ops.cuda.collision import coalesce_adjacent_reference
 
     captured = {"k2": [], "k3": [], "k4": {}}
 
@@ -2253,30 +2281,60 @@ def _column_kernels_vs_twins(p, gpu, label="phase 16"):
         captured["k4"].setdefault((x.dtype, x.dim()), x.clone())
         return real_k4(x)
 
-    # K3's wrapper counts its launches on the module's ``masses_new``
     capture_k3.launches = 0
 
     real_k2, real_k3, real_k4 = (
         collision.coalesce_adjacent, k3.masses_new, segments.cumsum
     )
-    with contextlib.ExitStack() as stack:
-        stack.enter_context(_replaced(collision, "coalesce_adjacent", capture_k2))
-        stack.enter_context(_replaced(k3, "masses_new", capture_k3))
-        stack.enter_context(_replaced(segments, "cumsum", capture_k4))
+    try:
+        with contextlib.ExitStack() as stack:
+            stack.enter_context(_replaced(collision, "coalesce_adjacent", capture_k2))
+            stack.enter_context(_replaced(k3, "masses_new", capture_k3))
+            stack.enter_context(_replaced(segments, "cumsum", capture_k4))
+            yield captured
+    finally:
+        k3.masses_new.launches += capture_k3.launches
+
+
+def _column_kernels_vs_twins(p, gpu, label="phase 16"):
+    """phase 16 at t = 400 s (and phase 22): one more step whose first K2
+    substep, first K3 solve (where the column condenses) and first K4 scan
+    of each dtype and rank are captured (``_capturing_kernels``); on those
+    inputs each kernel against its twin (``_captured_kernels_vs_twins``).
+    Returns the largest absolute differences to the twins"""
+    with _capturing_kernels() as captured:
         p.run(1)
         p.block_until_ready()
-    condenses = "Condensation" in p.dynamics
+    return _captured_kernels_vs_twins(
+        captured, "Condensation" in p.dynamics, gpu, label
+    )
+
+
+def _captured_kernels_vs_twins(captured, condenses, gpu, label, what="column"):
+    """each kernel of ``_capturing_kernels``'s capture against its twin on
+    the card at the bounds of phases 9, 10 and 8 (K2: xi equal, rows and
+    rates to rtol 1e-6, also with the gamma draws scaled by 2^-30 so that
+    pairs merge; K3: ``compare_k3_near_saturation``; K4: integers equal to
+    torch.cumsum, floats within 1e-5 of the float64 prefix of |x|). Returns
+    the largest absolute differences to the twins"""
+    import numpy as np
+
+    from pysdm_tpu_torch.ops.cuda import collision as kern
+    from pysdm_tpu_torch.ops.cuda import condensation as k3
+    from pysdm_tpu_torch.ops.cuda import scan
+
     if not (captured["k2"] and captured["k4"]
             and bool(captured["k3"]) == condenses):
         raise AssertionError(f"{label}: a kernel was not called: {captured}")
+    real_k2, real_k3, real_k4 = kern.coalesce_adjacent, k3.masses_new, scan.cumsum
 
-    # K2 on the column's first substep of that step
+    # K2 on the first substep of that step
     mult, ext, kernnorm, rand, is_first = captured["k2"][0]
     k2_seen = {}
     for case, draws in (("as drawn", rand), ("draws x 2^-30", rand * 2**-30)):
         args = (mult, ext, kernnorm, draws, is_first)
         got = [x.cpu().numpy() for x in real_k2(*args)[:4]]
-        want = [x.cpu().numpy() for x in coalesce_adjacent_reference(*args)[:4]]
+        want = [x.cpu().numpy() for x in kern.coalesce_adjacent_reference(*args)[:4]]
         np.testing.assert_array_equal(got[0], want[0])
         for g, w in zip(got[1:], want[1:]):
             np.testing.assert_allclose(g, w, rtol=1e-6)
@@ -2286,12 +2344,12 @@ def _column_kernels_vs_twins(p, gpu, label="phase 16"):
         )
     if k2_seen["draws x 2^-30"][0] == 0:
         raise AssertionError(f"{label}: K2 merged no pair: {k2_seen}")
-    print(f"{label}: K2 on a column substep ({mult.shape[0]} slots,"
+    print(f"{label}: K2 on a {what} substep ({mult.shape[0]} slots,"
           f" {int(is_first.sum())} pairs): xi equal to the twin, rows and"
           f" rates within rtol 1e-6; (slots changed, ext max abs err)"
           f" {k2_seen} [{gpu}]")
 
-    # K3 on the column's first solve after t = 400 s
+    # K3 on the first solve
     k3_seen = {"mass": None}
     if condenses:
         formulae, settings, *rows = captured["k3"][0]
@@ -2306,16 +2364,16 @@ def _column_kernels_vs_twins(p, gpu, label="phase 16"):
         active = int(
             (rows[9][rows[4].long()] & (rows[3] > 0) & (rows[0] > 0)).sum()
         )
-        print(f"{label}: K3 on a column solve ({rows[0].shape[0]} drops in"
+        print(f"{label}: K3 on a {what} solve ({rows[0].shape[0]} drops in"
               f" {rows[5].shape[0]} cells, {active} of them active): success"
               f" equal to the twin's and every log-mass inside the twin's"
               f" interval for +-32 ulps of qv; largest differences"
               f" {k3_seen} [{gpu}]")
 
-    # K4 on the column's scans, one of each dtype and rank
+    # K4 on the scans, one of each dtype and rank
     k4_err, seen = _k4_on_scans(real_k4, captured["k4"].values(), label)
     for line in seen:
-        print(f"{label}: K4 on a column scan {line}")
+        print(f"{label}: K4 on a {what} scan {line}")
     return {"coalesce_adjacent": k2_seen["as drawn"][1],
             "masses_new": k3_seen["mass"], "cumsum": k4_err}
 
@@ -5275,7 +5333,9 @@ KW_N = 2**17
 KW_WINDOW = 400.0
 KW_PROFILED_STEPS = 3
 KW_F32_N = 2**10
-KW_F32_WINDOW = 300.0
+# 250 s: four 10 s outputs in cloud (from ~220 s) for the liquid-water
+# comparison; 300 s put the script past ~800 s on a slow host
+KW_F32_WINDOW = 250.0
 # phase 43b's bounds, set before its first run (PERF.md §6): pH
 # absolute, the rest relative; liquid water where it exceeds 1e-5 kg/kg
 KW_F32_BOUNDS = {"pH": 0.01, "gas_S_IV": 0.01, "aq_S_VI": 0.01,
@@ -5739,6 +5799,497 @@ def _isotopes_on_card(gpu):
 
 
 
+# --- phases 46-49: exporters and utils --------------------------------------
+RESUME_FIRST = 5
+RESUME_THEN = 10
+# of RESUME_FIRST, the steps with collisions and sedimentation off
+RESUME_SPIN_UP_STEPS = 2
+EXPORT_SD_PER_CELL = 2**8
+PROFILED_STEPS = 3
+SCIPY_PARCEL_N = 32
+SCIPY_PARCEL_STEPS = 200
+# ``TestScipyOdeSolver``'s bounds, relative
+SCIPY_BOUNDS = {"T": 1e-4, "qv": 5e-3, "liquid": 2e-2}
+PYRCEL_TEST_PER_MODE = 16
+# K2's, K3's and K4's kernels, as the profiler's trace names them
+TRACED_KERNELS = {
+    "coalesce_adjacent": "coalesce_adjacent_kernel",
+    "masses_new": "masses_new_kernel",
+    "cumsum": "scan_kernel",
+}
+UTILS_DIR = "build/utils"
+
+
+def state_leaves(p):
+    """every leaf of ``p``'s sim-state by path, the host scalars,
+    ``n_steps`` and the states of its two generators"""
+    import dataclasses
+
+    sim = p.sim_state
+    out = {
+        f"particles/{f.name}": getattr(sim["particles"], f.name)
+        for f in dataclasses.fields(sim["particles"])
+    }
+    for group in ("env", "counters", "flags", "u01", "host"):
+        for name, value in sim.get(group, {}).items():
+            out[f"{group}/{name}"] = value
+    out["n_steps"] = p.n_steps
+    out["generators/rng"] = p.rng.get_state()
+    out["generators/device_rng"] = p.device_rng.get_state()
+    return out
+
+
+def state_differences(p1, p2):
+    """the paths at which two particulators' ``state_leaves`` differ: a
+    tensor in dtype, device or any value (``torch.equal``), anything else
+    in type or value"""
+    import torch
+
+    a, b = state_leaves(p1), state_leaves(p2)
+    differ = sorted(set(a) ^ set(b))
+    for key in sorted(a.keys() & b.keys()):
+        x, y = a[key], b[key]
+        if torch.is_tensor(x):
+            same = (torch.is_tensor(y) and x.dtype == y.dtype
+                    and x.device == y.device and torch.equal(x, y))
+        else:
+            same = type(x) is type(y) and x == y
+        if not same:
+            differ.append(key)
+    return differ
+
+
+def file_differences(p, path):
+    """the paths at which ``p``'s leaves differ from those ``save_npz``
+    wrote to ``path``, in dtype or value"""
+    import numpy as np
+    import torch
+
+    with np.load(path) as data:
+        saved = {k: data[k] for k in data.files}
+    differ = []
+    for key, leaf in state_leaves(p).items():
+        # the step count and the clock are in the meta entry; the row
+        # names are configuration
+        if key == "n_steps" or key.startswith("host/") or isinstance(leaf, tuple):
+            continue
+        if key not in saved:
+            if torch.is_tensor(leaf) and leaf.numel() == 0:
+                continue
+            differ.append(key)
+            continue
+        value = leaf.cpu().numpy() if torch.is_tensor(leaf) else np.asarray(leaf)
+        if value.dtype != saved[key].dtype or not np.array_equal(value, saved[key]):
+            differ.append(key)
+    return differ
+
+
+def _kernel_wrappers():
+    """K1's, K2's, K3's and K4's wrappers, by name"""
+    from pysdm_tpu_torch.ops.cuda import collision as kern
+    from pysdm_tpu_torch.ops.cuda import condensation as k3
+    from pysdm_tpu_torch.ops.cuda import scan
+
+    return {
+        "coalesce_mirror": kern.coalesce_mirror,
+        "coalesce_adjacent": kern.coalesce_adjacent,
+        "masses_new": k3.masses_new,
+        "cumsum": scan.cumsum,
+    }
+
+
+def _zero_launch_counts():
+    for wrapper in _kernel_wrappers().values():
+        wrapper.launches = 0
+
+
+def _launch_counts():
+    return {name: w.launches for name, w in _kernel_wrappers().items()}
+
+
+def _counted_steps(p, steps, between=None, first=None):
+    """``steps`` steps of ``p`` one at a time, each with the launch counts of
+    K1, K2, K3 and K4 set to 0 just before it and read just after, summed
+    over the steps: ``between(p)``, called after each step, counts
+    nothing. ``first``, a context manager factory, wraps the first step.
+    Returns (the launches, what ``first`` yielded)"""
+    totals = dict.fromkeys(_launch_counts(), 0)
+    held = None
+    for i in range(steps):
+        ctx = first() if first is not None and i == 0 else contextlib.nullcontext()
+        _zero_launch_counts()
+        with ctx as value:
+            p.run(1)
+        for name, count in _launch_counts().items():
+            totals[name] += count
+        if i == 0:
+            held = value
+        if between is not None:
+            between(p)
+    p.block_until_ready()
+    return totals, held
+
+
+def _timed(call, *args):
+    t0 = time.perf_counter()
+    out = call(*args)
+    return out, time.perf_counter() - t0
+
+
+def _resume_box(gpu, directory):
+    """phase 46, config #1's box at 2^20 (Golovin, non-adaptive): run A takes
+    ``RESUME_FIRST`` steps, ``save_npz`` and ``RESUME_THEN`` more; run B,
+    built the same way, ``restore_npz`` and ``RESUME_THEN`` steps. Every
+    leaf, ``n_steps`` and both generator states equal, K1's launches equal
+    over the two stretches; B's first K1 substep against its twin"""
+    import os
+
+    from pysdm_tpu_torch.dynamics.collisions import collision
+    from pysdm_tpu_torch.utils import checkpoint
+
+    path = os.path.join(directory, "box.npz")
+    a = build_box(N_MAIN, 1, False)
+    a.run(RESUME_FIRST)
+    a.block_until_ready()
+    _, save_s = _timed(checkpoint.save_npz, a, path)
+    launches_a, _ = _counted_steps(a, RESUME_THEN)
+    b = build_box(N_MAIN, 1, False)
+    _, restore_s = _timed(checkpoint.restore_npz, b, path)
+    if b.n_steps != RESUME_FIRST:
+        raise AssertionError(f"phase 46: box restored at step {b.n_steps}")
+    launches_b, kept = _counted_steps(
+        b, RESUME_THEN,
+        first=lambda: _keeping_calls(
+            collision, "coalesce_mirror", lambda i: i == 0, limit=1
+        ),
+    )
+    differ = state_differences(a, b)
+    if differ:
+        raise AssertionError(f"phase 46: the resumed box differs at {differ}")
+    if not launches_a["coalesce_mirror"] == launches_b["coalesce_mirror"] == RESUME_THEN:
+        raise AssertionError(f"phase 46: box launches {launches_a}, {launches_b}")
+    seen = k1_on_kept_substep(kept[0][0], "phase 46 box")
+    size = os.path.getsize(path)
+    print(f"phase 46: box n_sd={N_MAIN}: {RESUME_FIRST} steps, save_npz"
+          f" ({size} bytes, {save_s!r} s), {RESUME_THEN} more; a new build,"
+          f" restore_npz ({restore_s!r} s), {RESUME_THEN} steps: every leaf,"
+          f" n_steps and both generator states equal; K1 launches"
+          f" {launches_a['coalesce_mirror']} and {launches_b['coalesce_mirror']};"
+          f" K1 on the first resumed substep against its twin (slots changed,"
+          f" rows max abs err) {seen} [{gpu}]")
+    return {
+        "launches": launches_b["coalesce_mirror"],
+        "max_abs_err": seen["as drawn"][1],
+        "bytes": size, "save_s": save_s, "restore_s": restore_s,
+    }
+
+
+def resume_products():
+    """the 2D products phase 47 captures and writes"""
+    import numpy as np
+
+    from pysdm_tpu_torch.products import (
+        AmbientRelativeHumidity,
+        ParticleConcentration,
+        WaterMixingRatio,
+    )
+
+    return (
+        AmbientRelativeHumidity(name="RH"),
+        WaterMixingRatio(name="qc", radius_range=(0.5e-6, 25e-6)),
+        ParticleConcentration(name="n_drizzle", radius_range=(25e-6, np.inf)),
+    )
+
+
+def _resume_warm_rain(gpu, directory):
+    """phase 46, config #5 at full width through ``make_simulation``: run A
+    takes ``RESUME_SPIN_UP_STEPS`` steps of spin-up (collisions and
+    sedimentation off), then with both on up to ``RESUME_FIRST``,
+    ``save_npz`` and ``save_dcp``, and ``RESUME_THEN`` more; run B, built
+    the same way (its spin-up flags on until the restore), ``restore_npz``
+    and ``RESUME_THEN`` steps, its products captured after each (phase
+    47) and its first step's K2 substep, K3 solve and K4 scans held
+    against their twins. Every leaf, ``n_steps`` and both generator states
+    equal, K2's, K3's and K4's launches equal. Then ``restore_dcp`` into A:
+    every leaf as ``save_npz`` wrote it. Returns (the record, B, the
+    captured products, their times)"""
+    import os
+    import shutil
+
+    from pysdm_tpu_torch.utils import checkpoint
+
+    def build():
+        _, p, spin_up = warm_rain(
+            None, WARM_RAIN_GRID, WARM_RAIN_SD_PER_CELL,
+            products=resume_products(),
+        )
+        return p, spin_up
+
+    npz = os.path.join(directory, "warm_rain.npz")
+    dcp_dir = os.path.join(directory, "warm_rain_dcp")
+    shutil.rmtree(dcp_dir, ignore_errors=True)
+    (a, spin_up), build_s = _timed(build)
+    a.run(RESUME_SPIN_UP_STEPS)
+    spin_up.finish()
+    a.run(RESUME_FIRST - RESUME_SPIN_UP_STEPS)
+    a.block_until_ready()
+    _, save_s = _timed(checkpoint.save_npz, a, npz)
+    _, dcp_save_s = _timed(checkpoint.save_dcp, a, dcp_dir)
+    launches_a, _ = _counted_steps(a, RESUME_THEN)
+    b, _ = build()
+    _, restore_s = _timed(checkpoint.restore_npz, b, npz)
+    if not (b.n_steps == RESUME_FIRST and b.sim_state["flags"]["collision_enable"]
+            and b.sim_state["flags"]["sedimentation_enable"]):
+        raise AssertionError(f"phase 46: warm rain restored as {b.sim_state['flags']}")
+    output = {name: [] for name in b.products}
+    times = []
+
+    def capture(p):
+        # each a field on the (x, z) grid
+        for name, product in p.products.items():
+            output[name].append(product.get().reshape(p.mesh.grid))
+        times.append(p.n_steps * p.dt)
+
+    launches_b, captured = _counted_steps(
+        b, RESUME_THEN, between=capture, first=_capturing_kernels
+    )
+    differ = state_differences(a, b)
+    if differ:
+        raise AssertionError(f"phase 46: the resumed warm rain differs at {differ}")
+    for name in ("coalesce_adjacent", "masses_new", "cumsum"):
+        if not launches_a[name] == launches_b[name] > 0:
+            raise AssertionError(f"phase 46: {name}: {launches_a}, {launches_b}")
+    errors = _captured_kernels_vs_twins(
+        captured, True, gpu, "phase 46", what="resumed warm-rain"
+    )
+    _, dcp_restore_s = _timed(checkpoint.restore_dcp, a, dcp_dir)
+    differ = file_differences(a, npz)
+    if differ or a.n_steps != RESUME_FIRST:
+        raise AssertionError(f"phase 46: restore_dcp differs at {differ}")
+    size = os.path.getsize(npz)
+    dcp_size = sum(
+        os.path.getsize(os.path.join(dcp_dir, f)) for f in os.listdir(dcp_dir)
+    )
+    print(f"phase 46: warm rain {WARM_RAIN_GRID} x {WARM_RAIN_SD_PER_CELL}"
+          f" ({b.n_sd} super-droplets; built in {build_s!r} s):"
+          f" {RESUME_SPIN_UP_STEPS} spin-up steps, {RESUME_FIRST - RESUME_SPIN_UP_STEPS}"
+          f" with collisions and sedimentation, save_npz ({size} bytes,"
+          f" {save_s!r} s), {RESUME_THEN} more; a new build, restore_npz"
+          f" ({restore_s!r} s), {RESUME_THEN} steps: every leaf, n_steps and"
+          f" both generator states equal; launches A {launches_a}, B"
+          f" {launches_b}; save_dcp ({dcp_size} bytes, {dcp_save_s!r} s),"
+          f" restore_dcp ({dcp_restore_s!r} s): every leaf as save_npz wrote"
+          f" it; coalescence rate over B"
+          f" {float(b.get_counter('coalescence_rate').sum())!r} [{gpu}]")
+    record = {
+        "launches": {k: launches_b[k] for k in ("coalesce_adjacent", "masses_new", "cumsum")},
+        "max_abs_err": errors,
+        "npz": {"bytes": size, "save_s": save_s, "restore_s": restore_s},
+        "dcp": {"bytes": dcp_size, "save_s": dcp_save_s, "restore_s": dcp_restore_s},
+        "build_s": build_s,
+    }
+    return record, b, output, times
+
+
+def _vtk_lines(path):
+    with open(path, encoding="utf-8") as f:
+        return f.read().splitlines()
+
+
+def _exporters_on_card(gpu, p, output, times, directory):
+    """phase 47: the products captured over phase 46's resumed steps
+    written with ``NetCDFExporter`` and read back equal to the float32
+    arrays; ``VTKExporter.export_products`` on the full-width state (625
+    cells); ``export_attributes`` on a 25 x 25 x 2^8 warm rain (every
+    point inside the domain). Returns the seconds of each"""
+    import os
+
+    import numpy as np
+    from scipy.io import netcdf_file
+
+    from pysdm_tpu_torch.exporters import NetCDFExporter, VTKExporter
+
+    nc = os.path.join(directory, "warm_rain.nc")
+    _, nc_s = _timed(NetCDFExporter(
+        filename=nc, particulator=p,
+        settings_attrs={"n_sd_per_gridbox": WARM_RAIN_SD_PER_CELL},
+    ).run, output, times)
+    with netcdf_file(nc, "r", mmap=False) as f:
+        for name, series in output.items():
+            got = np.asarray(f.variables[name.replace(" ", "_")][:])
+            want = np.asarray(series, dtype=np.float32)
+            if got.shape != (RESUME_THEN, *WARM_RAIN_GRID) or not np.array_equal(got, want):
+                raise AssertionError(f"phase 47: {name} read back {got.shape}")
+        written_times = np.asarray(f.variables["T"][:])
+    vtk_dir = os.path.join(directory, "vtk")
+    os.makedirs(vtk_dir, exist_ok=True)
+    exporter = VTKExporter(path=vtk_dir)
+    _, products_s = _timed(exporter.export_products, p)
+    (products_file,) = exporter.exported_times["products"]
+    lines = _vtk_lines(products_file)
+    n_cell = WARM_RAIN_GRID[0] * WARM_RAIN_GRID[1]
+    scalars = [line for line in lines if line.startswith("SCALARS")]
+    if f"POINT_DATA {n_cell}" not in lines or len(lines) != 8 + len(scalars) * (n_cell + 2):
+        raise AssertionError(f"phase 47: {products_file}: {len(lines)} lines")
+    (_, small, spin_up), small_build_s = _timed(
+        warm_rain, None, WARM_RAIN_GRID, EXPORT_SD_PER_CELL
+    )
+    spin_up.finish()
+    small.run(2)
+    small.block_until_ready()
+    _, attributes_s = _timed(exporter.export_attributes, small)
+    (attributes_file,) = exporter.exported_times["particles"]
+    lines = _vtk_lines(attributes_file)
+    n = int((small.attributes["multiplicity"] > 0).sum())
+    xyz = np.loadtxt(lines[5:5 + n])
+    if (lines[4] != f"POINTS {n} float" or len(lines) != 7 + n + 3 * (n + 2)
+            or not (0 <= xyz[:, (0, 2)]).all() or not (xyz[:, (0, 2)] <= 1500).all()
+            or (xyz[:, 1] != 0).any()):
+        raise AssertionError(f"phase 47: {attributes_file}: {len(lines)} lines")
+    print(f"phase 47: NetCDFExporter of {len(output)} products x {RESUME_THEN}"
+          f" steps on the {WARM_RAIN_GRID} grid ({os.path.getsize(nc)} bytes,"
+          f" {nc_s!r} s), read back equal to the float32 arrays, times"
+          f" {float(written_times[0])!r}-{float(written_times[-1])!r} s; VTKExporter"
+          f" export_products, {len(scalars)} fields of {n_cell} cells:"
+          f" {products_s!r} s; export_attributes of {n} drops (3 attributes,"
+          f" {WARM_RAIN_GRID} x {EXPORT_SD_PER_CELL}, built in {small_build_s!r} s):"
+          f" {attributes_s!r} s, {os.path.getsize(attributes_file)} bytes [{gpu}]")
+    return {"netcdf_s": nc_s, "export_products_s": products_s,
+            "export_attributes_s": attributes_s, "export_attributes_drops": n}
+
+
+def _scipy_pair(build, steps):
+    """``build(scipy_solver)`` -> (particulator, run), run with K3 and with
+    the SciPy host step: each side's K3 launches, solves, ms/step, T, qv
+    and liquid water (float64 sums), and the relative differences"""
+    import numpy as np
+
+    sides = {}
+    for name, scipy_solver in (("k3", False), ("scipy", True)):
+        p, run = build(scipy_solver)
+        solver = p.dynamics["Condensation"].solver
+        solves0 = solver.substep_solves
+        _zero_launch_counts()
+        t0 = time.perf_counter()
+        run()
+        p.block_until_ready()
+        wall = time.perf_counter() - t0
+        mult = p.attributes["multiplicity"].astype(float)
+        sides[name] = {
+            "launches": _launch_counts()["masses_new"],
+            "solves": solver.substep_solves - solves0,
+            "ms_per_step": wall / steps * 1e3,
+            "T": float(p.get_env("T")[0]),
+            "qv": float(p.get_env("qv")[0]),
+            "liquid": float((mult * p.attributes["water mass"]).sum()),
+            "dtype": str(p.particles.extensive.dtype),
+            "device": p.particles.extensive.device.type,
+        }
+    got, want = sides["scipy"], sides["k3"]
+    diff = {key: abs(got[key] - want[key]) / abs(want[key]) for key in SCIPY_BOUNDS}
+    if not (want["launches"] == want["solves"] > 0 and got["launches"] == 0
+            and got["device"] == want["device"]
+            and got["dtype"] == want["dtype"]
+            and np.isfinite(list(diff.values())).all()):
+        raise AssertionError(f"phase 48: {sides}")
+    failed = [key for key, bound in SCIPY_BOUNDS.items() if not diff[key] <= bound]
+    if failed:
+        raise AssertionError(f"phase 48: {failed} past {SCIPY_BOUNDS}: {diff}")
+    return {**sides, "rel_diff": diff}
+
+
+def _scipy_solver_on_card(gpu):
+    """phase 48: the JAX test's parcel (32 drops, kappa = 0.5, w = 2 m/s,
+    200 steps) on the card with K3 and with ``patch_particulator``'s LSODA
+    host step, then ``pyrcel.Simulation`` at ``TestPyrcel``'s 16 + 16 both
+    ways: T, qv and liquid water within ``SCIPY_BOUNDS``; the K3 side's
+    launches = solves, none on the SciPy side"""
+    from pysdm_tpu_torch.backends import GPU
+    from pysdm_tpu_torch.models import pyrcel
+    from pysdm_tpu_torch.utils.scipy_ode_condensation_solver import (
+        patch_particulator,
+    )
+
+    def parcel(scipy_solver):
+        p = build_parcel(SCIPY_PARCEL_N, GPU, True)
+        if scipy_solver:
+            patch_particulator(p)
+        return p, lambda: p.run(SCIPY_PARCEL_STEPS)
+
+    settings = pyrcel_settings(PYRCEL_TEST_PER_MODE)
+
+    def pyrcel_sim(scipy_solver):
+        sim = pyrcel.Simulation(settings, scipy_solver=scipy_solver)
+        return sim.particulator, sim.run
+
+    record = {
+        "parcel": _scipy_pair(parcel, SCIPY_PARCEL_STEPS),
+        "pyrcel": _scipy_pair(pyrcel_sim, settings.nt),
+    }
+    for name, r in record.items():
+        print(f"phase 48: {name}: K3 {r['k3']['launches']} launches ="
+              f" solves, {r['k3']['ms_per_step']!r} ms/step; LSODA on the"
+              f" host {r['scipy']['ms_per_step']!r} ms/step, no launch; relative"
+              f" differences {r['rel_diff']} within {SCIPY_BOUNDS} [{gpu}]")
+    return record
+
+
+def _profile_on_card(gpu, p, directory):
+    """phase 49: ``profile_run`` over ``PROFILED_STEPS`` full-width
+    warm-rain steps into a trace: every dynamic's time > 0, the trace's
+    kernels K2's, K3's and K4's and its scopes every dynamic's"""
+    import os
+    import shutil
+
+    from pysdm_tpu_torch.utils.profiling import profile_run
+
+    logdir = os.path.join(directory, "profile")
+    shutil.rmtree(logdir, ignore_errors=True)
+    steps0 = p.n_steps
+    times, wall = _timed(profile_run, p, PROFILED_STEPS, logdir)
+    (trace,) = os.listdir(logdir)
+    with open(os.path.join(logdir, trace), encoding="utf-8") as f:
+        events = json.load(f)["traceEvents"]
+    kernels = [e["name"] for e in events if e.get("cat") == "kernel"]
+    scopes = {e["name"] for e in events if e.get("cat") == "user_annotation"}
+    traced = {
+        name: sum(kernel in k for k in kernels)
+        for name, kernel in TRACED_KERNELS.items()
+    }
+    if not (all(v > 0 for v in times.values()) and all(traced.values())
+            and set(times) <= scopes and p.n_steps == steps0 + PROFILED_STEPS):
+        raise AssertionError(f"phase 49: {times}, {traced}, {sorted(scopes)}")
+    print(f"phase 49: profile_run over {PROFILED_STEPS} full-width warm-rain"
+          f" steps ({wall!r} s): seconds by dynamic {times}; the trace"
+          f" ({os.path.getsize(os.path.join(logdir, trace))} bytes) holds"
+          f" {len(kernels)} kernels, of them K2, K3, K4 {traced} [{gpu}]")
+    return {"seconds": times, "traced_launches": traced, "wall_s": wall}
+
+
+def _exporters_and_utils(gpu):
+    """phases 46-49; returns their records and seconds"""
+    import os
+
+    os.makedirs(UTILS_DIR, exist_ok=True)
+    seconds, record = {}, {}
+    t0 = time.perf_counter()
+    record["box"] = _resume_box(gpu, UTILS_DIR)
+    record["warm_rain"], p, output, times = _resume_warm_rain(gpu, UTILS_DIR)
+    seconds["46"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    record["exporters"] = _exporters_on_card(gpu, p, output, times, UTILS_DIR)
+    seconds["47"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    record["scipy"] = _scipy_solver_on_card(gpu)
+    seconds["48"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    record["profile"] = _profile_on_card(gpu, p, UTILS_DIR)
+    seconds["49"] = time.perf_counter() - t0
+    print(f"phases 46-49: seconds {seconds}, together"
+          f" {sum(seconds.values())!r} s [{gpu}]")
+    return {**record, "seconds": seconds}
+
+
 def main():
     import torch
 
@@ -5844,6 +6395,7 @@ def main():
         ("kreidenweis_float32_vs_float64", _kreidenweis_float32_vs_float64),
         ("jaruga_and_pawlowska_2018", _jaruga_on_card),
         ("isotopes", _isotopes_on_card),
+        ("exporters_and_utils", _exporters_and_utils),
     ):
         t0 = time.perf_counter()
         model_phases[name] = phase(gpu)
@@ -5853,6 +6405,8 @@ def main():
     kreidenweis = model_phases["kreidenweis_et_al_2003"]
     jaruga, isotope_record = (model_phases["jaruga_and_pawlowska_2018"],
                               model_phases["isotopes"])
+    utils = model_phases["exporters_and_utils"]
+    resumed = utils["warm_rain"]
     # K3's launches on the model path of each set (phases 35-37)
     set_launches = {
         "a_august_roche_magnus": (
@@ -5898,6 +6452,7 @@ def main():
             model_phases["kreidenweis_float32_vs_float64"],
         "jaruga_and_pawlowska_2018": jaruga,
         "isotopes": isotope_record,
+        "exporters_and_utils": utils,
         "k3_parcel_vs_parent": {
             str(k): v
             for k, v in variant_sets.get("parcel_vs_parent", {}).items()
@@ -5912,6 +6467,8 @@ def main():
         "berry_launches": berry_launches,
         "seeding_launches": seeded["k1_launches"],
         "seeding_max_abs_err": seeded["k1_vs_twin"]["as drawn"][1],
+        "resume_launches": utils["box"]["launches"],
+        "resume_max_abs_err": utils["box"]["max_abs_err"],
         "max_abs_err": max_abs_err,
         "geometric_max_abs_err": geo_err,
         "ms": kernel_ms,
@@ -5949,6 +6506,9 @@ def main():
         "jaruga_launches": jaruga["k3_launches"],
         "rozanski_launches": isotope_record["card"]["k3_launches"],
         "rozanski_max_abs_err": isotope_record["k3_vs_twin"]["mass"],
+        "resume_launches": resumed["launches"]["masses_new"],
+        "resume_max_abs_err": resumed["max_abs_err"]["masses_new"],
+        "scipy_parcel_launches": utils["scipy"]["parcel"]["k3"]["launches"],
         "parcel_model_max_abs_err": {
             name: r["k3_vs_twin"]["mass"] for name, r in parcels.items()
         },
@@ -5995,6 +6555,8 @@ def main():
             str(n): r["launches"]["coalesce_adjacent"] for n, r in bartman.items()
         },
         "column_max_abs_err": column_err["coalesce_adjacent"],
+        "resume_launches": resumed["launches"]["coalesce_adjacent"],
+        "resume_max_abs_err": resumed["max_abs_err"]["coalesce_adjacent"],
         "bartman_max_abs_err": {
             str(n): r["max_abs_err"]["coalesce_adjacent"]
             for n, r in bartman.items() if "max_abs_err" in r
@@ -6018,6 +6580,8 @@ def main():
         "kreidenweis_launches": kreidenweis["k4_launches"],
         "jaruga_launches": jaruga["k4_launches"],
         "rozanski_launches": isotope_record["card"]["k4_launches"],
+        "resume_launches": resumed["launches"]["cumsum"],
+        "resume_max_abs_err": resumed["max_abs_err"]["cumsum"],
         "mg2007_launches": mg2007["launches"]["cumsum"],
         "mg2007_max_abs_err": mg2007["k4_max_abs_err"],
         "bartman_launches": {

@@ -240,14 +240,7 @@ class Builder:
 
             named_step_fns.append(("CoolingRatePrevT", record_prev_T))
         particulator._named_step_fns = tuple(named_step_fns)
-        step_fns = [fn for _, fn in named_step_fns]
-
-        def full_step(sim):
-            for fn in step_fns:
-                sim = fn(sim)
-            return sim
-
-        particulator._step_fn = full_step
+        particulator._compose()
         return particulator
 
     def _share_sort(self):

@@ -10,8 +10,9 @@ activation.
 
 ``Simulation`` builds on the ``GPU`` backend unless the caller passes
 ``backend_class=CPU`` (the JAX package defaults to its ``CPU``). Its
-``scipy_solver`` option needs ``utils/scipy_ode_condensation_solver.py``,
-which is not ported yet: it raises ``NotImplementedError``."""
+``scipy_solver`` option swaps the implicit condensation solve for
+``utils/scipy_ode_condensation_solver.py``'s host ODE integration (a
+cross-check, for tests)."""
 
 import numpy as np
 
@@ -144,11 +145,6 @@ class Simulation:
         scipy_solver=False,
         sampling_class=ConstantMultiplicity,
     ):
-        if scipy_solver:
-            raise NotImplementedError(
-                "the SciPy ODE condensation solver comes with exporters and"
-                " utils"
-            )
         self.settings = settings
         env = Parcel(
             dt=settings.timestep,
@@ -202,6 +198,12 @@ class Simulation:
             DeactivatingRate(name="deactivating rate"),
         )
         self.particulator = builder.build(attributes, products=products)
+        if scipy_solver:
+            from ..utils.scipy_ode_condensation_solver import (
+                patch_particulator,
+            )
+
+            patch_particulator(self.particulator)
         self._sanity_checks(attributes, volume)
 
     def _sanity_checks(self, attributes, volume):

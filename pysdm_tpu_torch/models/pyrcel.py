@@ -6,8 +6,9 @@ per-mode activated fractions.
 
 ``Simulation`` builds on the ``GPU`` backend unless the caller passes
 ``backend_class=CPU`` (the JAX package defaults to its ``CPU``). Its
-``scipy_solver`` option needs ``utils/scipy_ode_condensation_solver.py``,
-which is not ported yet: it raises ``NotImplementedError``."""
+``scipy_solver`` option swaps the implicit condensation solve for
+``utils/scipy_ode_condensation_solver.py``'s host ODE integration (a
+cross-check, for tests)."""
 
 import numpy as np
 
@@ -96,11 +97,6 @@ class Simulation:
         self, settings, products=None, backend_class=GPU,
         rtol_thd=1e-10, rtol_x=1e-10, scipy_solver=False,
     ):
-        if scipy_solver:
-            raise NotImplementedError(
-                "the SciPy ODE condensation solver comes with exporters and"
-                " utils"
-            )
         n_sd = sum(settings.n_sd_per_mode)
         self.settings = settings
         env = Parcel(
@@ -152,6 +148,12 @@ class Simulation:
             Time(name="t"),
         )
         self.particulator = builder.build(attributes, products=products)
+        if scipy_solver:
+            from ..utils.scipy_ode_condensation_solver import (
+                patch_particulator,
+            )
+
+            patch_particulator(self.particulator)
         self._sanity_checks(attributes, volume)
 
     def _sanity_checks(self, attributes, volume):

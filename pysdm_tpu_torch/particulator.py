@@ -84,18 +84,32 @@ class Particulator:
             time.perf_counter() - t0
         )
 
-    def _timed_step(self):
-        """one step, dynamic by dynamic, each timed up to the end of its
-        device work"""
+    def _timed_step(self, timers=None):
+        """one step, dynamic by dynamic, each under a profiler scope of its
+        name and timed up to the end of its device work into ``timers``
+        (``self.timers`` by default)"""
+        timers = self.timers if timers is None else timers
         sim = self.sim_state
         for name, fn in self._named_step_fns:
-            t0 = time.perf_counter()
-            sim = fn(sim)
-            self.block_until_ready()
-            self.timers[name] = self.timers.get(name, 0.0) + (
-                time.perf_counter() - t0
-            )
+            with torch.profiler.record_function(name):
+                t0 = time.perf_counter()
+                sim = fn(sim)
+                self.block_until_ready()
+                timers[name] = timers.get(name, 0.0) + (
+                    time.perf_counter() - t0
+                )
         self.sim_state = sim
+
+    def _compose(self):
+        """the composed step from ``_named_step_fns``"""
+        step_fns = [fn for _, fn in self._named_step_fns]
+
+        def full_step(sim):
+            for fn in step_fns:
+                sim = fn(sim)
+            return sim
+
+        self._step_fn = full_step
 
     def enable_per_dynamic_timing(self, enable=True):
         """time each dynamic of a step apart (``timers``, ``DynamicWallTime``),

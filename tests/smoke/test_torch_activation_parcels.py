@@ -273,17 +273,36 @@ def test_pyrcel_supersaturation_peak_and_activation():
 
 # --- refusals and the default backend ---------------------------------------
 def test_scipy_solver_names_its_roadmap_item():
-    """the SciPy ODE solver comes with "exporters and utils" (ROADMAP queue
-    1, item 9); both models refuse it before building anything"""
-    with pytest.raises(NotImplementedError, match="exporters and utils"):
-        pyrcel.Simulation(
-            _pyrcel_settings(pyrcel, pysdm_tpu_torch.Formulae, spectra),
-            backend_class=CPU, scipy_solver=True,
-        )
-    with pytest.raises(NotImplementedError, match="exporters and utils"):
-        gp.Simulation(
-            _gp_settings(gp, "pristine"), backend_class=CPU, scipy_solver=True
-        )
+    """the SciPy ODE solver came with "exporters and utils" (ROADMAP queue
+    1, item 9): both models take ``scipy_solver=True`` and run the LSODA
+    host step in Condensation's place. Pyrcel's run at its test's n_sd (16
+    + 16) stays within the implicit run's T, qv and liquid water at
+    ``TestScipyOdeSolver``'s bounds (rtol 1e-4, 5e-3, 2e-2); Grabowski &
+    Pawlowska's patched chain takes a step"""
+    sim = pyrcel.Simulation(
+        _pyrcel_settings(pyrcel, pysdm_tpu_torch.Formulae, spectra),
+        backend_class=CPU, scipy_solver=True,
+    )
+    p = sim.particulator
+    assert p.condensation_solver_patched.kind == "scipy_ode"
+    out = sim.run()
+    implicit = _pyrcel()[0][0]
+    np.testing.assert_allclose(out["products"]["RH"], implicit["products"]["RH"], rtol=5e-3)
+    implicit_records = _pyrcel()[0][1]
+    _, env, mass = implicit_records[-1]
+    np.testing.assert_allclose(p.get_env("T"), env["T"], rtol=1e-4)
+    np.testing.assert_allclose(p.get_env("qv"), env["qv"], rtol=5e-3)
+    mult = p.attributes["multiplicity"].astype(float)
+    np.testing.assert_allclose(
+        (mult * p.attributes["water mass"]).sum(), (mult * mass).sum(),
+        rtol=2e-2,
+    )
+    gp_sim = gp.Simulation(
+        _gp_settings(gp, "pristine"), backend_class=CPU, scipy_solver=True
+    )
+    assert gp_sim.particulator.condensation_solver_patched.kind == "scipy_ode"
+    gp_sim.particulator.run(1)
+    assert np.isfinite(gp_sim.particulator.get_env("T")).all()
 
 
 def _refuses_without_cuda(monkeypatch, build):

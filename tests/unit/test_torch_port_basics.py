@@ -125,18 +125,35 @@ def test_unported_formula_family_names_its_slice():
 
 
 def test_unported_options_name_their_roadmap_items():
-    """what is still refused names its ROADMAP item by title: the SciPy ODE
-    condensation solver comes with "exporters and utils", the shard halos
-    with "multi-GPU"; the mixed-phase 2D grid is ported, and no message of
-    the port names it as unported"""
+    """what is still refused names its ROADMAP item by title: the shard
+    halos come with "multi-GPU". The SciPy ODE condensation solver came
+    with "exporters and utils": ``pyrcel``'s ``scipy_solver`` builds the
+    patched chain, and no source of the port names that item as unported;
+    the mixed-phase 2D grid is ported, and no message of the port names it
+    as unported"""
     from pysdm_tpu_torch.backends import CPU as TorchCPU
     from pysdm_tpu_torch.environments.kinematic_2d import Kinematic2D
+    from pysdm_tpu_torch.initialisation import spectra
     from pysdm_tpu_torch.models import pyrcel
 
     from pysdm_tpu_torch.ops import mpdata
 
-    with pytest.raises(NotImplementedError, match="exporters and utils"):
-        pyrcel.Simulation(None, backend_class=TorchCPU, scipy_solver=True)
+    settings = pyrcel.Settings(
+        dz=10.0, n_sd_per_mode=(2, 2),
+        aerosol_modes_by_kappa={
+            0.54: spectra.Lognormal(norm_factor=850e6, m_mode=15e-9, s_geom=1.6),
+            1.2: spectra.Lognormal(norm_factor=10e6, m_mode=850e-9, s_geom=1.2),
+        },
+        vertical_velocity=1.0, initial_pressure=775e2,
+        initial_temperature=274.0, initial_relative_humidity=0.98,
+        displacement=20.0, formulae=pysdm_tpu_torch.Formulae(seed=44),
+    )
+    sim = pyrcel.Simulation(settings, backend_class=TorchCPU, scipy_solver=True)
+    assert sim.particulator.condensation_solver_patched.kind == "scipy_ode"
+    sources = (REPO / "pysdm_tpu_torch").rglob("*.py")
+    assert not [
+        path for path in sources if "exporters and utils" in path.read_text()
+    ]
     with pytest.raises(NotImplementedError, match="multi-GPU"):
         mpdata._pad1(torch.zeros(4, dtype=torch.float64), 0, ("halo", 1))
     env = Kinematic2D(
