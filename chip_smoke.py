@@ -290,7 +290,25 @@ Run from the root of the checkout: ``python3 chip_smoke.py``. Phases:
    SciPy side, the ms/step of each;
 49. ``utils/profiling.py``'s ``profile_run`` over 3 steps of B into a
    trace: every dynamic's seconds > 0, every dynamic's scope and K2's,
-   K3's and K4's kernels in the trace.
+   K3's and K4's kernels in the trace;
+50. the decomposed warm rain (``pysdm_tpu_torch.parallel``) at full width,
+   25 x 25 x 2^12 from a haze start, its ranks spawned from here
+   (``multihost.spawn``): run A on one rank (NCCL), 10 steps, collisions
+   off; runs B and C on ``DIST_RANKS`` x-slabs (NCCL where the host has
+   a card a rank, else gloo with CUDA tensors on the one card, chosen
+   before the run and printed). B takes A's 10 steps and is held to A:
+   dry-volume identities and multiplicities equal, positions and water
+   masses within ``DIST_BOUNDS`` on 99.9% of the particles and within
+   ``DIST_MAX_BOUNDS`` on all, the global thd, qv and RH within
+   ``DIST_BOUNDS``. C spins up 2 steps, then runs 10 with collisions and
+   sedimentation on, each counted with K2's, K3's and K4's counts set to
+   0 just before it and read just after on every rank (K2 = collision
+   substeps, K3 = solves); the water budget within 1e-3, no migration
+   dropped or far, condensation succeeding, multiplicities >= 0,
+   particles crossing slabs; rank 0's first counted step's K2 substep,
+   K3 solve and K4 scans against their twins; C's ms/step on every
+   rank's host clock, the bytes the exchanges carry and the particles in
+   flight (skipping a collision step) out of those alive.
 
 Every box phase checks multiplicities >= 0, water mass conserved to 1e-6 and
 coalescence having happened. Any failure raises, and the script exits
@@ -315,13 +333,17 @@ K3's and K4's on phases 43-45, ``kreidenweis_launches``,
 ``jaruga_launches``, ``rozanski_launches``; K1's, K2's, K3's and K4's on
 phase 46's resumed runs and their differences to their twins there,
 ``resume_launches`` and ``resume_max_abs_err``, and K3's on phase 48's
-parcel, ``scipy_parcel_launches``), before them one line of the float64
-paths' and the models' records (phases 31-49), and one of the device.
+parcel, ``scipy_parcel_launches``; K2's, K3's and K4's launches on phase
+50's run C by rank, ``distributed_launches``, and their differences to
+their twins there, ``distributed_max_abs_err``), before them one line of
+the float64 paths' and the models' records (phases 31-50), and one of the
+device.
 """
 
 import concurrent.futures
 import contextlib
 import json
+import os
 import subprocess
 import sys
 import time
@@ -6290,6 +6312,286 @@ def _exporters_and_utils(gpu):
     return {**record, "seconds": seconds}
 
 
+# --- phase 50: the decomposed warm rain over torch.distributed ------------
+DIST_RANKS = 5
+DIST_STEPS = 10
+DIST_SPIN_UP_STEPS = 2
+# B against A (PERF.md): 99.9% of the rows within the JAX package's float64
+# bounds of its shard invariance (positions in grid units, water masses in
+# kg), every row within ``DIST_MAX_BOUNDS``: in float32 the per-cell sums
+# (prefix differences over 625 cells in A, 125 in B) move a cell's RH by
+# ~1e-6, and a drop at its critical radius activates in one run and not in
+# the other (PR 15's first run: one drop 1.1e-17 kg in A, 2.9e-13 in B,
+# 2.2e-3 grid units lower); the fields (thd, qv, RH) within 1e-4 relative
+DIST_BOUNDS = {"position": 1e-3, "water_mass": 1e-13, "field_rel": 1e-4}
+DIST_QUANTILE = 0.999
+DIST_MAX_BOUNDS = {"position": 1e-2, "water_mass": 1e-12}
+DIST_TIMEOUT = 300.0
+
+
+def dist_settings():
+    """config #5 at full width from a haze start, as phase 10's"""
+    from pysdm_tpu_torch.parallel.verification import warm_rain_settings
+
+    return warm_rain_settings(
+        seed=44, grid=WARM_RAIN_GRID, n_sd_per_gridbox=WARM_RAIN_SD_PER_CELL
+    )
+
+
+def _distributed_rain_rank(gpu):
+    """phase 50, run C, inside a rank: the decomposed warm rain on the
+    card, 2 spin-up steps, then ``DIST_STEPS`` with collisions and
+    sedimentation on, each counted (module docstring). Raises where a check
+    fails; returns the rank's record"""
+    import torch
+    import torch.distributed as dist
+
+    from pysdm_tpu_torch.backends import GPU
+    from pysdm_tpu_torch.parallel import DistributedSimulation2D, migration
+    from pysdm_tpu_torch.parallel.halo import traffic
+
+    rank = dist.get_rank()
+    sim, build_s = _timed(
+        lambda: DistributedSimulation2D(dist_settings(), backend_class=GPU)
+    )
+    p = sim.particulator
+    for flag in ("collision_enable", "sedimentation_enable"):
+        p.set_flag(flag, False)
+    start = sim.global_diagnostics()
+    sim.run(DIST_SPIN_UP_STEPS)
+    for flag in ("collision_enable", "sedimentation_enable"):
+        p.set_flag(flag, True)
+    collision = p.dynamics["Collision"]
+    solver = p.dynamics["Condensation"].solver
+    real_start = migration.migrate_ring_start
+    in_flight = []
+
+    def counting_start(**kwargs):
+        arrays, inflight = real_start(**kwargs)
+        in_flight.append(inflight["shipped"])
+        return arrays, inflight
+
+    steps, captured = [], None
+    with _replaced(migration, "migrate_ring_start", counting_start):
+        for i in range(DIST_STEPS):
+            substeps0 = collision.substeps_run
+            solves0 = solver.substep_solves
+            alive = (p.particles.multiplicity > 0).sum()
+            first = i == 0 and rank == 0
+            ctx = _capturing_kernels() if first else contextlib.nullcontext()
+            torch.cuda.synchronize()
+            _zero_launch_counts()
+            traffic.reset()
+            t0 = time.perf_counter()
+            with ctx as held:
+                p.run(1)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+            counts = _launch_counts()
+            if first:
+                captured = held
+            steps.append({
+                "ms": ms,
+                "launches": {k: counts[k] for k in TRACED_KERNELS},
+                "substeps": collision.substeps_run - substeps0,
+                "solves": solver.substep_solves - solves0,
+                "bytes": traffic.bytes,
+                "exchanges": traffic.calls,
+                "alive": int(alive),
+                "in_flight": int(in_flight[-1]),
+            })
+    end = sim.global_diagnostics()
+    dropped = int(sim.get_counter("migration_dropped").sum())
+    far = int(sim.get_counter("migration_far_moves").sum())
+    mult_min = p.particles.multiplicity.min().reshape(1)
+    dist.all_reduce(mult_min, op=dist.ReduceOp.MIN)
+    crossed = torch.tensor(
+        [sum(s["in_flight"] for s in steps)], device=p.device
+    )
+    dist.all_reduce(crossed)
+    mult_min, crossed = int(mult_min), int(crossed)
+    drift = (end["water_total"] - start["water_total"]) / start["water_total"]
+    failed = [
+        name for name, bad in (
+            ("water", not abs(drift) < 1e-3),
+            ("dropped", dropped != 0),
+            ("far moves", far != 0),
+            ("condensation", end["condensation_ok"] != 1.0),
+            ("multiplicity", mult_min < 0),
+            ("no slab crossed", crossed == 0),
+            ("K2 != substeps", any(
+                s["launches"]["coalesce_adjacent"] != s["substeps"] or
+                s["substeps"] < 1 for s in steps)),
+            ("K3 != solves", any(
+                s["launches"]["masses_new"] != s["solves"] for s in steps)),
+            ("no K3", sum(s["solves"] for s in steps) == 0),
+            ("no K4", any(s["launches"]["cumsum"] == 0 for s in steps)),
+        ) if bad
+    ]
+    if failed:
+        raise AssertionError(
+            f"phase 50 C, rank {rank}: {failed}: drift {drift!r}, dropped"
+            f" {dropped}, far {far}, {end}, multiplicity min {mult_min},"
+            f" crossed {crossed}, steps {steps}"
+        )
+    record = {
+        "rank": rank, "backend": dist.get_backend(), "build_s": build_s,
+        "steps": steps, "water_drift": drift, "crossed": crossed,
+        "start": start, "end": end,
+    }
+    if captured is not None:
+        record["max_abs_err"] = _captured_kernels_vs_twins(
+            captured, True, gpu, "phase 50 C rank 0", what="decomposed warm-rain"
+        )
+    return record
+
+
+def _held_to(b_rows, a_rows, b_fields, a_fields):
+    """run B's canonical rows and fields against run A's: the
+    ``DIST_QUANTILE`` quantile of the rows' differences within
+    ``DIST_BOUNDS``, their largest within ``DIST_MAX_BOUNDS``, the fields'
+    within ``DIST_BOUNDS``; rows whose (dry volume, multiplicity) key ties
+    in float32 are matched by key only. Returns the differences (quantile
+    and largest) and the count of tied rows"""
+    import numpy as np
+
+    if b_rows.shape != a_rows.shape:
+        raise AssertionError(f"phase 50: alive {b_rows.shape} vs {a_rows.shape}")
+    for col, name in ((0, "dry volume"), (4, "multiplicity")):
+        if not np.array_equal(b_rows[:, col], a_rows[:, col]):
+            raise AssertionError(f"phase 50: {name} identities differ")
+    key = a_rows[:, [0, 4]]
+    tied = np.zeros(len(key), dtype=bool)
+    same = (key[1:] == key[:-1]).all(axis=1)
+    tied[1:] |= same
+    tied[:-1] |= same
+    rows = ~tied
+    per_row = {
+        "position": np.abs(b_rows[rows, 1:3] - a_rows[rows, 1:3]).max(axis=1),
+        "water_mass": np.abs(b_rows[rows, 3] - a_rows[rows, 3]),
+    }
+    diffs = {
+        name: {"quantile": float(np.quantile(d, DIST_QUANTILE)),
+               "max": float(d.max())}
+        for name, d in per_row.items()
+    }
+    diffs["field_rel"] = max(
+        float(np.max(np.abs(b_fields[f] - a_fields[f]) / np.abs(a_fields[f])))
+        for f in a_fields
+    )
+    held = diffs["field_rel"] <= DIST_BOUNDS["field_rel"] and all(
+        diffs[k]["quantile"] <= DIST_BOUNDS[k]
+        and diffs[k]["max"] <= DIST_MAX_BOUNDS[k]
+        for k in per_row
+    )
+    if not held:
+        raise AssertionError(
+            f"phase 50: B against A {diffs}, bounds {DIST_BOUNDS} (the"
+            f" {DIST_QUANTILE} quantile), {DIST_MAX_BOUNDS} (every row)"
+        )
+    return diffs, int(tied.sum())
+
+
+def _child_pids():
+    """this process's children that have not been reaped, from /proc"""
+    me, found = os.getpid(), []
+    for entry in os.listdir("/proc"):
+        if not entry.isdigit():
+            continue
+        try:
+            with open(f"/proc/{entry}/stat") as f:
+                stat = f.read()
+        except OSError:
+            continue
+        # state and parent follow the command name, which may hold spaces
+        if int(stat.rsplit(")", 1)[1].split()[1]) == me:
+            found.append(int(entry))
+    return found
+
+
+def _distributed_on_card(gpu):
+    """phase 50 (module docstring); returns its record"""
+    import numpy as np
+    import torch
+
+    from pysdm_tpu_torch.backends import GPU
+    from pysdm_tpu_torch.parallel import multihost, verification
+
+    t_phase = time.perf_counter()
+    backend = multihost.backend_for(DIST_RANKS, "cuda")
+    print(f"phase 50: {DIST_RANKS} ranks over {backend}"
+          f" ({torch.cuda.device_count()} card(s) on this host); run A on"
+          f" one rank over {multihost.backend_for(1, 'cuda')} [{gpu}]")
+    warm = (verification.rank_warm_rain, (
+        dist_settings, (DIST_STEPS,), None, False, True, GPU,
+    ))
+    try:
+        (a_run,), a_s = _timed(lambda: multihost.spawn(
+            verification.rank_cases, 1, [warm],
+            backend=multihost.backend_for(1, "cuda"), timeout=DIST_TIMEOUT,
+        ))
+        ranks, bc_s = _timed(lambda: multihost.spawn(
+            verification.rank_cases, DIST_RANKS,
+            [warm, (_distributed_rain_rank, (gpu,))],
+            backend=backend, timeout=DIST_TIMEOUT,
+        ))
+    finally:
+        # the fork server and the resource tracker, waited for
+        multihost.shutdown()
+    left = _child_pids()
+    assert not left, f"phase 50: processes {left} outlived their spawn"
+    print("phase 50: fork server and resource tracker stopped, no child"
+          " process left")
+    a = a_run[0]["snapshots"][-1]
+    b = ranks[0][0]["snapshots"][-1]
+    diffs, tied = _held_to(b["rows"], a["rows"], b["fields"], a["fields"])
+    print(f"phase 50: B ({DIST_RANKS} x-slabs, {ranks[0][0]['capacity']}"
+          f" slots a rank) against A (one rank) after {DIST_STEPS} steps,"
+          f" collisions off: {len(a['rows'])} alive, dry-volume identities"
+          f" and multiplicities equal; differences {diffs} (bounds"
+          f" {DIST_BOUNDS} on the {DIST_QUANTILE} quantile, {DIST_MAX_BOUNDS}"
+          f" on every row; {tied} rows of float32-tied keys matched by key"
+          f" only); dropped {b['migration_dropped']}, far"
+          f" {b['migration_far_moves']} [{gpu}]")
+    c = [r[1] for r in ranks]
+    ms = [[s["ms"] for s in r["steps"]] for r in c]
+    per_rank = {
+        name: [[s["launches"][name] for s in r["steps"]] for r in c]
+        for name in TRACED_KERNELS
+    }
+    step_bytes = [float(np.mean([s["bytes"] for s in r["steps"]])) for r in c]
+    exchanges = c[0]["steps"][0]["exchanges"]
+    in_flight = sum(s["in_flight"] for r in c for s in r["steps"])
+    alive = sum(s["alive"] for r in c for s in r["steps"])
+    for r, record in enumerate(c):
+        print(f"phase 50: C rank {r}: ms/step {ms[r]}; K2, K3, K4 launches"
+              f" per step {[per_rank[k][r] for k in TRACED_KERNELS]}; bytes"
+              f" sent a step {step_bytes[r]!r} in {exchanges} exchanges;"
+              f" build {record['build_s']!r} s")
+    errs = c[0]["max_abs_err"]
+    print(f"phase 50: C over {backend}, {DIST_STEPS} steps after"
+          f" {DIST_SPIN_UP_STEPS} of spin-up: water drift"
+          f" {c[0]['water_drift']!r}, {c[0]['crossed']} particles crossed"
+          f" slabs, in flight {in_flight} of {alive} alive-steps"
+          f" ({in_flight / alive!r}); mean ms/step by rank"
+          f" {[float(np.mean(m)) for m in ms]} (the one-card {backend} path"
+          f" staged through the host, no speed of several GPUs); rank 0's"
+          f" first step against the twins {errs} [{gpu}]")
+    seconds = time.perf_counter() - t_phase
+    print(f"phase 50: {seconds!r} s (A {a_s!r}, B and C {bc_s!r})")
+    return {
+        "backend": backend, "ranks": DIST_RANKS,
+        "a_backend": multihost.backend_for(1, "cuda"),
+        "b_against_a": diffs, "tied_rows": tied,
+        "ms_per_step": ms, "bytes_per_step": step_bytes,
+        "exchanges_per_step": exchanges,
+        "in_flight": in_flight, "alive_steps": alive,
+        "crossed": c[0]["crossed"], "water_drift": c[0]["water_drift"],
+        "launches": {k: [sum(x) for x in v] for k, v in per_rank.items()},
+        "max_abs_err": errs, "seconds": seconds,
+    }
+
+
 def main():
     import torch
 
@@ -6396,6 +6698,7 @@ def main():
         ("jaruga_and_pawlowska_2018", _jaruga_on_card),
         ("isotopes", _isotopes_on_card),
         ("exporters_and_utils", _exporters_and_utils),
+        ("distributed_warm_rain", _distributed_on_card),
     ):
         t0 = time.perf_counter()
         model_phases[name] = phase(gpu)
@@ -6407,6 +6710,7 @@ def main():
                               model_phases["isotopes"])
     utils = model_phases["exporters_and_utils"]
     resumed = utils["warm_rain"]
+    distributed = model_phases["distributed_warm_rain"]
     # K3's launches on the model path of each set (phases 35-37)
     set_launches = {
         "a_august_roche_magnus": (
@@ -6453,6 +6757,10 @@ def main():
         "jaruga_and_pawlowska_2018": jaruga,
         "isotopes": isotope_record,
         "exporters_and_utils": utils,
+        "distributed_warm_rain": {
+            k: v for k, v in distributed.items()
+            if k not in ("launches", "max_abs_err")
+        },
         "k3_parcel_vs_parent": {
             str(k): v
             for k, v in variant_sets.get("parcel_vs_parent", {}).items()
@@ -6509,6 +6817,8 @@ def main():
         "resume_launches": resumed["launches"]["masses_new"],
         "resume_max_abs_err": resumed["max_abs_err"]["masses_new"],
         "scipy_parcel_launches": utils["scipy"]["parcel"]["k3"]["launches"],
+        "distributed_launches": distributed["launches"]["masses_new"],
+        "distributed_max_abs_err": distributed["max_abs_err"]["masses_new"],
         "parcel_model_max_abs_err": {
             name: r["k3_vs_twin"]["mass"] for name, r in parcels.items()
         },
@@ -6557,6 +6867,9 @@ def main():
         "column_max_abs_err": column_err["coalesce_adjacent"],
         "resume_launches": resumed["launches"]["coalesce_adjacent"],
         "resume_max_abs_err": resumed["max_abs_err"]["coalesce_adjacent"],
+        "distributed_launches": distributed["launches"]["coalesce_adjacent"],
+        "distributed_max_abs_err":
+            distributed["max_abs_err"]["coalesce_adjacent"],
         "bartman_max_abs_err": {
             str(n): r["max_abs_err"]["coalesce_adjacent"]
             for n, r in bartman.items() if "max_abs_err" in r
@@ -6582,6 +6895,8 @@ def main():
         "rozanski_launches": isotope_record["card"]["k4_launches"],
         "resume_launches": resumed["launches"]["cumsum"],
         "resume_max_abs_err": resumed["max_abs_err"]["cumsum"],
+        "distributed_launches": distributed["launches"]["cumsum"],
+        "distributed_max_abs_err": distributed["max_abs_err"]["cumsum"],
         "mg2007_launches": mg2007["launches"]["cumsum"],
         "mg2007_max_abs_err": mg2007["k4_max_abs_err"],
         "bartman_launches": {
@@ -6630,6 +6945,8 @@ def main():
         "plain_ms_2_20": k1a_times[N_MAIN][1],
         "bound_ms_2_20": k1a_bound[N_MAIN][0],
     }]}))
+    left = _child_pids()
+    assert not left, f"processes {left} started here are still running"
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),

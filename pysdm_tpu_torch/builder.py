@@ -18,6 +18,13 @@ warm-rain order Condensation -> Advection -> Displacement -> Collision ends
 sorted, which is what the next step's Condensation needs), Condensation
 skips its own sort, the initial state is sorted once at build, and a
 spin-up-disabled Collision still sorts. One full-state sort per step.
+
+Deferred commits: a dynamic may split its communication into a start
+inside its step and a commit (``make_commit_step``) that runs after the
+last physics dynamic and before the environment's commit, as the
+decomposed Displacement's particle migration does
+(``pysdm_tpu/builder.py:216-240``). A commit scatters arrivals into grave
+slots, so the state ends a step unsorted wherever one exists.
 """
 
 import numpy as np
@@ -211,7 +218,14 @@ class Builder:
                 )
                 for name in self._u01_purposes
             }
-        self._share_sort()
+        commit_fns = [
+            (name + "Commit", fn)
+            for name, dynamic in particulator.dynamics.items()
+            if hasattr(dynamic, "make_commit_step")
+            for fn in [dynamic.make_commit_step(particulator)]
+            if fn is not None
+        ]
+        self._share_sort(commits=bool(commit_fns))
 
         # insertion order is semantically significant (reference
         # particulator.py:50-56)
@@ -220,6 +234,7 @@ class Builder:
             for name, dynamic in particulator.dynamics.items()
             if hasattr(dynamic, "make_step")
         ]
+        named_step_fns.extend(commit_fns)
         # the environment's predicted -> current commit runs last (the
         # reference's swap-on-notify observer order, particulator.py:58-61)
         if hasattr(self.environment, "make_commit_step"):
@@ -243,10 +258,11 @@ class Builder:
         particulator._compose()
         return particulator
 
-    def _share_sort(self):
+    def _share_sort(self, commits=False):
         """the shared-sort fixpoint (module docstring); sets each
         consumer's ``_assume_sorted`` and each sorter's
-        ``_sort_when_disabled`` and pre-sorts the initial state"""
+        ``_sort_when_disabled`` and pre-sorts the initial state;
+        ``commits``: a deferred commit step ends every step"""
         particulator = self.particulator
         dynamics = particulator.dynamics
         n_cell = particulator.mesh.n_cell
@@ -261,7 +277,7 @@ class Builder:
                     sorted_ = True
                 if getattr(dyn, "breaks_cell_sort", False):
                     sorted_ = False
-            return flags, sorted_
+            return flags, sorted_ and not commits
 
         flags, end_sorted = fixpoint(True)
         if not end_sorted:

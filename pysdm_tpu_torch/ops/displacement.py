@@ -62,12 +62,13 @@ def calculate_displacement(
 
 def flag_precipitated(
     *, cell_origin, position_in_cell, displacement, multiplicity, water_mass,
-    precipitation_counting_level_index,
+    precipitation_counting_level_index, z_offset=0,
 ):
     """mass flux through the bottom counting level; flagged particles die
-    (reference ``_flag_precipitated_body``). Returns (rainfall_mass,
-    new_multiplicity)."""
-    z_abs = cell_origin[-1] + position_in_cell[-1]
+    (reference ``_flag_precipitated_body``). ``z_offset`` shifts a tile's
+    local z origins to the column's (the counting level is a column
+    index). Returns (rainfall_mass, new_multiplicity)."""
+    z_abs = z_offset + cell_origin[-1] + position_in_cell[-1]
     flagged = (
         (displacement[-1] < 0)
         & (z_abs < precipitation_counting_level_index)
@@ -80,11 +81,13 @@ def flag_precipitated(
 
 
 def flag_out_of_column(
-    *, cell_origin, position_in_cell, multiplicity, domain_top_level_index
+    *, cell_origin, position_in_cell, multiplicity, domain_top_level_index,
+    z_offset=0,
 ):
     """particles leaving the column vertically die (reference
-    ``_flag_out_of_column_body``)"""
-    z_abs = cell_origin[-1] + position_in_cell[-1]
+    ``_flag_out_of_column_body``); ``domain_top_level_index`` and
+    ``z_offset`` are column indices on a z-decomposed mesh"""
+    z_abs = z_offset + cell_origin[-1] + position_in_cell[-1]
     out = (z_abs < 0) | (z_abs > domain_top_level_index)
     return torch.where(out, 0, multiplicity)
 

@@ -13,9 +13,9 @@ reference's examples use: ``n_iters``, ``infinite_gauge``,
 - g-factor ``g``: shape ``grid`` (or None for G = 1).
 
 The fields are small (625 cells in the 2D warm rain), so the step is a few
-hundred elementwise launches and no kernel of its own. Halo pads across
-devices (the JAX package's ``('shard', axis)`` boundary conditions) are
-not ported: they come with multi-GPU (ROADMAP).
+hundred elementwise launches and no kernel of its own. A decomposed axis
+takes a ``("shard", group)`` boundary condition: its pads are halo
+exchanges between the ranks of ``group`` (``parallel/halo.py``).
 """
 
 import torch
@@ -29,12 +29,16 @@ def _eps(dtype):
 
 
 def _pad1(arr, axis, bc, depth=1):
-    """halo-``depth`` pad along one axis: wrapped (periodic) or edge
-    copies (extrapolated)"""
+    """halo-``depth`` pad along one axis: wrapped (periodic), edge copies
+    (extrapolated), or, for a ``("shard", group)`` bc, the ring
+    neighbours' boundary slices (``parallel/halo.py``: global-periodic
+    across the ranks of ``group``)"""
     if isinstance(bc, tuple):
-        raise NotImplementedError(
-            f"boundary condition {bc!r}: shard halos come with multi-GPU"
-        )
+        if bc[0] != "shard":
+            raise ValueError(f"unknown boundary condition {bc!r}")
+        from ..parallel.halo import ring_halo_pad
+
+        return ring_halo_pad(arr, axis, bc[1], depth=depth)
     n = arr.shape[axis]
     if bc == PERIODIC:
         lo = arr.narrow(axis, n - depth, depth)

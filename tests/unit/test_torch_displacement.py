@@ -8,6 +8,8 @@ the same courant fields and run the dynamic's step alone; positions agree
 to rtol 1e-12 and multiplicities, cell ids and substep counts exactly
 (float64 on both sides, the same operations in the same order)."""
 
+import datetime
+
 import jax
 import numpy as np
 import pytest
@@ -151,6 +153,61 @@ def test_courant_lookup_clamps_like_the_jax_package():
         np.testing.assert_array_equal(g.numpy(), np.asarray(e))
 
 
-def test_distributed_displacement_is_refused():
-    with pytest.raises(NotImplementedError, match="multi-GPU"):
-        pysdm_tpu_torch.dynamics.Displacement(distributed_x={"axis_name": "x"})
+def test_distributed_displacement_is_refused(sims, tmp_path):
+    """``distributed_x`` is taken: on a group of one rank (the ring is the
+    rank itself) the decomposed step, with its staggered courant halos, its
+    MAX reduce of the substep count and its migration of the slab-crossers
+    to the rank itself, moves every particle as the single-device step
+    does in a sheared flow that needs substeps (the alive particles'
+    positions, cell ids and multiplicities equal, rows matched by dry
+    volume: the migration moves the crossers to other slots, and an
+    arrival may fill the slot of a particle that died this step)"""
+    tp = sims[1]
+    cx = np.tile(np.linspace(-0.6, 0.6, GRID[1]), (GRID[0] + 1, 1))
+    cz = np.tile(np.linspace(-0.3, 0.3, GRID[1] + 1), (GRID[0], 1))
+    sim = dict(tp.sim_state)
+    sim["env"] = {
+        **sim["env"],
+        "courant_0": torch.from_numpy(cx.ravel()),
+        "courant_1": torch.from_numpy(cz.ravel()),
+    }
+    sim["counters"] = {
+        **sim["counters"],
+        "migration_dropped": torch.zeros(2, dtype=torch.int64),
+        "migration_far_moves": torch.zeros(1, dtype=torch.int64),
+    }
+    torch.distributed.init_process_group(
+        "gloo", init_method=f"file://{tmp_path}/rendezvous", rank=0,
+        world_size=1, timeout=datetime.timedelta(seconds=60),
+    )
+    try:
+        decomposed = pysdm_tpu_torch.dynamics.Displacement(
+            enable_sedimentation=True,
+            distributed_x=dict(
+                group=torch.distributed.new_group([0]), capacity=64,
+                overlap=False,
+            ),
+        )
+        decomposed.particulator = tp
+        got = decomposed.make_step(tp)(sim)
+    finally:
+        torch.distributed.destroy_process_group()
+    want = tp.dynamics["Displacement"].make_step(tp)(sim)
+    assert decomposed.host_reads == 1
+    np.testing.assert_array_equal(
+        got["counters"]["migration_dropped"].numpy(), [0, 0]
+    )
+
+    def rows(out):
+        p = out["particles"]
+        table = np.stack([
+            p.ext("dry volume").numpy(), p.multiplicity.numpy(),
+            p.cell_id.numpy(), *p.cell_origin.numpy(),
+            *p.position_in_cell.numpy(),
+        ])[:, p.multiplicity.numpy() > 0]
+        return table[:, np.argsort(table[0], kind="stable")]
+
+    before = tp.sim_state["particles"].cell_origin[0].numpy()
+    after = want["particles"].cell_origin[0].numpy()
+    assert (before != after).any(), "the flow must move particles across x"
+    np.testing.assert_array_equal(rows(got), rows(want))

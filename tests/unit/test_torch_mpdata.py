@@ -8,6 +8,8 @@ same formulas in the same order (the JAX side under jit, whose fusion
 rounds a few intermediate values otherwise), so fields of order 1 agree to
 rtol 1e-12 with atol 1e-15 (the rotation, 400 steps, to rtol 1e-11)."""
 
+import datetime
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -109,12 +111,33 @@ def test_solid_body_rotation_2d():
     assert np.corrcoef(got.ravel(), psi0.ravel())[0, 1] > 0.97
 
 
-def test_shard_halos_are_refused():
-    with pytest.raises(NotImplementedError, match="multi-GPU"):
-        port_step(
-            torch.ones(4, 4), (torch.zeros(5, 4), torch.zeros(4, 5)),
-            bcs=(("shard", "x"), "periodic"),
-        )
+def test_shard_halos_are_refused(tmp_path):
+    """shard halos are taken: on a group of one rank the ``("shard",
+    group)`` bc is the periodic one, bit for bit over 5 steps of the FCT
+    scheme; a boundary condition of any other tuple raises"""
+    rng = np.random.default_rng(8)
+    psi = torch.from_numpy(rng.uniform(0.2, 1.0, (6, 4)))
+    gc_x = rng.uniform(-0.3, 0.3, (7, 4))
+    gc_x[-1] = gc_x[0]
+    gc_z = rng.uniform(-0.3, 0.3, (6, 5))
+    gc_z[:, -1] = gc_z[:, 0]
+    gc = (torch.from_numpy(gc_x), torch.from_numpy(gc_z))
+    opts = dict(n_iters=2, infinite_gauge=True, nonoscillatory=True)
+    torch.distributed.init_process_group(
+        "gloo", init_method=f"file://{tmp_path}/rendezvous", rank=0,
+        world_size=1, timeout=datetime.timedelta(seconds=60),
+    )
+    try:
+        bc = ("shard", torch.distributed.new_group([0]))
+        got = want = psi
+        for _ in range(5):
+            got = port_step(got, gc, bcs=(bc, "periodic"), **opts)
+            want = port_step(want, gc, bcs=("periodic", "periodic"), **opts)
+    finally:
+        torch.distributed.destroy_process_group()
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+    with pytest.raises(ValueError, match="boundary condition"):
+        port_step(psi, gc, bcs=(("halo", 1), "periodic"))
 
 
 def _column_couplings(dt):

@@ -1,6 +1,7 @@
 """The port's scaffolding: it imports without JAX, its formulae equal the JAX
 package's in float64, and its backends keep their dtype/device policy."""
 
+import datetime
 import subprocess
 import sys
 from pathlib import Path
@@ -44,7 +45,9 @@ def test_import_leaves_jax_out():
         " pysdm_tpu_torch.models.jouzel_and_merlivat_1984,"
         " pysdm_tpu_torch.models.gedzelman_and_arnold_1994,"
         " pysdm_tpu_torch.models.rozanski_and_sonntag_1982,"
-        " pysdm_tpu_torch.products.chemistry;"
+        " pysdm_tpu_torch.products.chemistry,"
+        " pysdm_tpu_torch.parallel, pysdm_tpu_torch.parallel.multihost,"
+        " pysdm_tpu_torch.parallel.verification;"
         " bad = [m for m in sys.modules if m.split('.')[0] in"
         " ('jax', 'flax', 'pysdm_tpu')]; print(bad); assert not bad"
     )
@@ -124,14 +127,17 @@ def test_unported_formula_family_names_its_slice():
     ]
 
 
-def test_unported_options_name_their_roadmap_items():
-    """what is still refused names its ROADMAP item by title: the shard
-    halos come with "multi-GPU". The SciPy ODE condensation solver came
-    with "exporters and utils": ``pyrcel``'s ``scipy_solver`` builds the
-    patched chain, and no source of the port names that item as unported;
-    the mixed-phase 2D grid is ported, and no message of the port names it
-    as unported"""
+def test_unported_options_name_their_roadmap_items(tmp_path):
+    """no ROADMAP item is left unported: "multi-GPU" came last. A
+    ``("shard", group)`` bc pads by ring halo exchange (on a one-rank
+    group, the periodic pad), ``Displacement`` takes ``distributed_x``, and
+    no source of the port names multi-GPU as to come. The SciPy ODE
+    condensation solver came with "exporters and utils": ``pyrcel``'s
+    ``scipy_solver`` builds the patched chain, and no source of the port
+    names that item as unported; the mixed-phase 2D grid is ported, and no
+    message of the port names it as unported"""
     from pysdm_tpu_torch.backends import CPU as TorchCPU
+    from pysdm_tpu_torch.dynamics import Displacement
     from pysdm_tpu_torch.environments.kinematic_2d import Kinematic2D
     from pysdm_tpu_torch.initialisation import spectra
     from pysdm_tpu_torch.models import pyrcel
@@ -154,8 +160,29 @@ def test_unported_options_name_their_roadmap_items():
     assert not [
         path for path in sources if "exporters and utils" in path.read_text()
     ]
-    with pytest.raises(NotImplementedError, match="multi-GPU"):
-        mpdata._pad1(torch.zeros(4, dtype=torch.float64), 0, ("halo", 1))
+    arr = torch.arange(12, dtype=torch.float64).reshape(4, 3)
+    torch.distributed.init_process_group(
+        "gloo", init_method=f"file://{tmp_path}/rendezvous", rank=0,
+        world_size=1, timeout=datetime.timedelta(seconds=60),
+    )
+    try:
+        group = torch.distributed.new_group([0])
+        for axis in (0, 1):
+            torch.testing.assert_close(
+                mpdata._pad1(arr, axis, ("shard", group), depth=2),
+                mpdata._pad1(arr, axis, "periodic", depth=2),
+                rtol=0, atol=0,
+            )
+    finally:
+        torch.distributed.destroy_process_group()
+    with pytest.raises(ValueError, match="boundary condition"):
+        mpdata._pad1(arr, 0, ("halo", 1))
+    shard_x = dict(group=None, capacity=64)
+    assert Displacement(distributed_x=shard_x).distributed_x == shard_x
+    sources = (REPO / "pysdm_tpu_torch").rglob("*.py")
+    assert not [
+        path for path in sources if "with multi-GPU" in path.read_text()
+    ]
     env = Kinematic2D(
         dt=1.0, grid=(2, 2), size=(100.0, 100.0),
         rhod_of=lambda zZ: np.ones_like(zZ), mixed_phase=True,
