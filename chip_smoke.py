@@ -308,7 +308,17 @@ Run from the root of the checkout: ``python3 chip_smoke.py``. Phases:
    particles crossing slabs; rank 0's first counted step's K2 substep,
    K3 solve and K4 scans against their twins; C's ms/step on every
    rank's host clock, the bytes the exchanges carry and the particles in
-   flight (skipping a collision step) out of those alive.
+   flight (skipping a collision step) out of those alive. B and A run one
+   step at a time, and the fields' largest relative deviation (thd, qv,
+   RH) of B from A is printed after each of the 10 steps (held at step 10
+   only). D, in the same spawn after C: the undersized buffers of
+   ``tests/smoke/test_torch_distributed_2d.py`` (the crosswind, seed 29,
+   8 super-droplets a cell, migration capacity 4) at ``DIST_OVERFLOW_GRID``
+   (a grid the ranks' slabs divide), overlap and collisions on, under
+   ``verification.migration_probe``: at every commit of every rank the
+   later round ships exactly the stashed leftovers it must (by every row),
+   the rest are send drops, the drops of all commits are the
+   ``migration_dropped`` counter, multiplicities >= 0, water finite.
 
 Every box phase checks multiplicities >= 0, water mass conserved to 1e-6 and
 coalescence having happened. Any failure raises, and the script exits
@@ -342,6 +352,7 @@ device.
 
 import concurrent.futures
 import contextlib
+import functools
 import json
 import os
 import subprocess
@@ -6327,6 +6338,11 @@ DIST_BOUNDS = {"position": 1e-3, "water_mass": 1e-13, "field_rel": 1e-4}
 DIST_QUANTILE = 0.999
 DIST_MAX_BOUNDS = {"position": 1e-2, "water_mass": 1e-12}
 DIST_TIMEOUT = 300.0
+# D: the CPU test's overflow case, its 16 x 8 grid narrowed to one that
+# DIST_RANKS slabs divide
+DIST_OVERFLOW_GRID = (15, 8)
+DIST_OVERFLOW_STEPS = 6
+DIST_OVERFLOW_CAPACITY = 4
 
 
 def dist_settings():
@@ -6336,6 +6352,76 @@ def dist_settings():
     return warm_rain_settings(
         seed=44, grid=WARM_RAIN_GRID, n_sd_per_gridbox=WARM_RAIN_SD_PER_CELL
     )
+
+
+def dist_overflow_settings():
+    """phase 50 D's case: the crosswind of the CPU overflow test"""
+    from pysdm_tpu_torch.parallel.verification import warm_rain_settings
+
+    return warm_rain_settings(
+        seed=29, grid=DIST_OVERFLOW_GRID, n_sd_per_gridbox=8, crosswind=True
+    )
+
+
+def _distributed_overflow_rank():
+    """phase 50, run D, inside a rank: the overflow case on the card under
+    the migration probe; returns the rank's record and its seconds"""
+    from pysdm_tpu_torch.backends import GPU
+    from pysdm_tpu_torch.parallel import verification
+
+    record, seconds = _timed(lambda: verification.rank_warm_rain(
+        dist_overflow_settings, (DIST_OVERFLOW_STEPS,),
+        dict(migration_capacity=DIST_OVERFLOW_CAPACITY), True, False, GPU,
+        probe=True,
+    ))
+    return {**record, "seconds": seconds}
+
+
+def _overflow_held(d_ranks):
+    """phase 50 D's checks over every rank's records (module docstring);
+    raises where one fails, returns the counts"""
+    probes = [s for r in d_ranks for s in r["probe"]]
+    end = d_ranks[0]["snapshots"][-1]
+    counts = {
+        key: sum(s[key] for s in probes)
+        for key in ("stashed", "expected", "selected", "matched", "away")
+    }
+    counts["commits"] = len(probes)
+    counts["send_dropped"] = sum(s["dropped"][0] for s in probes)
+    counts["place_dropped"] = sum(s["dropped"][1] for s in probes)
+    counts["counter"] = end["migration_dropped"]
+    failed = [
+        name for name, bad in (
+            ("commits", len(probes) != DIST_RANKS * DIST_OVERFLOW_STEPS),
+            ("no overflow", counts["stashed"] == 0),
+            ("later rounds shipped other than the stash", any(
+                not s["selected"] == s["matched"] == s["expected"]
+                for s in probes)),
+            ("send drops != leftovers past the rounds", any(
+                s["dropped"][0] != s["stashed"] - s["expected"]
+                for s in probes)),
+            ("drops != counter", counts["send_dropped"]
+             + counts["place_dropped"] != counts["counter"]),
+            ("multiplicity", end["multiplicity_min"] < 0),
+            ("water", end["water_mass_nonfinite"] != 0),
+        ) if bad
+    ]
+    if failed:
+        raise AssertionError(
+            f"phase 50 D: {failed}: {counts}, end {end}, probes {probes}"
+        )
+    return counts
+
+
+def _field_steps_deviation(b_steps, a_steps):
+    """the largest relative deviation of each field of B from A's, step by
+    step"""
+    import numpy as np
+
+    return [
+        {f: float(np.max(np.abs(b[f] - a[f]) / np.abs(a[f]))) for f in a}
+        for b, a in zip(b_steps, a_steps)
+    ]
 
 
 def _distributed_rain_rank(gpu):
@@ -6368,7 +6454,7 @@ def _distributed_rain_rank(gpu):
 
     def counting_start(**kwargs):
         arrays, inflight = real_start(**kwargs)
-        in_flight.append(inflight["shipped"])
+        in_flight.append(inflight["shipped"] + inflight["stashed"])
         return arrays, inflight
 
     steps, captured = [], None
@@ -6522,7 +6608,7 @@ def _distributed_on_card(gpu):
     print(f"phase 50: {DIST_RANKS} ranks over {backend}"
           f" ({torch.cuda.device_count()} card(s) on this host); run A on"
           f" one rank over {multihost.backend_for(1, 'cuda')} [{gpu}]")
-    warm = (verification.rank_warm_rain, (
+    warm = (functools.partial(verification.rank_warm_rain, field_steps=True), (
         dist_settings, (DIST_STEPS,), None, False, True, GPU,
     ))
     try:
@@ -6532,7 +6618,8 @@ def _distributed_on_card(gpu):
         ))
         ranks, bc_s = _timed(lambda: multihost.spawn(
             verification.rank_cases, DIST_RANKS,
-            [warm, (_distributed_rain_rank, (gpu,))],
+            [warm, (_distributed_rain_rank, (gpu,)),
+             (_distributed_overflow_rank, ())],
             backend=backend, timeout=DIST_TIMEOUT,
         ))
     finally:
@@ -6553,6 +6640,12 @@ def _distributed_on_card(gpu):
           f" on every row; {tied} rows of float32-tied keys matched by key"
           f" only); dropped {b['migration_dropped']}, far"
           f" {b['migration_far_moves']} [{gpu}]")
+    field_steps = _field_steps_deviation(
+        ranks[0][0]["field_steps"], a_run[0]["field_steps"]
+    )
+    for i, dev in enumerate(field_steps):
+        print(f"phase 50: B against A after step {i + 1}: fields' largest"
+              f" relative deviation {dev} [{gpu}]")
     c = [r[1] for r in ranks]
     ms = [[s["ms"] for s in r["steps"]] for r in c]
     per_rank = {
@@ -6577,8 +6670,17 @@ def _distributed_on_card(gpu):
           f" {[float(np.mean(m)) for m in ms]} (the one-card {backend} path"
           f" staged through the host, no speed of several GPUs); rank 0's"
           f" first step against the twins {errs} [{gpu}]")
+    d = [r[2] for r in ranks]
+    overflow = _overflow_held(d)
+    d_s = max(r["seconds"] for r in d)
+    print(f"phase 50: D ({DIST_RANKS} x-slabs of {DIST_OVERFLOW_GRID},"
+          f" capacity {DIST_OVERFLOW_CAPACITY}, overlap and collisions on,"
+          f" {DIST_OVERFLOW_STEPS} steps over {backend}): {overflow}; every"
+          f" commit's later round shipped exactly its stash, multiplicity"
+          f" min {d[0]['snapshots'][-1]['multiplicity_min']}; {d_s!r} s"
+          f" [{gpu}]")
     seconds = time.perf_counter() - t_phase
-    print(f"phase 50: {seconds!r} s (A {a_s!r}, B and C {bc_s!r})")
+    print(f"phase 50: {seconds!r} s (A {a_s!r}, B, C and D {bc_s!r})")
     return {
         "backend": backend, "ranks": DIST_RANKS,
         "a_backend": multihost.backend_for(1, "cuda"),
@@ -6589,6 +6691,7 @@ def _distributed_on_card(gpu):
         "crossed": c[0]["crossed"], "water_drift": c[0]["water_drift"],
         "launches": {k: [sum(x) for x in v] for k, v in per_rank.items()},
         "max_abs_err": errs, "seconds": seconds,
+        "b_field_steps": field_steps, "d_overflow": overflow, "d_seconds": d_s,
     }
 
 

@@ -16,13 +16,17 @@ they are module-level, so that a rank imports this package and nothing
 of the caller's.
 """
 
+import collections
+import contextlib
+
 import numpy as np
 import torch
 import torch.distributed as dist
 
+from ..dynamics.collisions.collision_kernels import Geometric
 from ..models.arabas_et_al_2015 import Settings
 from ..physics import Formulae
-from . import multihost
+from . import migration, multihost
 
 FIELDS = ("thd", "qv", "RH")
 
@@ -40,16 +44,20 @@ class CrosswindSettings(Settings):
 
 
 def warm_rain_settings(*, seed, grid, n_sd_per_gridbox, size=(1500.0, 1500.0),
-                       dt=5.0, crosswind=False, condensation_adaptive=True):
+                       dt=5.0, crosswind=False, condensation_adaptive=True,
+                       collection_efficiency=None):
     """the port's Arabas et al. 2015 ``Settings`` (``crosswind``:
-    ``CrosswindSettings``); as a ``functools.partial`` a settings factory
-    that pickles"""
+    ``CrosswindSettings``; ``collection_efficiency``: a ``Geometric``
+    kernel with it, 0 for a collision that sorts and never merges); as a
+    ``functools.partial`` a settings factory that pickles"""
     cls = CrosswindSettings if crosswind else Settings
     settings = cls(
         Formulae(seed=seed), grid=grid, size=size, dt=dt,
         n_sd_per_gridbox=n_sd_per_gridbox,
     )
     settings.condensation_adaptive = condensation_adaptive
+    if collection_efficiency is not None:
+        settings.kernel = Geometric(collection_efficiency=collection_efficiency)
     return settings
 
 
@@ -83,7 +91,8 @@ def _global_field(sim, settings, name):
 
 
 def rank_warm_rain(settings_factory, checkpoints, sim_kwargs=None,
-                   collisions=True, rows=False, backend_class=None):
+                   collisions=True, rows=False, backend_class=None,
+                   probe=False, draw_seed=None, field_steps=False):
     """inside a rank: build a ``DistributedSimulation2D`` (CPU unless
     ``backend_class``; collisions off unless ``collisions``), record a
     snapshot, then run to each of ``checkpoints`` (step counts) and record
@@ -91,9 +100,14 @@ def rank_warm_rain(settings_factory, checkpoints, sim_kwargs=None,
     every rank, the migration counters, RH's extremes, the global cell ids'
     range, the finiteness of the water masses and the least multiplicity;
     with ``rows``, the last also ``canonical_particles`` and the global
-    ``FIELDS`` (on rank 0 only)."""
+    ``FIELDS`` (on rank 0 only). With ``probe``, the run goes under
+    ``migration_probe`` and ``"probe"`` holds this rank's summaries of its
+    x exchanges (``probe_summary``), one a step. ``draw_seed`` reseeds the
+    rank's generators after the build: the same start, other draws. With
+    ``field_steps``, the run goes one step at a time and ``"field_steps"``
+    holds the global ``FIELDS`` after every step (on rank 0 only)."""
     from ..backends import CPU
-    from .distributed_2d import DistributedSimulation2D
+    from .distributed_2d import DistributedSimulation2D, _rank_seed
 
     settings = settings_factory()
     sim = DistributedSimulation2D(
@@ -102,14 +116,123 @@ def rank_warm_rain(settings_factory, checkpoints, sim_kwargs=None,
     p = sim.particulator
     if not collisions:
         p.set_flag("collision_enable", False)
+    if draw_seed is not None:
+        for gen in (p.rng, p.device_rng):
+            gen.manual_seed(_rank_seed(draw_seed, sim.rank))
     snapshots, done = [], 0
-    for steps in (0, *checkpoints):
-        sim.run(steps - done)
-        done = steps
-        snapshots.append(
-            _snapshot(sim, settings, rows and steps == checkpoints[-1])
-        )
-    return {"capacity": p.n_sd, "snapshots": snapshots}
+    ctx = migration_probe() if probe else contextlib.nullcontext()
+    per_step = []
+    with ctx as records:
+        for steps in (0, *checkpoints):
+            while field_steps and done < steps:
+                sim.run(1)
+                done += 1
+                fields = {f: _global_field(sim, settings, f) for f in FIELDS}
+                per_step.append(fields)
+            sim.run(steps - done)
+            done = steps
+            snapshots.append(
+                _snapshot(sim, settings, rows and steps == checkpoints[-1])
+            )
+    out = {"capacity": p.n_sd, "snapshots": snapshots}
+    if probe:
+        out["probe"] = [probe_summary(r) for r in records]
+    if field_steps and sim.rank == 0:
+        out["field_steps"] = per_step
+    return out
+
+
+@contextlib.contextmanager
+def migration_probe():
+    """record every overlapped exchange that starts inside the block (a
+    list, one dict per ``migrate_ring_start`` in call order): its stash,
+    the rows of the slots its commit's later rounds ship (read from the
+    state at each send), how many leftovers the commit put back into a
+    slot other than the recorded one (``"away"``: the sort between start
+    and commit moved a particle into it), its ``rounds``, ``capacity`` and
+    [send, place] drops. Patches ``parallel.migration``'s functions for
+    the block's duration (a passive probe: results are unchanged)."""
+    real = {name: getattr(migration, name) for name in (
+        "migrate_ring_start", "migrate_ring_commit", "_send_round",
+        "_restore",
+    )}
+    records, by_inflight, current = [], {}, []
+
+    def start(**kwargs):
+        arrays, inflight = real["migrate_ring_start"](**kwargs)
+        records.append({
+            "stash": inflight["stash"], "capacity": kwargs["capacity"],
+            "shipped": [],
+        })
+        by_inflight[id(inflight)] = records[-1]
+        return arrays, inflight
+
+    def commit(**kwargs):
+        record = by_inflight.pop(id(kwargs["inflight"]))
+        record["rounds"] = kwargs.get("rounds", 2)
+        current.append(record)
+        try:
+            arrays, dropped = real["migrate_ring_commit"](**kwargs)
+        finally:
+            current.pop()
+        record["dropped"] = dropped.tolist()
+        return arrays, dropped
+
+    def send_round(arrays, *args, **kwargs):
+        out = real["_send_round"](arrays, *args, **kwargs)
+        if current:
+            departing = out[2]
+            current[-1]["shipped"].append(
+                [migration._as_rows(a)[:, departing] for a in arrays]
+            )
+        return out
+
+    def restore(arrays, multiplicity_index, stash):
+        arrays, target = real["_restore"](arrays, multiplicity_index, stash)
+        if current:
+            current[-1]["away"] = int((target != stash["slots"]).sum())
+        return arrays, target
+
+    patched = {"migrate_ring_start": start, "migrate_ring_commit": commit,
+               "_send_round": send_round, "_restore": restore}
+    for name, fn in patched.items():
+        setattr(migration, name, fn)
+    try:
+        yield records
+    finally:
+        for name, fn in real.items():
+            setattr(migration, name, fn)
+
+
+def _columns(rows):
+    """the particles of a list of row blocks as hashable columns (float64
+    tuples of every row)"""
+    block = torch.cat([r.double() for r in rows]).cpu().numpy()
+    return [tuple(col) for col in block.T]
+
+
+def probe_summary(record):
+    """one ``migration_probe`` record as counts: ``stashed`` leftovers,
+    ``expected`` (the first ``(rounds - 1) x capacity`` of each
+    direction's, in the start's slot order: what the later rounds must
+    ship), ``selected`` (what they shipped), ``matched`` (of those, the
+    expected particles, by every row), ``away`` and the [send, place]
+    ``dropped``"""
+    stash = record["stash"]
+    limit = (record["rounds"] - 1) * record["capacity"]
+    direction = stash["direction"].cpu().numpy()
+    columns = _columns(stash["rows"])
+    expected = [
+        col for d in migration.DIRECTIONS
+        for col in [c for c, e in zip(columns, direction) if e == d][:limit]
+    ]
+    shipped = [c for rows in record["shipped"] for c in _columns(rows)]
+    matched = collections.Counter(expected) & collections.Counter(shipped)
+    return {
+        "stashed": len(columns), "expected": len(expected),
+        "selected": len(shipped), "matched": sum(matched.values()),
+        "away": record.get("away", 0), "dropped": record["dropped"],
+    }
 
 
 def _snapshot(sim, settings, with_rows):
@@ -190,13 +313,14 @@ def rank_halo(arr, axis, depth, device="cpu", staggered=False):
     return padded.cpu().numpy()
 
 
-def rank_migration(arrays, shift, capacity, rounds, overlap, device="cpu"):
+def rank_migration(arrays, shift, capacity, rounds, overlap, device="cpu",
+                   permute_seed=None):
     """inside a rank: ``migrate_ring`` (or, with ``overlap``, the pair
     ``migrate_ring_start``/``migrate_ring_commit``) of this rank's blocks
-    of ``arrays`` (multiplicity first; on ``device``) by ``shift``.
-    Returns the blocks and the [send, place] drops."""
-    from . import migration
-
+    of ``arrays`` (multiplicity first; on ``device``) by ``shift``; with
+    ``permute_seed``, the pair with a random permutation of the rank's
+    slots between them (from the seed and the rank, standing in for the
+    collision's sort). Returns the blocks and the [send, place] drops."""
     arrays = [_own_block(a, device=device) for a in arrays]
     shift = _own_block(shift, device=device)
     if overlap:
@@ -204,6 +328,12 @@ def rank_migration(arrays, shift, capacity, rounds, overlap, device="cpu"):
             arrays=arrays, multiplicity_index=0, dest_shift=shift,
             group=None, capacity=capacity,
         )
+        if permute_seed is not None:
+            order = np.random.default_rng(
+                permute_seed + dist.get_rank()
+            ).permutation(shift.shape[0])
+            arrays = [a[..., torch.as_tensor(order, device=device)]
+                      for a in arrays]
         arrays, dropped = migration.migrate_ring_commit(
             arrays=arrays, inflight=inflight, multiplicity_index=0,
             group=None, capacity=capacity, rounds=rounds,

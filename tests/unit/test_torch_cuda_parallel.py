@@ -2,7 +2,8 @@
 carries CUDA tensors through ``all_to_all_single`` by staging them through
 the host. ``ring_halo_pad`` (float32 and float64, depth 1 and 2) and
 ``migrate_ring`` with its overlap pair (int64 multiplicities, float32
-rows, an overflow among the cases) give on CUDA tensors exactly what two
+rows, an overflow among the cases, and an overflow with the slots
+permuted between start and commit) give on CUDA tensors exactly what two
 CPU ranks give. Marked ``cuda``: skipped where torch sees no CUDA device;
 run on a GPU host with ``python -m pytest
 tests/unit/test_torch_cuda_parallel.py --noconftest``."""
@@ -32,6 +33,10 @@ def _cases(device):
     mult[rng.uniform(size=n) < 0.2] = 0
     rows = rng.uniform(size=(3, n)).astype(np.float32)
     shift = rng.integers(-1, 2, n).astype(np.int32)
+    # the overlap pair with the slots permuted between start and commit
+    cases.append((verification.rank_migration, (
+        [mult, rows], shift, 2, 2, True, device, 13,
+    )))
     for capacity, overlap in ((16, False), (16, True), (2, True)):
         cases.append((verification.rank_migration, (
             [mult, rows], shift, capacity, 2, overlap, device,

@@ -19,6 +19,10 @@ process. float64 on both sides.
   ``migrate_ring_commit``, equal to the JAX functions slot for slot (int64
   and float64, exactly) at 8 ranks, with the JAX test's conservation
   checks; an overflow counts the same [send, place] drops.
+- The overlap pair with a random permutation of every rank's slots
+  between start and commit (the collision's sort): the particles of the
+  inline ``migrate_ring`` on the unpermuted input, by identity, with the
+  same drops (the JAX pair ships by stale per-slot flags there).
 - ``classify_dest_shift`` flags far moves.
 """
 
@@ -103,12 +107,15 @@ MIGRATION_CASES = {
 # the [send, place] drops of each case, over all shards
 DROPS = {"send_overflow": (16, 0), "two_rounds": (0, 0),
          "place_overflow": (0, 24)}
+# the cases run again with a permutation between start and commit
+PERMUTED_CASES = ("send_overflow", "two_rounds")
+PERMUTATION_SEED = 61
 
 
 @pytest.fixture(scope="module")
 def port8():
     """one spawn of 8 ranks: both MPDATA cases, then every migration case
-    inline and as the overlap pair"""
+    inline and as the overlap pair, then the permuted cases"""
     psi, _, gc_x_local, gc_z, g = _mpdata_inputs()
     cases = [
         (verification.rank_mpdata, (
@@ -122,6 +129,11 @@ def port8():
             cases.append((verification.rank_migration, (
                 [mult, payload], shift, cap, rounds, overlap,
             )))
+    for name in PERMUTED_CASES:
+        (mult, payload, shift), cap, rounds = MIGRATION_CASES[name]
+        cases.append((verification.rank_migration, (
+            [mult, payload], shift, cap, rounds, True, "cpu", PERMUTATION_SEED,
+        )))
     per_rank = multihost.spawn(verification.rank_cases, N_DEV, cases)
     # case by case, the ranks' blocks
     return list(zip(*per_rank))
@@ -302,6 +314,35 @@ def test_migrate_ring_overflow_counts_dropped(port8, mesh, name, overlap):
     dropped = dropped.reshape(N_DEV, 2).sum(axis=0)
     np.testing.assert_array_equal(dropped, DROPS[name])
     assert mult_out.sum() == mult0.sum() - int(dropped.sum()) * 5
+
+
+@pytest.mark.parametrize("name", PERMUTED_CASES)
+def test_overlap_commit_after_a_permutation_ships_the_leftovers(port8, name):
+    """start, a random permutation of each rank's slots (standing in for
+    the collision's cell sort between start and commit), commit: each rank
+    ends with the particles of the inline ``migrate_ring`` on the
+    unpermuted input, by (payload, multiplicity), with its [send, place]
+    drops. The leftovers past the first round's capacity ride the stash,
+    so the later rounds ship them and the send overflow kills them,
+    wherever the permutation moved the residents (a per-slot pending
+    flag, as in the JAX pair, would ship and kill residents instead)"""
+    index = (len(MPDATA_OPTS) + 2 * len(MIGRATION_CASES)
+             + PERMUTED_CASES.index(name))
+    permuted = port8[index]
+    inline = port8[len(MPDATA_OPTS) + 2 * list(MIGRATION_CASES).index(name)]
+    for got, want in zip(permuted, inline):
+        (g_mult, g_payload), g_dropped = got
+        (w_mult, w_payload), w_dropped = want
+        np.testing.assert_array_equal(g_dropped, w_dropped)
+        g_alive, w_alive = g_mult > 0, w_mult > 0
+        np.testing.assert_array_equal(
+            np.sort(g_payload[0][g_alive]), np.sort(w_payload[0][w_alive])
+        )
+        # the payload is each particle's identity: its multiplicity too
+        np.testing.assert_array_equal(
+            g_mult[g_alive][np.argsort(g_payload[0][g_alive])],
+            w_mult[w_alive][np.argsort(w_payload[0][w_alive])],
+        )
 
 
 def test_classify_dest_shift_flags_far_moves():
