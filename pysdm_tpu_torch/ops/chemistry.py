@@ -6,7 +6,8 @@ and pH from electroneutrality.
 Every function is elementwise over drops, on the device of its tensors.
 The pH solve is the JAX package's fixed-count bisection in log H over
 [H_min, H_max] (48 iterations, midpoint rule), with no early exit, so it
-reads nothing back from the device. The per-cell uptake of the closed
+reads nothing back from the device; on the card it is one kernel
+(``cuda/chemistry.py``). The per-cell uptake of the closed
 system is summed in float64 in a fixed order (``ops/moments.py``
 ``cell_sums``), never by a float atomic add.
 """
@@ -19,10 +20,15 @@ from ..dynamics.impl.chemistry_utils import (
     DIFFUSION_CONST,
     MASS_ACCOMMODATION_COEFFICIENTS,
 )
+# the pH solve: on CPU tensors the eager twin, on CUDA tensors the Hopper
+# kernel ``csrc/chemistry.cu`` (one launch), on any other device or dtype
+# an error
+from .cuda.chemistry import (  # noqa: F401
+    acidity_residual,
+    acidity_terms,
+    equilibrate_H,
+)
 from .moments import cell_sums
-
-# the bisection's iteration count (``pysdm_tpu/ops/chemistry.py:74``)
-PH_ITERATIONS = 48
 
 
 def dissociation_factor(compound, H, eqc):
@@ -39,47 +45,10 @@ def dissociation_factor(compound, H, eqc):
     return torch.ones_like(H)
 
 
-def _acidity_terms(conc, K):
-    """the electroneutrality residual's factors that do not depend on H,
-    with the two weak diprotic acids, S(IV) and C(IV), stacked (2, n): the
-    solve evaluates them once, not once an iteration"""
-    return {
-        "N_mIII": conc["N_mIII"],
-        "K_NH3": K["K_NH3"],
-        "nitric": conc["N_V"] * K["K_HNO3"],
-        "K_HNO3": K["K_HNO3"],
-        "diprotic": torch.stack([
-            conc["S_IV"] * K["K_SO2"], conc["C_IV"] * K["K_CO2"]
-        ]),
-        "K1": torch.stack([K["K_SO2"], K["K_CO2"]]),
-        "twice_K2": torch.stack([2 * K["K_HSO3"], 2 * K["K_HCO3"]]),
-        "K1_K2": torch.stack([
-            K["K_SO2"] * K["K_HSO3"], K["K_CO2"] * K["K_HCO3"]
-        ]),
-        "S_VI": conc["S_VI"],
-        "twice_K_HSO4": 2 * K["K_HSO4"],
-        "K_HSO4": K["K_HSO4"],
-    }
-
-
-def _acidity_residual(H, t, K_H2O):
-    """``acidity_minfun`` from ``_acidity_terms``: the reference's
-    operations in the reference's order, those that do not depend on H
-    taken from ``t``"""
-    ammonia = (t["N_mIII"] * H * t["K_NH3"]) / (K_H2O + t["K_NH3"] * H)
-    nitric = t["nitric"] / (H + t["K_HNO3"])
-    sulfous, carbonic = (
-        t["diprotic"] * (H + t["twice_K2"]) / (H * H + H * t["K1"] + t["K1_K2"])
-    )
-    water = K_H2O / H
-    sulfuric = t["S_VI"] * (H + t["twice_K_HSO4"]) / (H + t["K_HSO4"])
-    return H + ammonia - (nitric + sulfous + water + sulfuric + carbonic)
-
-
 def acidity_minfun(H, conc, K, K_H2O):
     """electroneutrality residual (reference ``acidity_minfun``), increasing
     in H"""
-    return _acidity_residual(H, _acidity_terms(conc, K), K_H2O)
+    return acidity_residual(H, acidity_terms(conc, K), K_H2O)
 
 
 def calc_ionic_strength(H, conc, K, K_H2O):
@@ -101,21 +70,6 @@ def calc_ionic_strength(H, conc, K, K_H2O):
     cz_HNO3 = K["K_HNO3"] * conc["N_V"] / (H + K["K_HNO3"])
     cz_NH3 = K["K_NH3"] * H * conc["N_mIII"] / (K_H2O + K["K_NH3"] * H)
     return 0.5 * (water + cz_S_VI + cz_CO2 + cz_SO2 + cz_HNO3 + cz_NH3)
-
-
-def equilibrate_H(*, conc, K_drop, K_H2O, H_min, H_max, iters=PH_ITERATIONS):
-    """per-droplet hydrogen-ion concentration from electroneutrality: the
-    residual increases with H, so a bisection in log H over the host
-    floats [H_min, H_max], ``iters`` times, and the last bracket's midpoint"""
-    terms = _acidity_terms(conc, K_drop)
-    lo = torch.full_like(conc["S_VI"], math.log(H_min))
-    hi = torch.full_like(conc["S_VI"], math.log(H_max))
-    for _ in range(iters):
-        mid = 0.5 * (lo + hi)
-        go_lo = _acidity_residual(torch.exp(mid), terms, K_H2O) > 0
-        hi = torch.where(go_lo, mid, hi)
-        lo = torch.where(go_lo, lo, mid)
-    return torch.exp(0.5 * (lo + hi))
 
 
 def dissolution_step(

@@ -26,8 +26,8 @@ NVCC_FLAGS = (
     "-shared", "-Xcompiler", "-fPIC",
 )
 # contraction of a*b+c into FMA, per source. Off by default: the collision
-# kernels and the scan mirror separately rounded float32 operations bit for
-# bit. On for the condensation solve, which is held to its twin by a
+# kernels, the scan and the pH solve mirror separately rounded operations
+# bit for bit. On for the condensation solve, which is held to its twin by a
 # tolerance: an FMA is one instruction for two and rounds once.
 FMAD_DEFAULT = ("-fmad=false",)
 SOURCE_FLAGS = {"condensation": ("-fmad=true",)}

@@ -4,7 +4,8 @@ and both ``handle_all_breakups`` branches, and the cases of
 ``tests/unit/test_breakup_ops.py`` on the port: the closed-form transfer
 against a per-event loop oracle (the semantics of reference
 ``collisions_methods.py:compute_transfer_multiplicities``), the limiters,
-conservation and the bounce and coalescence branches.
+conservation and the bounce and coalescence branches; a case built to
+reach each guard of ``handle_all_breakups``' loop.
 
 Tolerances: multiplicities equal; extensive rows and the transfer's
 floats to rtol 1e-12 (the same float64 operations; exp and log may round
@@ -244,6 +245,84 @@ def test_breakup_conserves_mass_and_grows_multiplicity(handle_all):
     if handle_all:
         # all gamma consumed (no overflow at these sizes): zero deficit
         np.testing.assert_allclose(counters["breakup_rate_deficit"].numpy(), 0.0)
+
+
+GUARDS = ("closed form without an event", "equal multiplicities overflow")
+
+
+def _guard_state(guard, n_sd=64, gamma=3, seed=5):
+    """adjacent pairs (slots 2i, 2i + 1) in one cell, every pair breaking
+    up with ``gamma`` events; the even pairs built to reach ``guard`` of
+    ``handle_all_breakups``: multiplicities 4e9 and 1e9 ("closed form
+    without an event") or 1e9 and 1e9 ("equal multiplicities overflow"),
+    masses 1e-9 kg and fragments of 1e-6 of the pair's mass, so that the
+    first event would take the partner's multiplicity to ~1e15, past
+    ``MAX_MULTIPLICITY``; the odd pairs ordinary (multiplicities 1-1000,
+    unequal, fragments of a third of a drop), which spend their gamma.
+    Returns (mult, mass, gamma, fragment mass, guarded pair mask by
+    slot)"""
+    rng = np.random.default_rng(seed)
+    small = rng.integers(1, 500, n_sd // 2)
+    mult = np.stack([2 * small + 1, small], axis=1).reshape(-1)
+    mass = 10.0 ** rng.uniform(-12, -9, n_sd)
+    frag = mass / 3.0
+    guarded = (np.arange(n_sd) // 2) % 2 == 0
+    lead = guarded & (np.arange(n_sd) % 2 == 0)
+    mult[guarded] = 10**9
+    if guard == GUARDS[0]:
+        mult[lead] = 4 * 10**9
+    mass[guarded] = 1e-9
+    frag[guarded] = 2e-9 * 1e-6
+    gammas = np.where(np.arange(n_sd) % 2 == 0, gamma, 0).astype(np.int64)
+    return mult.astype(np.int64), mass, gammas, frag, guarded
+
+
+@pytest.mark.parametrize("guard", GUARDS)
+def test_handle_all_breakups_guard_matches_jax_package(guard):
+    """each guard of ``handle_all_breakups``'s loop taken, in both packages
+    alike: a guarded pair is left as it was and its remaining gamma times
+    the partner's multiplicity goes to the deficit, once (the reference
+    spins forever on the first guard's pairs and adds the deficit twice on
+    the second's); the ordinary pairs break up and leave no deficit"""
+    mult, mass, gamma, frag, guarded = _guard_state(guard)
+    n_sd = mult.size
+    is_first = np.arange(n_sd) % 2 == 0
+    jc = _counters(jnp)
+    j_mult, j_ext, jc = jax_breakup.collision_coalescence_breakup(
+        mult_s=jnp.asarray(mult), ext_s=jnp.asarray(mass[None, :]),
+        ext_names=("signed water mass",), gamma=jnp.asarray(gamma),
+        rand=jnp.full(n_sd, 0.5), Ec=jnp.zeros(n_sd), Eb=jnp.ones(n_sd),
+        fragment_mass=jnp.asarray(frag), is_first=jnp.asarray(is_first),
+        sorted_cell=jnp.zeros(n_sd, dtype=jnp.int32), n_cell=1, counters=jc,
+        max_multiplicity=MAX_MULTIPLICITY, handle_all_breakups=True,
+        formulae=None,
+    )
+    tc = _counters(torch)
+    t_mult, t_ext = breakup.collision_coalescence_breakup(
+        mult_s=torch.from_numpy(mult), ext_s=torch.from_numpy(mass[None, :]),
+        ext_names=("signed water mass",), gamma=torch.from_numpy(gamma),
+        rand=torch.full((n_sd,), 0.5), Ec=torch.zeros(n_sd),
+        Eb=torch.ones(n_sd), fragment_mass=torch.from_numpy(frag),
+        pairing=AdjacentPairing(torch.from_numpy(is_first)), counters=tc,
+        max_multiplicity=MAX_MULTIPLICITY, handle_all_breakups=True,
+    )
+    np.testing.assert_array_equal(t_mult.numpy(), np.asarray(j_mult))
+    np.testing.assert_allclose(t_ext.numpy(), np.asarray(j_ext), rtol=1e-12)
+    for name in tc:
+        np.testing.assert_allclose(
+            tc[name].numpy(), np.asarray(jc[name]), rtol=1e-6
+        )
+    # the guard taken: the guarded pairs as they were, their whole gamma
+    # times the partner's multiplicity (1e9) in the deficit, once
+    np.testing.assert_array_equal(t_mult.numpy()[guarded], mult[guarded])
+    np.testing.assert_array_equal(t_ext.numpy()[0, guarded], mass[guarded])
+    expected = float((gamma * guarded).sum()) * 1e9
+    assert expected > 0
+    np.testing.assert_allclose(tc["breakup_rate_deficit"].numpy(), [expected],
+                               rtol=1e-12)
+    # the ordinary pairs broke up
+    assert t_mult.numpy()[~guarded].sum() > mult[~guarded].sum()
+    assert float(tc["breakup_rate"].sum()) > 0
 
 
 @pytest.mark.parametrize("max_unchecked", (4, 8))

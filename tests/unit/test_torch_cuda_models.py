@@ -17,8 +17,9 @@ skipped where torch sees no CUDA device; run on a GPU host with
   it): one step's K2 substep, K3 solve and K4 scans against their twins;
 - Kreidenweis et al. 2003 at its JAX test's settings (16 super-droplets,
   dt = 10 s, 5 chemistry substeps, 400 s) with the default backend: the
-  test's bounds, K3 launches = solves, K3 against its twin on an in-cloud
-  solve, every aqueous amount finite.
+  test's bounds, K3 launches = solves, the pH kernel launched for every
+  solve, K3 against its twin on an in-cloud solve, every aqueous amount
+  finite.
 """
 
 import os
@@ -34,6 +35,7 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.dirname(
 
 import chip_smoke  # noqa: E402
 from pysdm_tpu_torch.ops import segments  # noqa: E402
+from pysdm_tpu_torch.ops.cuda import chemistry as ph  # noqa: E402
 from pysdm_tpu_torch.ops.cuda import collision as kern  # noqa: E402
 from pysdm_tpu_torch.ops.cuda import condensation as k3  # noqa: E402
 from pysdm_tpu_torch.ops.cuda import scan  # noqa: E402
@@ -134,9 +136,12 @@ def test_kreidenweis_on_card(gpu):
     sim = kw.Simulation(settings)
     p = sim.particulator
     assert p.device.type == "cuda"
+    ph.equilibrate_H.launches = 0
     with chip_smoke._keeping_calls(k3, "masses_new", chip_smoke._power_of_two) as kept:
         out, record = chip_smoke._model_window(p, sim.run, settings.nt)
     assert record["k3_launches"] == record["solves"] > 0
+    # the pH kernel: two solves a chemistry substep, and one a product read
+    assert ph.equilibrate_H.launches >= 2 * settings.n_substep * settings.nt
     assert 3.0 < out["pH"][-1] < 6.0
     assert out["gas_S_IV"][-1] < out["gas_S_IV"][0]
     assert out["liquid water mixing ratio"][-1] > 1e-5
