@@ -161,16 +161,20 @@ Run from the root of the checkout: ``python3 chip_smoke.py``. Phases:
    Spichtinger parcel (2^17, 100 steps through the burst) whose freezing
    probability is positive in float64 and zero in float32;
 29. K1a (mirror coalescence with the kernel x norm and u01 rows given)
-   against its twin on the card, multiplicities and rows bit for bit: on
-   Berry 1967's state with Hydrodynamic's rows at 2^13 and 2^20 and on
-   random states at 2^20 (float32 and float64 rows); three launches
-   bit-equal, and two streams; its device time and its twin's at both
-   widths, and over a rotation of eight inputs at 2^20;
+   and its Parameterized form (the Berry 1967 kernel evaluated in the
+   body) against their twins on the card, multiplicities and rows bit for
+   bit: on Berry 1967's state with Hydrodynamic at 2^13 and 2^20, K1a also on random states at 2^20 (float32 and float64
+   rows); three launches bit-equal, and two streams, for each at both
+   widths; the device time of each and of its twin at both widths, K1a's
+   also over a rotation of eight inputs at 2^20;
 30. ``berry_1967.run`` with ``Hydrodynamic`` and with ``Electric`` at the
-   model's 2^13 super-droplets over its 1800 steps on the card: K1a
-   launches = substeps, the liquid to 1e-6, the mean radius grows; ms/step,
-   host reads, device kernels and busy share over 5 profiled steps; K1a
-   held to its twin on a captured substep;
+   model's 2^13 super-droplets over its 1800 steps on the card: launches
+   of K1a's Parameterized form = substeps and none of K1a, the liquid to
+   1e-6, the mean radius grows; each run's first substep held to its
+   twin; ms/step, host reads, device kernels and busy share over 5
+   profiled steps; then 100 adaptive Hydrodynamic steps, whose substep
+   choice reads the kernel's values: K1a launches = substeps, the first
+   held to its twin;
 31. de Jong/Mackay 2023's box with Straub 2010's Ec and fragments (the
    float64 breakup path) at 2^17, adaptive, 100 steps, through
    ``run_box_breakup``, again with ``handle_all_breakups``, and through a
@@ -254,7 +258,9 @@ Run from the root of the checkout: ``python3 chip_smoke.py``. Phases:
    the pH kernel's launches (two a substep at least) and K4's counted; one
    more step's first K3 solve and first pH solve, in cloud, against their
    twins (the pH kernel's H to the bit or within ``compare_ph_solves``'
-   bound), each timed with its twin beside its bound; 3 steps timed
+   bound; the pH solve also eight times over, 2^20 drops, each in float32
+   and float64 at 0, 1, 47 and 48 iterations), each timed with its twin
+   beside its bound (the pH kernel also at 2^20); 3 steps timed
    dynamic by dynamic (the pH kernel launched 10 times a step) and 3 + 3
    profiled (at most ``KW_KERNELS_PER_STEP_MAX`` kernels a step); the pH
    solve as the kernel, its eager twin and the JAX body timed in turns;
@@ -344,7 +350,10 @@ and ``k3_mixed_phase_bound_ms``; K2's and K4's launches in phase 22,
 its twin from phase 18 and its launches in phase 20, ``berry_launches``;
 K5's in phase 21, ``bulenok_launches``; K4's on phase 31's sort croupier,
 ``straub_sort_launches``; K1a's at Berry's 2^13, its main path's width,
-with its 2^20 times; K3's per variant set of phase 34, ``variant_sets``,
+with its 2^20 times and its launches in phase 30's adaptive run, and its
+Parameterized form's, ``parameterized_*``, also in an entry of its own,
+``coalesce_mirror_parameterized``, with its launches in phase 30's two
+runs; K3's per variant set of phase 34, ``variant_sets``,
 with the launches on the model path of phases 35-37 that uses each; the
 launches on phases 38-42's paths, ``mg2007_launches``,
 ``bartman_launches``, ``parcel_model_launches`` and ``seeding_launches``,
@@ -354,8 +363,9 @@ K3's and K4's on phases 43-45, ``kreidenweis_launches``,
 phase 46's resumed runs and their differences to their twins there,
 ``resume_launches`` and ``resume_max_abs_err``, and K3's on phase 48's
 parcel, ``scipy_parcel_launches``; the pH kernel's, ``equilibrate_H``,
-with its launches in phases 43 and 44 and its difference in log H to its
-twin on phase 43's in-cloud solve; K2's, K3's and K4's launches on phase
+with its launches in phases 43 and 44, its difference in log H to its
+twin on phase 43's in-cloud solve, its time at 2^20 (``ms_2_20``) and its
+built form (``levels``, ``threads_per_block``, ``min_blocks``); K2's, K3's and K4's launches on phase
 50's run C by rank, ``distributed_launches``, and their differences to
 their twins there, ``distributed_max_abs_err``), before them one line of
 the float64 paths' and the models' records (phases 31-50), and one of the
@@ -3461,6 +3471,8 @@ def _float32_ice_records(backend, gpu, n_sd=ICE_N, steps=100):
 # length, config #2's bench width for the Straub box, Bieli's own width
 BERRY_ROWS_N = 2**13
 BERRY_ROWS_STEPS = 1800
+# the adaptive Berry run that takes K1a with the values given (phase 30)
+BERRY_ADAPTIVE_STEPS = 100
 STRAUB_N = 2**17
 STRAUB_STEPS = 100
 PROFILED_STEPS = 10
@@ -3474,12 +3486,15 @@ STRAUB_NUMBER_RTOL = 0.15
 BIELI_MOMENT_RTOL = {"M0": 0.13, "M2": 0.32}
 
 
-def k1a_args(torch, n, seed, device, kernel="Hydrodynamic"):
-    """K1a's arguments on Berry 1967's state at ``n`` super-droplets (its
-    ``run`` with no step, on the card): the multiplicities and the extensive
-    rows, the Berry kernel's values at a random K times the normalization
-    (``mirror_normalization_factor``, dt = 1 s) as the float32 kernel x
-    norm row, and a u01 row"""
+def berry_kernel_args(torch, n, seed, device, kernel="Hydrodynamic"):
+    """the arguments of K1a and of its Parameterized form on Berry 1967's
+    state at ``n`` super-droplets (its ``run`` with no step, on the card),
+    at one random K and one u01 row: (K1a's: the multiplicities and the
+    extensive rows, the Berry kernel's values times the normalization
+    (``mirror_normalization_factor``, dt = 1 s) as the float32 kernel x norm
+    row, the u01 row, K; the Parameterized form's: the state, the radius
+    and fall-velocity rows, the kernel's parameters, the normalization as
+    the (1,) scale, the u01 row, K), the rows in the state's float type"""
     import numpy as np
 
     from pysdm_tpu_torch.dynamics.collisions import collision_kernels
@@ -3497,13 +3512,25 @@ def k1a_args(torch, n, seed, device, kernel="Hydrodynamic"):
         name: p.get_attribute(name)
         for name in ("radius", "relative fall velocity")
     }
-    values = getattr(collision_kernels, kernel)().pairwise(
+    instance = getattr(collision_kernels, kernel)()
+    values = instance.pairwise(
         p.formulae, attrs, {k: pairing.partner(v) for k, v in attrs.items()}
     )
     norm = settings.dt / settings.dv * n
     kernnorm = (values * norm).to(torch.float32)
     u01 = torch.as_tensor(rng.uniform(size=n), dtype=torch.float32, device=device)
-    return (particles.multiplicity, particles.extensive, kernnorm, u01, K)
+    scale = torch.full((1,), norm, dtype=attrs["radius"].dtype, device=device)
+    state = (particles.multiplicity, particles.extensive)
+    return (
+        (*state, kernnorm, u01, K),
+        (*state, attrs["radius"], attrs["relative fall velocity"],
+         instance.params, scale, u01, K),
+    )
+
+
+def k1a_args(torch, n, seed, device, kernel="Hydrodynamic"):
+    """K1a's arguments on Berry 1967's state (``berry_kernel_args``)"""
+    return berry_kernel_args(torch, n, seed, device, kernel)[0]
 
 
 def k1a_random_args(torch, n, ext_dtype, seed, device):
@@ -3534,6 +3561,40 @@ def k1a_bytes(args):
     )
 
 
+def k1p_bytes(args):
+    """the bytes K1a's Parameterized form must move: the multiplicities and
+    the extensive rows read and written, the radius, fall-velocity and u01
+    rows read"""
+    mult, ext, radius, fall, _, _, u01, _ = args
+    return (
+        2 * mult.numel() * mult.element_size()
+        + 2 * ext.numel() * ext.element_size()
+        + sum(t.numel() * t.element_size() for t in (radius, fall, u01))
+    )
+
+
+def _check_k1p(torch, kern, args, label):
+    """K1a's Parameterized form against its twin on ``args``, as
+    ``_check_k1a`` holds K1a"""
+    import numpy as np
+
+    before = kern.coalesce_mirror_parameterized.launches
+    got = kern.coalesce_mirror_parameterized(*args)
+    torch.cuda.synchronize()
+    if kern.coalesce_mirror_parameterized.launches != before + 1:
+        raise AssertionError(f"{label}: the launch counter did not count")
+    want = kern.coalesce_mirror_parameterized_reference(*args)
+    if not (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])):
+        raise AssertionError(
+            f"{label}: K1a's Parameterized form differs from its twin"
+            f" ({int((got[0] != want[0]).sum())} multiplicities)"
+        )
+    for g, w in zip(got[2:], want[2:]):
+        np.testing.assert_allclose(g.item(), w.item(), rtol=1e-5)
+    err = float((got[1].double() - want[1].double()).abs().max())
+    return err, int((got[0] != args[0]).sum())
+
+
 def _check_k1a(torch, kern, args, label):
     """K1a against its twin on ``args``: multiplicities and extensive rows
     bit-equal, the three rate sums to rtol 1e-5 (another summation order);
@@ -3555,26 +3616,36 @@ def _check_k1a(torch, kern, args, label):
 
 
 def _k1a_vs_twin(torch, kern, device, gpu):
-    """phase 29: K1a against its twin on the card, bit for bit in
-    multiplicities and rows: on Berry 1967's state with Hydrodynamic's
-    kernel x norm row at 2^13 (the model's width, the main path's shape)
-    and 2^20, and on random states at 2^20 with float32 and float64 rows;
-    two launches on the same inputs bit-equal, and on two streams at once;
-    then the device time of kernel and twin on the Hydrodynamic rows at
-    both widths, at 2^20 also over a rotation of eight inputs. Returns
-    (max_abs_err, {n: (ms, twin ms, bytes)}, rotated ms at 2^20)"""
+    """phase 29: K1a and its Parameterized form against their twins on the
+    card, bit for bit in multiplicities and rows: on Berry 1967's state
+    with Hydrodynamic's kernel (K1a: its x norm row) at 2^13 (the model's
+    width, the main path's shape) and 2^20, K1a also on random states at
+    2^20 with float32 and float64 rows; three launches on the same inputs
+    bit-equal, and two streams at once, K1a's at 2^20 and the Parameterized
+    form's at both widths; then the device time of each and its twin at
+    both widths, K1a at 2^20 also over a rotation of eight inputs. Returns
+    (max_abs_err, {n: (ms, twin ms, bytes)}, rotated ms at 2^20,
+    {"max_abs_err": .., "times": {n: (ms, twin ms, bytes)}} of the
+    Parameterized form)"""
     import numpy as np
 
-    max_abs_err = 0.0
-    berry_args = {}
+    max_abs_err = k1p_err = 0.0
+    berry_args, k1p_args = {}, {}
     for n in (BERRY_ROWS_N, N_MAIN):
-        args = berry_args[n] = k1a_args(torch, n, n, device)
-        err, changed = _check_k1a(torch, kern, args, f"phase 29 n={n}")
+        berry_args[n], k1p_args[n] = berry_kernel_args(torch, n, n, device)
+        err, changed = _check_k1a(torch, kern, berry_args[n], f"phase 29 n={n}")
         max_abs_err = max(max_abs_err, err)
-        print(f"phase 29: K1a on Berry 1967's state with Hydrodynamic's rows,"
-              f" n={n}: xi and rows bit-equal to the twin, {changed} slots"
-              f" changed, {int((args[2] > 0).sum())} slots with a kernel"
-              f" value above 0")
+        err, changed_p = _check_k1p(torch, kern, k1p_args[n],
+                                    f"phase 29 Parameterized n={n}")
+        k1p_err = max(k1p_err, err)
+        if changed_p != changed:
+            raise AssertionError(f"phase 29 n={n}: {changed_p} slots changed"
+                                 f" by the Parameterized form, {changed} by K1a")
+        print(f"phase 29: K1a and its Parameterized form on Berry 1967's"
+              f" state with Hydrodynamic, n={n}:"
+              f" xi and rows bit-equal to the twins, {changed} slots"
+              f" changed, {int((berry_args[n][2] > 0).sum())} slots with a"
+              f" kernel value above 0")
     for ext_dtype in (np.float32, np.float64):
         random_args = k1a_random_args(torch, N_MAIN, ext_dtype, 7, device)
         err, changed = _check_k1a(torch, kern, random_args, "phase 29 random")
@@ -3589,7 +3660,12 @@ def _k1a_vs_twin(torch, kern, device, gpu):
         for seed in range(1, 8)
     ]
     check_deterministic(torch, kern.coalesce_mirror_rows, inputs[:2], "phase 29: K1a")
-    times = {}
+    for n, args in k1p_args.items():
+        # the second input: the same state paired at another K
+        check_deterministic(torch, kern.coalesce_mirror_parameterized,
+                            [args, (*args[:-1], (args[-1] + 1) % n)],
+                            f"phase 29: K1a's Parameterized form n={n}")
+    times, k1p_times = {}, {}
     for n, args in berry_args.items():
         times[n] = (
             _time_ms(torch, lambda a=args: kern.coalesce_mirror_rows(*a), 200),
@@ -3598,46 +3674,69 @@ def _k1a_vs_twin(torch, kern, device, gpu):
             ),
             k1a_bytes(args),
         )
+        args = k1p_args[n]
+        k1p_times[n] = (
+            _time_ms(torch,
+                     lambda a=args: kern.coalesce_mirror_parameterized(*a), 200),
+            _time_ms(torch, lambda a=args:
+                     kern.coalesce_mirror_parameterized_reference(*a), 10),
+            k1p_bytes(args),
+        )
     rotated_ms = _time_rotated_ms(
         torch, lambda a: kern.coalesce_mirror_rows(*a), inputs, 200
     )
     rows = berry_args[N_MAIN][1]
-    print(f"phase 29: K1a with Hydrodynamic rows ({rows.shape[0]} {rows.dtype}"
-          f" extensive rows): " + "; ".join(
-              f"n={n}: {t[0]!r} ms, plain twin {t[1]!r} ms, bound"
-              f" {bound_ms(t[2])[0]!r} ms ({t[2]} B)" for n, t in times.items()
-          ) + f"; at n={N_MAIN} over a rotation of {len(inputs)} inputs"
-          f" {rotated_ms!r} ms [{gpu}]")
-    return max_abs_err, times, rotated_ms
+    for label, table in (("K1a", times), ("its Parameterized form", k1p_times)):
+        print(f"phase 29: {label} with Hydrodynamic ({rows.shape[0]}"
+              f" {rows.dtype} extensive rows): " + "; ".join(
+                  f"n={n}: {t[0]!r} ms, plain twin {t[1]!r} ms, bound"
+                  f" {bound_ms(t[2])[0]!r} ms ({t[2]} B)"
+                  for n, t in table.items()
+              ) + f" [{gpu}]")
+    print(f"phase 29: K1a at n={N_MAIN} over a rotation of {len(inputs)}"
+          f" inputs {rotated_ms!r} ms [{gpu}]")
+    return max_abs_err, times, rotated_ms, {
+        "max_abs_err": k1p_err, "times": k1p_times,
+    }
 
 
 def _berry_kernels_model(kern, gpu):
     """phase 30: ``berry_1967.run`` with ``settings.kernel`` set to
     ``Hydrodynamic`` and to ``Electric`` at the model's own 2^13
-    super-droplets and 1800 steps on the card, K1a's count set to 0 just
-    before each run and read just after: K1a launches = substeps = 1800,
-    the liquid conserved to 1e-6, the number-weighted mean radius of
-    dv/dlnr grows; ms/step, host reads and device kernels a step (profiled
-    over 5 more steps); K1a held to its twin on a captured substep of each.
-    Returns K1a's launches over both runs"""
+    super-droplets and 1800 steps on the card, the launch counts set to 0
+    just before each run and read just after: launches of K1a's
+    Parameterized form = substeps = 1800 and none of K1a with the values
+    given, the liquid conserved to 1e-6, the number-weighted mean radius of
+    dv/dlnr grows; the run's first substep held to its twin; ms/step, host
+    reads and device kernels a step (profiled over 5 more steps). Then
+    ``BERRY_ADAPTIVE_STEPS`` adaptive steps with Hydrodynamic from the
+    model's start, whose substep choice reads the kernel's values and hands
+    them to K1a as a row: K1a launches = substeps, the first held to its
+    twin. Returns (launches of the Parameterized form over the two runs,
+    K1a's over the adaptive one, the records)"""
     import numpy as np
     import torch
 
     from pysdm_tpu_torch.dynamics.collisions import collision, collision_kernels
     from pysdm_tpu_torch.models import berry_1967 as model
 
-    launches_total = 0
+    launches_total, records = 0, {}
     for kernel in ("Hydrodynamic", "Electric"):
         settings = model.Settings(steps=[0, 600, 1200, BERRY_ROWS_STEPS])
         settings.n_sd = BERRY_ROWS_N
         settings.kernel = getattr(collision_kernels, kernel)()
-        with _capturing_builder(model) as built:
+        with _capturing_builder(model) as built, _keeping_calls(
+            collision, "coalesce_mirror_parameterized", lambda i: i == 0,
+            limit=1,
+        ) as first:
+            kern.coalesce_mirror_parameterized.launches = 0
             kern.coalesce_mirror_rows.launches = 0
             t0 = time.perf_counter()
             vals, p = model.run(settings)
             p.block_until_ready()
             wall = time.perf_counter() - t0
-            launches = kern.coalesce_mirror_rows.launches
+            launches = kern.coalesce_mirror_parameterized.launches
+            rows_launches = kern.coalesce_mirror_rows.launches
         dyn = p.dynamics["Collision"]
         liquid0, liquid1 = built[0][1], _totals(p)[0]
         r_mid = np.sqrt(settings.radius_bins_edges[:-1] * settings.radius_bins_edges[1:])
@@ -3646,7 +3745,9 @@ def _berry_kernels_model(kern, gpu):
         checks = {
             "on the card": p.device.type == "cuda" and built[0][0] is p,
             "route": dyn.route() == "rows",
-            "K1a launches = substeps": launches == dyn.substeps_run == BERRY_ROWS_STEPS,
+            "Parameterized form launches = substeps":
+                launches == dyn.substeps_run == BERRY_ROWS_STEPS,
+            "no K1a launch with the values given": rows_launches == 0,
             "liquid": abs(liquid1 - liquid0) <= 1e-6 * liquid0,
             "growth": mean_r[-1] > mean_r[0],
             "rates": float(p.get_counter("coalescence_rate").sum()) > 0,
@@ -3654,38 +3755,62 @@ def _berry_kernels_model(kern, gpu):
         failed = [name for name, ok in checks.items() if not ok]
         if failed:
             raise AssertionError(
-                f"phase 30: {kernel}: {failed}: {launches} launches,"
-                f" {dyn.substeps_run} substeps, liquid {liquid0} ->"
-                f" {liquid1}, mean radius {mean_r}"
+                f"phase 30: {kernel}: {failed}: {launches} launches"
+                f" ({rows_launches} of K1a), {dyn.substeps_run} substeps,"
+                f" liquid {liquid0} -> {liquid1}, mean radius {mean_r}"
             )
         launches_total += launches
+        args, _ = first[0]
+        _, first_changed = _check_k1p(torch, kern, args, "phase 30")
         reads0 = dyn.host_reads
         prof = _profile_steps(p, PROFILED_STEPS, f"berry_{kernel}")
         ms, kernels, busy = (
             prof["ms_per_step"], prof["kernels_per_step"], prof["busy_share"]
         )
         reads = dyn.host_reads - reads0
-        captured = []
-
-        def record(*args):
-            captured.append([a.clone() if torch.is_tensor(a) else a for a in args])
-            return kern.coalesce_mirror_rows(*args)
-
-        with _replaced(collision, "coalesce_mirror_rows", record):
-            p.run(1)
-        err, changed = _check_k1a(torch, kern, captured[0], "phase 30")
+        records[kernel] = {"wall_s": wall, "launches": launches, **prof}
         print(f"phase 30: berry_1967.run with {kernel} at n_sd={BERRY_ROWS_N}"
               f" on the card: {BERRY_ROWS_STEPS} steps in {wall!r} s"
               f" ({wall / BERRY_ROWS_STEPS * 1e3!r} ms/step with the build"
-              f" and 4 product reads), {launches} K1a launches = substeps;"
+              f" and 4 product reads), {launches} launches of K1a's"
+              f" Parameterized form = substeps, {rows_launches} of K1a;"
               f" {PROFILED_STEPS} more steps: {ms!r} ms/step, {reads} host"
               f" reads in {2 * PROFILED_STEPS} steps, {kernels!r} device"
               f" kernels/step, busy {busy!r}; mean radius of dv/dlnr {mean_r} m; liquid"
               f" drift {(liquid1 - liquid0) / liquid0!r}; coalescence rate"
-              f" {float(p.get_counter('coalescence_rate').sum())!r}; a"
-              f" captured substep bit-equal to the twin ({changed} slots"
-              f" changed) [{gpu}]")
-    return launches_total
+              f" {float(p.get_counter('coalescence_rate').sum())!r}; the"
+              f" run's first substep bit-equal to the twin ({first_changed}"
+              f" slots changed) [{gpu}]")
+    settings = model.Settings(steps=[0, BERRY_ADAPTIVE_STEPS])
+    settings.n_sd = BERRY_ROWS_N
+    settings.kernel = collision_kernels.Hydrodynamic()
+    settings.adaptive = True
+    with _keeping_calls(collision, "coalesce_mirror_rows", lambda i: i == 0,
+                        limit=1) as first:
+        kern.coalesce_mirror_parameterized.launches = 0
+        kern.coalesce_mirror_rows.launches = 0
+        t0 = time.perf_counter()
+        _, p = model.run(settings)
+        p.block_until_ready()
+        wall = time.perf_counter() - t0
+        rows_launches = kern.coalesce_mirror_rows.launches
+        launches = kern.coalesce_mirror_parameterized.launches
+    dyn = p.dynamics["Collision"]
+    if not (p.device.type == "cuda" and rows_launches == dyn.substeps_run
+            >= BERRY_ADAPTIVE_STEPS and launches == 0):
+        raise AssertionError(
+            f"phase 30: adaptive Hydrodynamic: {rows_launches} K1a launches,"
+            f" {launches} of the Parameterized form, {dyn.substeps_run}"
+            f" substeps"
+        )
+    args, _ = first[0]
+    _, first_changed = _check_k1a(torch, kern, args, "phase 30 adaptive")
+    records["adaptive"] = {"wall_s": wall, "launches": rows_launches}
+    print(f"phase 30: berry_1967.run with Hydrodynamic, adaptive, at"
+          f" n_sd={BERRY_ROWS_N}: {BERRY_ADAPTIVE_STEPS} steps in {wall!r} s,"
+          f" {rows_launches} K1a launches = substeps, the first held to its"
+          f" twin bit for bit ({first_changed} slots changed) [{gpu}]")
+    return launches_total, rows_launches, records
 
 
 def straub_settings(model, n_sd, handle_all_breakups=False):
@@ -5401,6 +5526,11 @@ KW_KERNELS_PER_STEP_MAX = 4500
 PH_OPS_PER_ITERATION = 36
 PH_OPS_PER_DROP = 11
 PH_VALUES_PER_DROP = 13
+# phase 43 holds the pH kernel to its twin on its kept solve and on the same
+# drops this many times over (2^20 at 2^17), at these iteration counts (47:
+# a last round of fewer levels)
+PH_WIDE_REPEATS = 8
+PH_CHECKED_ITERATIONS = (0, 1, 47, 48)
 JP_N = 2**17
 # Jaruga & Pawlowska 2018 fig. 2 at their finest resolution, as the JAX
 # test quotes it (``tests/smoke/test_models.py:310-311``)
@@ -5558,6 +5688,18 @@ def ph_parting_bracket(conc, K, host, iters=48, ulps=2):
     return width.cpu().double().numpy()
 
 
+def ph_parting_width(got, want, conc, K, host, iters):
+    """``ph_parting_bracket`` where the kernel's H (``got``) and the twin's
+    (``want``) differ anywhere, else zeros: a bit-equal solve needs no
+    bracket"""
+    import numpy as np
+    import torch
+
+    if torch.equal(got, want):
+        return np.zeros(got.numel())
+    return ph_parting_bracket(conc, K, host, iters)
+
+
 def compare_ph_solves(got, want, width, label):
     """the pH kernel's H (``got``) against its twin's (``want``), tensors of
     one dtype: equal to the bit, or apart in log H by at most ``width``
@@ -5588,10 +5730,13 @@ def compare_ph_solves(got, want, width, label):
 
 def ph_on_kept_solve(kept, label):
     """the pH kernel on a kept solve's inputs (``_keeping_calls`` of
-    ``ops.chemistry.equilibrate_H``) against its twin on the same device
-    (``compare_ph_solves``), then the kernel's device time, the twin's and
-    the bound: the bytes of 13 values a drop and the operations of its
-    iterations"""
+    ``ops.chemistry.equilibrate_H``) and on the same drops eight times over
+    (2^20 at the Kreidenweis parcel's 2^17), in the kept dtype and in the
+    other, at ``PH_CHECKED_ITERATIONS``, against its twin on the same device
+    (``compare_ph_solves``): drops that differ and the largest difference
+    at each; then the kernel's device time at both widths (the kept dtype,
+    the kept iterations), the twin's and the bounds: the bytes of 13 values
+    a drop and the operations of its iterations; the built form"""
     import torch
 
     from pysdm_tpu_torch.ops.cuda import chemistry as ph
@@ -5599,21 +5744,52 @@ def ph_on_kept_solve(kept, label):
     _, solve = kept
     iters = solve.get("iters", ph.PH_ITERATIONS)
     host = {k: solve[k] for k in ("K_H2O", "H_min", "H_max")}
-    got = ph.equilibrate_H(**solve)
-    want = ph.equilibrate_H_reference(**solve)
-    width = ph_parting_bracket(solve["conc"], solve["K_drop"], host, iters)
-    seen = compare_ph_solves(got, want, width, label)
-    n = got.numel()
-    bound = bound_ms(n * PH_VALUES_PER_DROP * got.element_size(),
-                     n * (iters * PH_OPS_PER_ITERATION + PH_OPS_PER_DROP))
-    seen.update({
-        "dtype": str(got.dtype),
-        "ms": _time_ms(torch, lambda: ph.equilibrate_H(**solve), 200),
-        "plain_ms": _time_ms(
-            torch, lambda: ph.equilibrate_H_reference(**solve), 5
-        ),
-        "bound_ms": bound[0], "bound_by": bound[1],
-    })
+
+    def with_rows(case, fn):
+        """``case`` with ``fn`` applied to its rows (the dynamic passes
+        K_H2O, a host float, among the constants too)"""
+        return {**case, **{key: {
+            k: fn(v) if torch.is_tensor(v) else v for k, v in case[key].items()
+        } for key in ("conc", "K_drop")}}
+
+    widths = {"": solve,
+              "_2_20": with_rows(solve, lambda v: v.repeat(PH_WIDE_REPEATS))}
+    other = (torch.float64 if solve["conc"]["S_VI"].dtype == torch.float32
+             else torch.float32)
+    checks, seen = {}, None
+    for suffix, wide in widths.items():
+        for dtype in (solve["conc"]["S_VI"].dtype, other):
+            case = with_rows(wide, lambda v, d=dtype: v.to(d))
+            for n_iter in PH_CHECKED_ITERATIONS:
+                case["iters"] = n_iter
+                got = ph.equilibrate_H(**case)
+                want = ph.equilibrate_H_reference(**case)
+                width = ph_parting_width(got, want, case["conc"],
+                                         case["K_drop"], host, n_iter)
+                record = compare_ph_solves(
+                    got, want, width,
+                    f"{label}, {got.numel()} drops, {dtype}, {n_iter} iterations",
+                )
+                checks[f"{got.numel()} {str(dtype)[6:]} {n_iter}"] = (
+                    record["differ"], record["max_abs_err_log_H"]
+                )
+                if suffix == "" and dtype != other and n_iter == iters:
+                    seen = record
+    seen.update({"checks": checks, "form": ph.form(),
+                 "dtype": str(solve["conc"]["S_VI"].dtype)})
+    for suffix, wide in widths.items():
+        n = wide["conc"]["S_VI"].numel()
+        item = wide["conc"]["S_VI"].element_size()
+        bound = bound_ms(n * PH_VALUES_PER_DROP * item,
+                         n * (iters * PH_OPS_PER_ITERATION + PH_OPS_PER_DROP))
+        seen.update({
+            "ms" + suffix: _time_ms(torch, lambda w=wide: ph.equilibrate_H(**w),
+                                    200 if suffix == "" else 50),
+            "bound_ms" + suffix: bound[0], "bound_by" + suffix: bound[1],
+        })
+    seen["plain_ms"] = _time_ms(
+        torch, lambda: ph.equilibrate_H_reference(**solve), 5
+    )
     return seen
 
 
@@ -5772,14 +5948,16 @@ def _kreidenweis_on_card(gpu, n_sd=KW_N, window=KW_WINDOW):
         p.run(1)
     record["k3_vs_twin"] = k3_on_kept_solve(kept[0], "phase 43")
     record["pH_vs_twin"] = ph_on_kept_solve(kept_pH[0], "phase 43")
-    print(f"phase 43: the pH kernel on the first solve from t = {window} s"
-          f" (in cloud) against its twin: {record['pH_vs_twin']['differ']} of"
-          f" {record['pH_vs_twin']['drops']} drops differ, largest |d log H|"
-          f" {record['pH_vs_twin']['max_abs_err_log_H']!r}; kernel"
-          f" {record['pH_vs_twin']['ms']!r} ms, twin"
-          f" {record['pH_vs_twin']['plain_ms']!r} ms, bound"
-          f" {record['pH_vs_twin']['bound_ms']!r} ms"
-          f" ({record['pH_vs_twin']['bound_by']}) [{gpu}]")
+    pH = record["pH_vs_twin"]
+    print(f"phase 43: the pH kernel ({pH['form']}) on the first solve from"
+          f" t = {window} s (in cloud) against its twin: {pH['differ']} of"
+          f" {pH['drops']} drops differ, largest |d log H|"
+          f" {pH['max_abs_err_log_H']!r}; at 2^17 and 2^20 drops, float32"
+          f" and float64, {PH_CHECKED_ITERATIONS} iterations, (drops that"
+          f" differ, largest |d log H|): {pH['checks']}; kernel {pH['ms']!r}"
+          f" ms, at 2^20 {pH['ms_2_20']!r} ms, twin {pH['plain_ms']!r} ms,"
+          f" bound {pH['bound_ms']!r} ms ({pH['bound_by']}), at 2^20"
+          f" {pH['bound_ms_2_20']!r} ms [{gpu}]")
     # K3's time on that solve, its twin's, and its bound: 29 B a drop and
     # the minfun evaluations these drops need
     (formulae, k3_settings, *rows), optional = kept[0]
@@ -7069,9 +7247,11 @@ def main():
     clock("27")
     _float32_ice_records(GPU, gpu)
     clock("28")
-    k1a_err, k1a_times, k1a_rotated_ms = _k1a_vs_twin(torch, kern, device, gpu)
+    k1a_err, k1a_times, k1a_rotated_ms, k1p = _k1a_vs_twin(
+        torch, kern, device, gpu
+    )
     clock("29")
-    berry_rows_launches = _berry_kernels_model(kern, gpu)
+    k1p_launches, k1a_launches, berry_kernels = _berry_kernels_model(kern, gpu)
     clock("30")
     straub, straub_k4 = _straub_on_card(gpu)
     clock("31")
@@ -7141,6 +7321,9 @@ def main():
     # slot the multiplicity and the extensive rows read and written, the
     # kernel x norm and u01 rows read
     k1a_bound = {n: bound_ms(t[2]) for n, t in k1a_times.items()}
+    # K1a's Parameterized form: the state read and written, the radius,
+    # fall-velocity and u01 rows read
+    k1p_bound = {n: bound_ms(t[2]) for n, t in k1p["times"].items()}
 
     # the float64 paths' records, which launch no kernel of their own
     print(json.dumps({"paths": {
@@ -7158,6 +7341,7 @@ def main():
         "kreidenweis_float32_vs_float64":
             model_phases["kreidenweis_float32_vs_float64"],
         "jaruga_and_pawlowska_2018": jaruga,
+        "berry_kernels": berry_kernels,
         "isotopes": isotope_record,
         "exporters_and_utils": utils,
         "distributed_warm_rain": {
@@ -7337,7 +7521,7 @@ def main():
         "route": "cuda",
         "source": "pysdm_tpu_torch/csrc/collision_mirror.cu",
         "replaces": "pysdm_tpu/ops/pallas/collision.py:317",
-        "launches": berry_rows_launches,
+        "launches": k1a_launches,
         "max_abs_err": k1a_err,
         "ms": k1a_times[BERRY_ROWS_N][0],
         "plain_ms": k1a_times[BERRY_ROWS_N][1],
@@ -7348,6 +7532,26 @@ def main():
         "rotated_ms_2_20": k1a_rotated_ms,
         "plain_ms_2_20": k1a_times[N_MAIN][1],
         "bound_ms_2_20": k1a_bound[N_MAIN][0],
+        "parameterized_launches": k1p_launches,
+        "parameterized_ms": k1p["times"][BERRY_ROWS_N][0],
+        "parameterized_bound_ms": k1p_bound[BERRY_ROWS_N][0],
+        "parameterized_ms_2_20": k1p["times"][N_MAIN][0],
+    }, {
+        "name": "coalesce_mirror_parameterized",
+        "route": "cuda",
+        "source": "pysdm_tpu_torch/csrc/collision_mirror.cu",
+        "replaces": "pysdm_tpu/ops/pallas/collision.py:317 (with"
+                    " Parameterized.pairwise, XLA-fused before it)",
+        "launches": k1p_launches,
+        "max_abs_err": k1p["max_abs_err"],
+        "ms": k1p["times"][BERRY_ROWS_N][0],
+        "plain_ms": k1p["times"][BERRY_ROWS_N][1],
+        "bound_ms": k1p_bound[BERRY_ROWS_N][0],
+        "bound_by": k1p_bound[BERRY_ROWS_N][1],
+        "library_ms": None,
+        "ms_2_20": k1p["times"][N_MAIN][0],
+        "plain_ms_2_20": k1p["times"][N_MAIN][1],
+        "bound_ms_2_20": k1p_bound[N_MAIN][0],
     }, {
         "name": "equilibrate_H",
         "route": "cuda",
@@ -7369,6 +7573,14 @@ def main():
         "bound_ms": pH_solve["bound_ms"],
         "bound_by": pH_solve["bound_by"],
         "library_ms": None,
+        "ms_2_20": pH_solve["ms_2_20"],
+        "bound_ms_2_20": pH_solve["bound_ms_2_20"],
+        # one thread a drop, one level of the bisection a step (the
+        # speculative forms of tools/variants/ph_speculative.cu lost)
+        "levels": 1,
+        "threads_per_block": pH_solve["form"]["threads"],
+        "min_blocks": pH_solve["form"]["min_blocks"],
+        "checks": pH_solve["checks"],
     }]}))
     left = _child_pids()
     assert not left, f"processes {left} started here are still running"

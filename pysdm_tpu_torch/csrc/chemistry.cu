@@ -36,9 +36,22 @@
 // parcel's 2^17 drops that is 2.3e8 operations, 3.4 us at 67 TFLOP/s,
 // against 2.0 us for the bytes. The design keeps everything but the 13
 // loads and stores in registers, one thread a drop, no shared memory and
-// no synchronisation; each drop's 48 iterations are a dependent chain,
-// so at 2^17 drops (16 warps an SM) the chain's latency, not the issue
-// rate, is what the card waits on. Measured times stand in PERF.md.
+// no synchronisation. An iteration is ~128 SASS instructions in float32
+// (7 MUFU: the exp2 and six reciprocals; ~70 FP32; ~25 branches, most of
+// them the divisions' slow-path checks), each IEEE division a reciprocal
+// and its refinement. What the card waits on, measured on an H100
+// (tools/profile_variant_builds.py, PERF.md §6): the issue of those
+// instructions, not the chain's latency. From 2^17 drops (~31 warps an
+// SM) to 2^20 the time a drop falls by 14% only (26% on an in-cloud
+// solve), and a speculative bisection that gives a drop 2^L lanes of a
+// warp, each evaluating one midpoint that a round of L levels can reach
+// (so each drop's chain is L times shorter and the warps 2^L times more),
+// takes 2.0-2.1x (L = 1, 2) and 2.4-2.6x (L = 3) this form's time, in
+// proportion to the lane evaluations it issues; that form is
+// tools/variants/ph_speculative.cu. Of the THREADS and MIN_BLOCKS timed
+// there, 512 threads was 3% faster at 2^17 and 4% slower at 2^20, and a
+// MIN_BLOCKS that fills an SM doubles the float64 time (its registers
+// spill): 256 and 1 stay.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -46,6 +59,8 @@
 namespace {
 
 constexpr int THREADS = 256;
+// the least blocks an SM must hold, given to __launch_bounds__
+constexpr int MIN_BLOCKS = 1;
 // the per-drop rows, in this order: concentrations S_VI, S_IV, C_IV, N_V,
 // N_mIII; equilibrium constants K_NH3, K_HNO3, K_SO2, K_HSO3, K_CO2,
 // K_HCO3, K_HSO4 (ops/cuda/chemistry.py ROWS)
@@ -60,7 +75,7 @@ __device__ __forceinline__ float exp_rn(float x) { return expf(x); }
 __device__ __forceinline__ double exp_rn(double x) { return exp(x); }
 
 template <typename T>
-__global__ void __launch_bounds__(THREADS)
+__global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
 equilibrate_H_kernel(Rows<T> rows, T K_H2O, T lo0, T hi0, int iters,
                      long long n, T* __restrict__ H_out) {
   const long long i = (long long)blockIdx.x * THREADS + threadIdx.x;
@@ -136,6 +151,13 @@ int pysdm_equilibrate_H(const void* const* rows, int dtype, long long n,
     default:
       return (int)cudaErrorInvalidValue;
   }
+}
+
+// the build's form, for the record: threads a block, the least blocks an
+// SM holds
+void pysdm_equilibrate_H_form(int* threads, int* min_blocks) {
+  *threads = THREADS;
+  *min_blocks = MIN_BLOCKS;
 }
 
 const char* pysdm_cuda_error_string(int code) {

@@ -1,11 +1,28 @@
 // Single-cell SDM coalescence substep under the mirror croupier, for Hopper
-// (sm_90a). Two plain C entry points, loaded with ctypes by
+// (sm_90a). Three plain C entry points, loaded with ctypes by
 // pysdm_tpu_torch/ops/cuda/collision.py, which also holds the plain PyTorch
-// twins of both (coalesce_mirror_reference, coalesce_mirror_rows_reference):
-// K1 (pysdm_coalesce_mirror), which evaluates the collision kernel and draws
-// u01 in its body, and K1a (pysdm_coalesce_mirror_rows), which reads both
-// per slot from rows its caller computed. The pair update is one body for
-// both (pair_update, instantiated with KID = ROWS_GIVEN for K1a).
+// twins of each (coalesce_mirror_reference, coalesce_mirror_rows_reference,
+// coalesce_mirror_parameterized_reference): K1 (pysdm_coalesce_mirror),
+// which evaluates the collision kernel and draws u01 in its body; K1a
+// (pysdm_coalesce_mirror_rows), which reads both per slot from rows its
+// caller computed; and K1a's Parameterized form
+// (pysdm_coalesce_mirror_parameterized), which reads u01 from a row and
+// evaluates the Berry 1967 kernels in its body. The pair update is one body
+// for all (pair_update, instantiated with KID = ROWS_GIVEN for K1a and
+// KID = PARAMETERIZED_F32 or _F64 for its Parameterized form).
+//
+// K1a's Parameterized form: the gravitational kernel with Berry's 1967
+// efficiency, pi (Y r_max)^2 |v_t - v_t'| with Y of the instance's 13
+// parameters (Parameterized, Hydrodynamic, Electric), from the "radius" and
+// "relative fall velocity" rows at both slots of the pair, in the rows'
+// float type and in the order of dynamics/collisions/collision_kernels.py
+// Parameterized.pairwise and ops/cuda/breakup.py
+// berry_1967_linear_collection_efficiency (integer exponents by repeated
+// squaring, the others by pow, every operation rounded on its own), then
+// times the scale and rounded to float32, as the rows route's
+// (values * scale[0]).to(float32) does. Without it the non-adaptive Berry
+// substep made that row eagerly, ~40 launches (the partner gathers, the
+// efficiency chain, the product and the casts) before K1a's one.
 //
 // K1a replaces the TPU kernel fused_coalesce_mirror
 // (pysdm_tpu/ops/pallas/collision.py:317, body _coalesce_kernel_mirror
@@ -62,7 +79,14 @@
 //   them in a fixed block order (sdm_pair.cuh grid_sums); the coalescence
 //   rate is the collision rate. The wrapper keeps the ticket counter and
 //   the partials per device, stream and shape, zeroed once. No float
-//   atomics: two runs give the same bits.
+//   atomics: two runs give the same bits. At Berry 1967's 2^13 slots (8
+//   blocks) a launch takes ~5 us, its bytes 0.08 us; one block whose
+//   threads walk the pairs and sum inside the block, with no ticket, fence
+//   or second phase, took longer on an H100 at every width from 2^12 to
+//   2^17 slots: at 2^13 K1a 1.35x and its Parameterized form 2.4x (a
+//   thread's pairs one after another, each a chain of loads and, in the
+//   Parameterized form, of Berry's pows; tools/variants/k1a_one_block.cu,
+//   PERF.md §6), so every width takes the grid.
 // Multiplicities and rows equal, bit for bit, the update computed at each
 // slot from that slot's view of the pair (the twin's form); the rate sums
 // are added in another order than the twin's.
@@ -89,6 +113,98 @@ constexpr int SCRATCH_HEAD = 16;  // bytes before the partials: the counter
 constexpr float TWO_M24 = 5.9604644775390625e-08f;  // 2^-24
 // the KID of K1a: kernel x norm and u01 given as rows
 constexpr int ROWS_GIVEN = -1;
+// the KIDs of K1a's Parameterized form: u01 given as a row, the Berry 1967
+// kernel evaluated from float32 or float64 radius and fall-velocity rows
+constexpr int PARAMETERIZED_F32 = -2;
+constexpr int PARAMETERIZED_F64 = -3;
+template <int KID>
+constexpr bool parameterized = KID == PARAMETERIZED_F32 || KID == PARAMETERIZED_F64;
+
+// the rows' float type of K1a's Parameterized form
+template <int KID>
+struct AttrType {
+  using type = float;
+};
+template <>
+struct AttrType<PARAMETERIZED_F64> {
+  using type = double;
+};
+
+// Parameterized's 13 parameters, A B D1 D2 E1 E2 F1 F2 G1 G2 G3 Mf Mg, as
+// host doubles, and the exponents D2, E2, Mf and Mg that are Python ints:
+// the int (> 0), or 0 where the exponent is a float
+struct Berry {
+  double c[13];
+  int int_exponent[4];
+};
+enum { A_, B_, D1_, D2_, E1_, E2_, F1_, F2_, G1_, G2_, G3_, MF_, MG_ };
+
+__device__ __forceinline__ float pow_rn(float x, float y) { return powf(x, y); }
+__device__ __forceinline__ double pow_rn(double x, double y) { return pow(x, y); }
+__device__ __forceinline__ float max_rn(float x, float y) { return fmaxf(x, y); }
+__device__ __forceinline__ double max_rn(double x, double y) { return fmax(x, y); }
+__device__ __forceinline__ float min_rn(float x, float y) { return fminf(x, y); }
+__device__ __forceinline__ double min_rn(double x, double y) { return fmin(x, y); }
+__device__ __forceinline__ float abs_rn(float x) { return fabsf(x); }
+__device__ __forceinline__ double abs_rn(double x) { return fabs(x); }
+
+// torch.maximum and torch.minimum: a NaN in either gives NaN
+template <typename A>
+__device__ __forceinline__ A nan_maximum(A a, A b) {
+  return a != a ? a : b != b ? b : max_rn(a, b);
+}
+template <typename A>
+__device__ __forceinline__ A nan_minimum(A a, A b) {
+  return a != a ? a : b != b ? b : min_rn(a, b);
+}
+
+// x ** e as ops/cuda/breakup.py _power takes it: a Python int e > 0 by
+// repeated squaring (jax.lax.integer_pow's order), a float by pow
+template <typename A>
+__device__ __forceinline__ A power(A x, const Berry& b, int which, int slot) {
+  int e = b.int_exponent[slot];
+  if (e <= 0) return pow_rn(x, (A)b.c[which]);
+  A acc = x;
+  bool have = false;
+  while (e > 0) {
+    if (e & 1) {
+      acc = have ? acc * x : x;
+      have = true;
+    }
+    e >>= 1;
+    if (e > 0) x = x * x;
+  }
+  return acc;
+}
+
+// Parameterized.pairwise at one pair: pi (Y r_big)^2 |va - vb|, Y Berry's
+// linear collection efficiency at (r_big, r_small) in micrometres, every
+// operation of the twin in the twin's order
+template <typename A>
+__device__ A parameterized_value(const Berry& b, A ra, A rb, A va, A vb) {
+  const A r_big = nan_maximum(ra, rb), r_small = nan_minimum(ra, rb);
+  const A unit = (A)1e-6;
+  const A r = r_big / unit;
+  const A r_s = r_small / unit;
+  const A p = r_s / (r > (A)0 ? r : (A)1);
+  const A G = (power((A)b.c[G1_] / r, b, MG_, 3) + (A)b.c[G2_]) +
+              (A)b.c[G3_] * r;
+  A one_minus_p = (A)1 - p;  // torch.clamp(., 0, 1): NaN stays NaN
+  if (one_minus_p == one_minus_p)
+    one_minus_p = min_rn(max_rn(one_minus_p, (A)0), (A)1);
+  const A Gp = pow_rn(one_minus_p, G);
+  const A D = (A)b.c[D1_] / power(r, b, D2_, 0);
+  const A E = (A)b.c[E1_] / power(r, b, E2_, 1);
+  const A F = power((A)b.c[F1_] / r, b, MF_, 2) + (A)b.c[F2_];
+  const bool inside = p > (A)0 && p < (A)1;
+  const A safe_p = inside ? p : (A)0.5;
+  const A safe_Gp = Gp != (A)0 ? Gp : (A)1;
+  A Y = (((A)b.c[A_] + (A)b.c[B_] * p) + D / pow_rn(safe_p, F)) + E / safe_Gp;
+  Y = inside && Gp != (A)0 ? Y : (A)0;
+  Y = nan_maximum(Y, (A)0);
+  const A Yr = Y * r_big;
+  return ((A)3.141592653589793 * (Yr * Yr)) * abs_rn(va - vb);
+}
 
 using sdm::BIG;
 using sdm::merge_rn;
@@ -111,10 +227,11 @@ __device__ __forceinline__ float u01_hash(uint32_t seed, uint32_t pair_id) {
 
 // the attribute rows collision kernel KID reads: "volume" for the first
 // three, "radius" and "relative fall velocity" for GEOMETRIC, "area" and
-// "radius" for SIMPLE_GEOMETRIC; K1a reads none
+// "radius" for SIMPLE_GEOMETRIC; K1a reads none (its Parameterized form
+// reads its two rows through BerryArgs::radius and BerryArgs::fall)
 template <int KID>
 __host__ __device__ constexpr int attr_rows() {
-  return KID == ROWS_GIVEN ? 0
+  return KID < 0 ? 0
          : KID == sdm::GEOMETRIC || KID == sdm::SIMPLE_GEOMETRIC ? 2
                                                                   : 1;
 }
@@ -158,21 +275,48 @@ struct Args {
   }
 };
 
+// K1a's Parameterized form's arguments: K1a's (u01 read at the leader),
+// the radius and the relative fall velocity (n,) and the scale (1,), in
+// AttrType<KID>, and the kernel's parameters. Apart from Args, so that the
+// other forms' launches pass what they passed before it (with these in
+// Args, K1 at 2^20 took 3-5% longer on an H100)
+template <typename T>
+struct BerryArgs : Args<T> {
+  const void* __restrict__ radius;
+  const void* __restrict__ fall;
+  const void* __restrict__ pscale;
+  Berry berry;
+};
+
 // the pair (o, po), o < po the leader: computed once, both slots written;
-// returns the pair's rate and deficit in s
-template <typename T, int KID>
-__device__ void pair_update(const Args<T>& x, int64_t o, int64_t po,
+// returns the pair's rate and deficit in s. X: Args<T>, or BerryArgs<T>
+// for K1a's Parameterized form
+template <typename T, int KID, typename X>
+__device__ void pair_update(const X& x, int64_t o, int64_t po,
                             float (&s)[2]) {
   // every load first and none behind a branch on loaded data, so that the
   // pair waits for memory once
   const int64_t a = x.mult[o], b = x.mult[po];
   constexpr bool given = KID == ROWS_GIVEN;
+  constexpr bool berry = parameterized<KID>;
   constexpr bool two_rows = attr_rows<KID>() == 2;
-  // K1a: x0o is kn and x0p is u01, both the leader's
-  const float x0o = given ? x.kn[o] : x.attr[o];
-  const float x0p = given ? x.u01[o] : x.attr[po];
+  using A = typename AttrType<KID>::type;
+  // K1a: x0o is kn and x0p is u01, both the leader's; its Parameterized
+  // form: x0p is u01
+  const float x0o = given ? x.kn[o] : berry ? 0.0f : x.attr[o];
+  const float x0p = given || berry ? x.u01[o] : x.attr[po];
   const float x1o = two_rows ? x.attr[x.n + o] : 0.0f;
   const float x1p = two_rows ? x.attr[x.n + po] : 0.0f;
+  A ro = 0, rp = 0, vo = 0, vp = 0, pscale = 0;
+  if constexpr (berry) {
+    const A* radius = static_cast<const A*>(x.radius);
+    const A* fall = static_cast<const A*>(x.fall);
+    ro = radius[o];
+    rp = radius[po];
+    vo = fall[o];
+    vp = fall[po];
+    pscale = *static_cast<const A*>(x.pscale);
+  }
   T eo[ROWS_AHEAD], ep[ROWS_AHEAD];
 #pragma unroll
   for (int r = 0; r < ROWS_AHEAD; ++r) {
@@ -187,6 +331,11 @@ __device__ void pair_update(const Args<T>& x, int64_t o, int64_t po,
   float kn, u;
   if constexpr (given) {
     kn = x0o;
+    u = x0p;
+  } else if constexpr (berry) {
+    // (values * scale[0]).to(float32), values at the leader's view of the
+    // pair
+    kn = (float)(parameterized_value(x.berry, ro, rp, vo, vp) * pscale);
     u = x0p;
   } else {
     kn = __fmul_rn(pair_kernel<KID>(x.p0, x.p1, x0o, x0p, x1o, x1p),
@@ -232,9 +381,9 @@ __device__ void pair_update(const Args<T>& x, int64_t o, int64_t po,
 // one thread per pair; thread 0 also copies the slots that pair with
 // themselves. sums: the collision rate and its deficit, then the
 // coalescence rate, which in a coalescence-only substep is the first
-template <typename T, int KID>
+template <typename T, int KID, typename X>
 __global__ void __launch_bounds__(THREADS)
-    coalesce_mirror_kernel(Args<T> x, int64_t K, unsigned* counter,
+    coalesce_mirror_kernel(X x, int64_t K, unsigned* counter,
                            float* partials, float* sums) {
   const int64_t p = (int64_t)blockIdx.x * THREADS + threadIdx.x;
   float s[2] = {0.0f, 0.0f};
@@ -262,11 +411,12 @@ int64_t blocks_for(int64_t n) {
   return pairs > 0 ? (pairs + THREADS - 1) / THREADS : 1;
 }
 
-template <typename T, int KID>
-int launch(Args<T> x, int64_t K, void* scratch, void* sums, cudaStream_t s) {
+template <typename T, int KID, typename X = Args<T>>
+int launch(X x, int64_t K, void* scratch, void* sums, cudaStream_t s) {
   char* base = (char*)scratch;
-  coalesce_mirror_kernel<T, KID><<<(unsigned)blocks_for(x.n), THREADS, 0, s>>>(
-      x, K, (unsigned*)base, (float*)(base + SCRATCH_HEAD), (float*)sums);
+  coalesce_mirror_kernel<T, KID, X>
+      <<<(unsigned)blocks_for(x.n), THREADS, 0, s>>>(
+          x, K, (unsigned*)base, (float*)(base + SCRATCH_HEAD), (float*)sums);
   return (int)cudaGetLastError();
 }
 
@@ -293,6 +443,47 @@ int launch(Args<T> x, int kernel_id, int n_attr, int64_t K, void* scratch,
       return launch<T, sdm::SIMPLE_GEOMETRIC>(x, K, scratch, sums, s);
   }
   return (int)cudaErrorInvalidValue;
+}
+
+// the state's pointers and sizes, the rest of Args zero
+template <typename T>
+Args<T> state_args(const void* mult, const void* ext, int n_ext, long long n,
+                   void* mult_out, void* ext_out) {
+  Args<T> x = {};
+  x.mult = (const int64_t*)mult;
+  x.ext = (const T*)ext;
+  x.n_ext = n_ext;
+  x.n = n;
+  x.mult_out = (int64_t*)mult_out;
+  x.ext_out = (T*)ext_out;
+  return x;
+}
+
+// K1a's Parameterized form's arguments from the state's and the rest
+template <typename T>
+BerryArgs<T> berry_args(const void* mult, const void* ext, int n_ext,
+                        long long n, void* mult_out, void* ext_out,
+                        const void* u01, const void* radius, const void* fall,
+                        const void* scale, const double* params,
+                        const int* int_exponents) {
+  BerryArgs<T> x = {};
+  static_cast<Args<T>&>(x) =
+      state_args<T>(mult, ext, n_ext, n, mult_out, ext_out);
+  x.u01 = (const float*)u01;
+  x.radius = radius;
+  x.fall = fall;
+  x.pscale = scale;
+  for (int i = 0; i < 13; ++i) x.berry.c[i] = params[i];
+  for (int i = 0; i < 4; ++i) x.berry.int_exponent[i] = int_exponents[i];
+  return x;
+}
+
+template <typename T>
+int launch_parameterized(BerryArgs<T> x, int attr_is_f64, int64_t K,
+                         void* scratch, void* sums, cudaStream_t s) {
+  return attr_is_f64
+             ? launch<T, PARAMETERIZED_F64>(x, K, scratch, sums, s)
+             : launch<T, PARAMETERIZED_F32>(x, K, scratch, sums, s);
 }
 
 }  // namespace
@@ -324,18 +515,21 @@ int pysdm_coalesce_mirror(const void* mult, const void* ext, int ext_is_f64,
                           void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   if (ext_is_f64) {
-    return launch(Args<double>{(const int64_t*)mult, (const double*)ext,
-                               n_ext, (const float*)attr, p0, p1,
-                               (const float*)scale, n, seed,
-                               (int64_t*)mult_out, (double*)ext_out,
-                               nullptr, nullptr},
-                  kernel_id, n_attr, K, scratch, sums, s);
+    Args<double> x = state_args<double>(mult, ext, n_ext, n, mult_out, ext_out);
+    x.attr = (const float*)attr;
+    x.p0 = p0;
+    x.p1 = p1;
+    x.scale = (const float*)scale;
+    x.seed = seed;
+    return launch(x, kernel_id, n_attr, K, scratch, sums, s);
   }
-  return launch(Args<float>{(const int64_t*)mult, (const float*)ext, n_ext,
-                            (const float*)attr, p0, p1, (const float*)scale,
-                            n, seed, (int64_t*)mult_out, (float*)ext_out,
-                            nullptr, nullptr},
-                kernel_id, n_attr, K, scratch, sums, s);
+  Args<float> x = state_args<float>(mult, ext, n_ext, n, mult_out, ext_out);
+  x.attr = (const float*)attr;
+  x.p0 = p0;
+  x.p1 = p1;
+  x.scale = (const float*)scale;
+  x.seed = seed;
+  return launch(x, kernel_id, n_attr, K, scratch, sums, s);
 }
 
 // K1a: one substep in one launch, with the kernel x normalization x
@@ -349,17 +543,42 @@ int pysdm_coalesce_mirror_rows(const void* mult, const void* ext,
                                void* sums, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   if (ext_is_f64) {
-    return launch<double, ROWS_GIVEN>(
-        Args<double>{(const int64_t*)mult, (const double*)ext, n_ext,
-                     nullptr, 0.0f, 0.0f, nullptr, n, 0u, (int64_t*)mult_out,
-                     (double*)ext_out, (const float*)kn, (const float*)u01},
-        K, scratch, sums, s);
+    Args<double> x = state_args<double>(mult, ext, n_ext, n, mult_out, ext_out);
+    x.kn = (const float*)kn;
+    x.u01 = (const float*)u01;
+    return launch<double, ROWS_GIVEN>(x, K, scratch, sums, s);
   }
-  return launch<float, ROWS_GIVEN>(
-      Args<float>{(const int64_t*)mult, (const float*)ext, n_ext, nullptr,
-                  0.0f, 0.0f, nullptr, n, 0u, (int64_t*)mult_out,
-                  (float*)ext_out, (const float*)kn, (const float*)u01},
-      K, scratch, sums, s);
+  Args<float> x = state_args<float>(mult, ext, n_ext, n, mult_out, ext_out);
+  x.kn = (const float*)kn;
+  x.u01 = (const float*)u01;
+  return launch<float, ROWS_GIVEN>(x, K, scratch, sums, s);
+}
+
+// K1a's Parameterized form: one substep in one launch with the u01 row
+// (float (n,), read at each pair's leader) given and the kernel evaluated
+// in the body from the rows radius and fall (n,), the relative fall
+// velocity, and scale (1,), the normalization times the substep's
+// probability scale, all float or double (attr_is_f64); params:
+// Parameterized's 13 parameters; int_exponents: D2, E2, Mf and Mg where
+// each is an int (> 0), else 0. Otherwise as pysdm_coalesce_mirror_rows.
+int pysdm_coalesce_mirror_parameterized(
+    const void* mult, const void* ext, int ext_is_f64, int n_ext,
+    const void* radius, const void* fall, int attr_is_f64,
+    const double* params,
+    const int* int_exponents, const void* scale, const void* u01, long long n,
+    long long K, void* mult_out, void* ext_out, void* scratch, void* sums,
+    void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  if (ext_is_f64) {
+    return launch_parameterized(
+        berry_args<double>(mult, ext, n_ext, n, mult_out, ext_out, u01,
+                           radius, fall, scale, params, int_exponents),
+        attr_is_f64, K, scratch, sums, s);
+  }
+  return launch_parameterized(
+      berry_args<float>(mult, ext, n_ext, n, mult_out, ext_out, u01, radius,
+                        fall, scale, params, int_exponents),
+      attr_is_f64, K, scratch, sums, s);
 }
 
 const char* pysdm_cuda_error_string(int code) {

@@ -15,8 +15,12 @@ The pair update, in the JAX package's order of dispatch (``:240-457``):
   (``coalesce_mirror``), which evaluates the collision kernels of
   ``ops/cuda/collision.py`` ``MIRROR_KERNELS`` in its body and draws u01
   from a pair-keyed PRF, or, for the others (``Parameterized``,
-  ``Hydrodynamic``, ``Electric``), K1a (``coalesce_mirror_rows``), which
-  takes the kernel x norm values and the u01 draws as rows;
+  ``Hydrodynamic``, ``Electric``), K1a: in the non-adaptive substep its
+  Parameterized form (``coalesce_mirror_parameterized``), which evaluates
+  those kernels in its body and takes the u01 draws as a row; in the
+  adaptive one, which computes the kernel's values for its substep choice
+  anyway, or for a kernel with neither body, ``coalesce_mirror_rows``,
+  which takes the kernel x norm values and the u01 draws as rows;
 - coalescence alone on the sort croupier, with no max-merged rows: K2
   (``coalesce_adjacent``), with the rates summed per cell through K4;
 - bounce, coalescence and breakup on the mirror croupier, with the
@@ -74,12 +78,14 @@ from ...ops.cuda.collision import (
     MIRROR_KERNELS,
     coalesce_adjacent,
     coalesce_mirror,
+    coalesce_mirror_parameterized,
     coalesce_mirror_rows,
 )
 from ...ops.pairing import AdjacentPairing, MirrorPairing
 from .breakup_efficiencies import ConstEb
 from .breakup_fragmentations import AlwaysN
 from .coalescence_efficiencies import ConstEc
+from .collision_kernels import Parameterized
 
 DEFAULTS = namedtuple(
     "_", ("dt_coal_range", "adaptive", "substeps", "max_multiplicity")
@@ -373,6 +379,13 @@ class Collision:
         dt_range = self.dt_coal_range
         route = self.route(particulator.sim_state["particles"])
         n_rows = self._u01_rows(route)
+        # the rows route of a fixed substep evaluates Parameterized's kernel
+        # in K1a's body; the adaptive one reads its values for the substep
+        # choice first
+        in_body = (
+            route == "rows" and not self.adaptive
+            and isinstance(kernel, Parameterized)
+        )
         norm = coll_ops.mirror_normalization_factor(
             dt, particulator.mesh.dv, n_sd, ftype, particulator.device
         )
@@ -400,11 +413,17 @@ class Collision:
 
         def kernel_launch(particles, counters, draws, scale, attrs, values):
             """one substep through K1, K1a or K5; ``values``: the collision
-            kernel at every slot's pair (K1a), ``scale``: the normalization
-            times the probability scale"""
+            kernel at every slot's pair (K1a with the values given),
+            ``scale``: the normalization times the probability scale"""
             K, seed, rows = draws
             self.substeps_run += 1
-            if route == "rows":
+            if in_body:
+                mult, ext, *rates = coalesce_mirror_parameterized(
+                    particles.multiplicity, particles.extensive,
+                    attrs["radius"], attrs["relative fall velocity"],
+                    kernel.params, scale, rows[0].to(torch.float32), K,
+                )
+            elif route == "rows":
                 mult, ext, *rates = coalesce_mirror_rows(
                     particles.multiplicity, particles.extensive,
                     (values * scale[0]).to(torch.float32),
@@ -440,7 +459,9 @@ class Collision:
             pairing = MirrorPairing(draws[0], n_sd, particles.alive)
             attrs = attributes(particles)
             values = attrs_b = prob = None
-            if dt_left is not None or route in ("rows", "float64"):
+            if dt_left is not None or route == "float64" or (
+                route == "rows" and not in_body
+            ):
                 attrs_b = {name: pairing.partner(v) for name, v in attrs.items()}
                 values = kernel.pairwise(formulae, attrs, attrs_b).to(ftype)
             if dt_left is not None or route == "float64":

@@ -9,7 +9,10 @@ the adaptive substep choice reads them, and the kernels with a
 (``csrc/sdm_pair.cuh`` ``kernel_value``) from two float parameters,
 ``cuda_params``, and the attribute rows ``ops/cuda/collision.py``
 ``KERNEL_ROWS`` names. ``Parameterized`` and its Berry 1967 variants
-``Hydrodynamic`` and ``Electric`` have none: their values reach K1a
+``Hydrodynamic`` and ``Electric`` have none: K1a's Parameterized form
+(``coalesce_mirror_parameterized``) evaluates them in its body from
+``params`` in the non-adaptive substep; the adaptive one, which needs the
+values for its substep choice anyway, hands them to K1a
 (``coalesce_mirror_rows``) as a row, as the JAX package's reach its
 ``fused_coalesce_mirror``.
 """
@@ -18,7 +21,10 @@ import numpy as np
 import torch
 from scipy import special
 
-from ...ops.cuda.breakup import berry_1967_linear_collection_efficiency
+from ...ops.cuda.breakup import (  # noqa: F401 (the reference module's name)
+    berry_1967_linear_collection_efficiency,
+    parameterized_kernel,
+)
 from ...ops.cuda.collision import (
     CONSTANT_K,
     GEOMETRIC,
@@ -170,13 +176,7 @@ class Parameterized:
         builder.request_attribute("relative fall velocity")
 
     def pairwise(self, formulae, attrs_a, attrs_b):
-        r_big = torch.maximum(attrs_a["radius"], attrs_b["radius"])
-        r_small = torch.minimum(attrs_a["radius"], attrs_b["radius"])
-        Y = berry_1967_linear_collection_efficiency(self.params, r_big, r_small)
-        dv = torch.abs(
-            attrs_a["relative fall velocity"] - attrs_b["relative fall velocity"]
-        )
-        return np.pi * (Y * r_big) ** 2 * dv
+        return parameterized_kernel(self.params, attrs_a, attrs_b)
 
 
 class Hydrodynamic(Parameterized):

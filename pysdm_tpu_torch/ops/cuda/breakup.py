@@ -47,6 +47,7 @@ on CUDA). Integer powers are repeated products, as XLA's ``integer_pow``.
 import collections
 import ctypes
 import functools
+import math
 
 import torch
 
@@ -145,6 +146,21 @@ def berry_1967_linear_collection_efficiency(params, r_big, r_small, unit=1e-6):
     Y = c(A) + c(B) * p + D / torch.pow(safe_p, F) + E / safe_Gp
     Y = torch.where(inside & (Gp != 0), Y, c(0.0))
     return torch.maximum(Y, c(0.0))
+
+
+def parameterized_kernel(params, attrs_a, attrs_b):
+    """the gravitational kernel with Berry's 1967 efficiency of
+    ``Parameterized`` (``pysdm_tpu/dynamics/collisions/
+    collision_kernels.py:158-166``), pi (Y r_big)^2 |v_t - v_t'|, from the
+    "radius" and "relative fall velocity" rows of both slots; the order K1a's
+    Parameterized form (``csrc/collision_mirror.cu``) rounds it in"""
+    r_big = torch.maximum(attrs_a["radius"], attrs_b["radius"])
+    r_small = torch.minimum(attrs_a["radius"], attrs_b["radius"])
+    Y = berry_1967_linear_collection_efficiency(params, r_big, r_small)
+    dv = torch.abs(
+        attrs_a["relative fall velocity"] - attrs_b["relative fall velocity"]
+    )
+    return math.pi * (Y * r_big) ** 2 * dv
 
 
 def berry_1967_efficiency(radius_a, radius_b):

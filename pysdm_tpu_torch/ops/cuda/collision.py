@@ -45,6 +45,17 @@ f32 conversions of xi, so that it is bit-equal to the TPU kernel wherever
 that kernel's quotient walk is exact. Bound on the card: bytes, 24 + 8 R B
 per slot with R float32 extensive rows.
 
+K1a's Parameterized form (``coalesce_mirror_parameterized``) is the same
+pair update with the u01 row given and the kernel x norm value evaluated in
+the body: ``Parameterized``'s Berry 1967 kernel (``ops/cuda/breakup.py``
+``parameterized_kernel``) from the radius and relative fall velocity rows
+at both slots, in their float type, times the scale, rounded to float32.
+Its twin makes the row eagerly (the partner gathers, the kernel, the
+product and the cast), then runs K1a's twin; on the card the two agree to
+the bit (the same libdevice pow, every operation rounded on its own).
+Bound on the card: bytes, K1a's less the kn row, plus the two attribute
+rows of the state's float type.
+
 K2 replaces the TPU kernel ``fused_coalesce``
 (``pysdm_tpu/ops/pallas/collision.py:721``, body ``_coalesce_kernel``
 ``:103-217``): the same update over the cell-sorted state of the sort
@@ -75,6 +86,12 @@ KERNEL_ROWS = {
     SIMPLE_GEOMETRIC: ("area", "radius"),
 }
 MIRROR_KERNELS = tuple(KERNEL_ROWS)
+# the rows K1a's Parameterized form reads, and where the exponents D2, E2,
+# Mf and Mg stand among Parameterized's 13 parameters (A, B, D1, D2, E1, E2,
+# F1, F2, G1, G2, G3, Mf, Mg): a Python int there is taken by repeated
+# squaring (``ops/cuda/breakup.py`` ``_power``)
+PARAMETERIZED_ROWS = ("radius", "relative fall velocity")
+_EXPONENTS = (3, 5, 11, 12)
 
 _BIG = float(2**31 - 128)
 _M32 = 0xFFFFFFFF
@@ -230,6 +247,26 @@ def coalesce_mirror_rows_reference(mult, ext, kernnorm, u01, K):
     return _mirror_update(mult, ext, K, pair_draws)
 
 
+def coalesce_mirror_parameterized_reference(
+    mult, ext, radius, fall, params, scale, u01, K
+):
+    """plain PyTorch twin of K1a's Parameterized form: the row the
+    non-adaptive rows route made before the form existed (the partner's
+    rows gathered, ``parameterized_kernel``, times the scale, cast to
+    float32), then K1a's twin. Returns (mult_new, ext_new, rate, deficit,
+    coal) with the rates as 0-d float32 sums."""
+    from .breakup import parameterized_kernel
+
+    n = mult.shape[0]
+    o = torch.arange(n, dtype=torch.int64, device=mult.device)
+    po = torch.remainder(int(K) - o, n)
+    attrs = dict(zip(PARAMETERIZED_ROWS, (radius, fall)))
+    attrs_b = {name: row[po] for name, row in attrs.items()}
+    values = parameterized_kernel(params, attrs, attrs_b)
+    kernnorm = (values * scale[0]).to(torch.float32)
+    return coalesce_mirror_rows_reference(mult, ext, kernnorm, u01, K)
+
+
 def _check_state(mult, ext, K):
     n = mult.shape[0]
     if mult.dtype != torch.int64 or mult.dim() != 1:
@@ -306,6 +343,12 @@ def library():
         ctypes.c_longlong, vp, vp, vp, vp, vp,
     ]
     lib.pysdm_coalesce_mirror_rows.restype = ctypes.c_int
+    lib.pysdm_coalesce_mirror_parameterized.argtypes = [
+        vp, vp, ctypes.c_int, ctypes.c_int, vp, vp, ctypes.c_int,
+        ctypes.POINTER(ctypes.c_double), ctypes.POINTER(ctypes.c_int), vp, vp,
+        ctypes.c_longlong, ctypes.c_longlong, vp, vp, vp, vp, vp,
+    ]
+    lib.pysdm_coalesce_mirror_parameterized.restype = ctypes.c_int
     lib.pysdm_coalesce_mirror_scratch_bytes.argtypes = [ctypes.c_longlong]
     lib.pysdm_coalesce_mirror_scratch_bytes.restype = ctypes.c_longlong
     lib.pysdm_cuda_error_string.argtypes = [ctypes.c_int]
@@ -315,8 +358,9 @@ def library():
 
 def _launch_mirror(mult, ext, entry):
     """launch ``entry(lib, mult, ext, mult_out, ext_out, scratch, sums,
-    stream)``, K1's or K1a's C entry point, with their shared scratch (the
-    two take the same grid, and launches on one stream never overlap).
+    stream)``, the C entry point of K1, K1a or K1a's Parameterized form,
+    with their shared scratch (all take the same grid, and launches on one
+    stream never overlap).
     Returns (mult_out, ext_out, rate, deficit, coal)."""
     lib = library()
     n = mult.shape[0]
@@ -394,6 +438,79 @@ def coalesce_mirror_rows(mult, ext, kernnorm, u01, K):
 
 
 coalesce_mirror_rows.launches = 0
+
+
+def _int_exponents(params):
+    """D2, E2, Mf and Mg as K1a's Parameterized form takes them: the Python
+    int (> 0) where the parameter is one, else 0 (pow)"""
+    if len(params) != 13:
+        raise ValueError(f"Parameterized takes 13 parameters, not {len(params)}")
+    exponents = []
+    for i in _EXPONENTS:
+        e = params[i]
+        is_int = isinstance(e, int) and not isinstance(e, bool)
+        if is_int and e <= 0:
+            raise ValueError(f"integer exponent {e} <= 0 in {params}")
+        exponents.append(e if is_int else 0)
+    return exponents
+
+
+def coalesce_mirror_parameterized(mult, ext, radius, fall, params, scale, u01,
+                                  K):
+    """K1a's Parameterized form: one mirror-croupier coalescence substep
+    with ``Parameterized``'s kernel (Berry 1967's efficiency; Hydrodynamic,
+    Electric) evaluated in the kernel's body. CPU tensors take the plain
+    twin; CUDA tensors launch the Hopper kernel (or raise). Returns
+    (mult_new, ext_new, rate, deficit, coal) with 0-d float32 rate sums.
+
+    mult: int64 (n,); ext: (n_ext, n) float32/float64; radius, fall: the
+    "radius" and "relative fall velocity" rows (n,), float32 or float64,
+    and scale (1,), the normalization times the substep's probability
+    scale, all of one dtype; params: the kernel's 13 parameters; u01:
+    float32 (n,), the gamma draws, read at each pair's leader; K in
+    [0, n)."""
+    _check_state(mult, ext, K)
+    n = mult.shape[0]
+    exponents = _int_exponents(params)
+    if u01.dtype != torch.float32 or u01.shape != (n,):
+        raise TypeError(f"u01: float32 ({n},) expected")
+    dtype = radius.dtype
+    if dtype not in (torch.float32, torch.float64):
+        raise TypeError(f"radius: float32 or float64, not {dtype}")
+    for name, t, shape in (("radius", radius, (n,)), ("fall", fall, (n,)),
+                           ("scale", scale, (1,))):
+        if t.dtype != dtype or t.shape != shape:
+            raise TypeError(f"{name}: {dtype} {shape} expected")
+    for name, t in (("radius", radius), ("fall", fall), ("scale", scale),
+                    ("u01", u01)):
+        if t.device != mult.device:
+            raise ValueError(f"{name} is on {t.device}, mult on {mult.device}")
+    if mult.device.type == "cpu":
+        return coalesce_mirror_parameterized_reference(
+            mult, ext, radius, fall, params, scale, u01, K
+        )
+    if mult.device.type != "cuda":
+        raise ValueError(f"no kernel for device {mult.device}")
+    radius, fall = radius.contiguous(), fall.contiguous()
+    u01 = u01.contiguous()
+    c_params = (ctypes.c_double * 13)(*(float(p) for p in params))
+    c_exponents = (ctypes.c_int * 4)(*exponents)
+
+    def entry(lib, mult, ext, mult_out, ext_out, scratch, sums, stream):
+        return lib.pysdm_coalesce_mirror_parameterized(
+            mult.data_ptr(), ext.data_ptr(), int(ext.dtype == torch.float64),
+            ext.shape[0], radius.data_ptr(), fall.data_ptr(),
+            int(dtype == torch.float64), c_params, c_exponents,
+            scale.data_ptr(), u01.data_ptr(), n, int(K), mult_out.data_ptr(),
+            ext_out.data_ptr(), scratch.data_ptr(), sums.data_ptr(), stream,
+        )
+
+    out = _launch_mirror(mult, ext, entry)
+    coalesce_mirror_parameterized.launches += 1
+    return out
+
+
+coalesce_mirror_parameterized.launches = 0
 
 
 def coalesce_adjacent_reference(mult, ext, kernnorm, rand, is_first):

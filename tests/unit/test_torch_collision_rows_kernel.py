@@ -20,6 +20,14 @@ gamma (read off the multiplicities, which are bit-equal); rate sums to
 rtol 1e-5, since the float32 sums run in another order. The draws keep gamma's cap below 2^26
 wherever the quotient xi_j / xi_k binds, where the TPU kernel's quotient
 walk is exact (ROADMAP, "large-quotient gamma").
+
+K1a's Parameterized form (``coalesce_mirror_parameterized``), which
+evaluates the Berry 1967 kernels in its body, is held the same way: its
+twin on float64 radius and fall-velocity rows against the Pallas kernel fed
+the JAX package's ``Hydrodynamic`` and ``Electric`` values (its
+``Parameterized.pairwise`` in float64, times the scale, cast to float32),
+with the same bounds; and the Collision dynamic takes it in Berry 1967's
+non-adaptive substep, K1a with the values given in the adaptive one.
 """
 
 from fractions import Fraction
@@ -29,8 +37,13 @@ import numpy as np
 import pytest
 import torch
 
+from pysdm_tpu.dynamics.collisions import collision_kernels as jax_kernels
 from pysdm_tpu.ops.pairing import MirrorPairing as JaxMirrorPairing
 from pysdm_tpu.ops.pallas.collision import fused_coalesce_mirror
+from pysdm_tpu_torch.dynamics.collisions import collision as port_collision
+from pysdm_tpu_torch.dynamics.collisions import collision_kernels as port_kernels
+from pysdm_tpu_torch.models import berry_1967
+from pysdm_tpu_torch.backends import CPU
 from pysdm_tpu_torch.ops.cuda import collision as port
 
 
@@ -179,3 +192,165 @@ def test_launch_count_only_on_the_card():
         torch.from_numpy(kernnorm), torch.from_numpy(u01), 5,
     )
     assert port.coalesce_mirror_rows.launches == before
+
+
+# --- K1a's Parameterized form ------------------------------------------------
+def _berry_rows(n, seed):
+    """float64 radius and fall-velocity rows of cloud and rain drops: radii
+    log-uniform over 1-300 um (2% dead at radius 0), fall velocities rising
+    with the radius"""
+    rng = np.random.default_rng(seed)
+    radius = np.exp(rng.uniform(np.log(1e-6), np.log(300e-6), n))
+    radius[rng.uniform(size=n) < 0.02] = 0.0
+    fall = 8e3 * radius * rng.uniform(0.9, 1.1, n)
+    return radius, fall
+
+
+def _jax_kernnorm(kernel, radius, fall, scale, K):
+    """the float32 kernel x norm row the JAX package makes for its Pallas
+    K1a: ``Parameterized.pairwise`` in float64 at every slot's view of its
+    pair, times the scale, cast to float32"""
+    n = radius.shape[0]
+    partner = (K - np.arange(n)) % n
+    attrs = {"radius": jnp.asarray(radius), "relative fall velocity": jnp.asarray(fall)}
+    attrs_b = {k: jnp.asarray(np.asarray(v)[partner]) for k, v in attrs.items()}
+    values = np.asarray(getattr(jax_kernels, kernel)().pairwise(None, attrs, attrs_b))
+    assert values.dtype == np.float64
+    return (values * scale).astype(np.float32)
+
+
+@pytest.mark.parametrize("kernel", ("Hydrodynamic", "Electric"))
+@pytest.mark.parametrize("n", (4096, 1000))
+@pytest.mark.parametrize("K_of", ("zero", "odd", "last"))
+@pytest.mark.parametrize("ext_dtype", (np.float32, np.float64))
+def test_parameterized_twin_bit_equal_to_pallas_kernel(kernel, n, K_of,
+                                                       ext_dtype):
+    K = {"zero": 0, "odd": 777, "last": n - 1}[K_of]
+    mult, ext, _, u01 = _state(n, K, 2, ext_dtype, seed=n + K + 1)
+    radius, fall = _berry_rows(n, seed=n + K)
+    # a scale that gives the median live pair ~2 collisions at xi ~ 500
+    partner = (K - np.arange(n)) % n
+    probe = _jax_kernnorm(kernel, radius, fall, 1.0, K).astype(np.float64)
+    scale = 4.0 / (1000 * np.median(probe[(probe > 0) & (partner > np.arange(n))]))
+    kernnorm = _jax_kernnorm(kernel, radius, fall, scale, K)
+    pairing = JaxMirrorPairing(K, n, jnp.asarray(mult > 0))
+    expected = [np.asarray(x) for x in fused_coalesce_mirror(
+        jnp.asarray(mult), jnp.asarray(ext), jnp.asarray(kernnorm),
+        jnp.asarray(u01), pairing.is_first, pairing.shift, interpret=True,
+    )]
+    launches = port.coalesce_mirror_parameterized.launches
+    got = [x.numpy() for x in port.coalesce_mirror_parameterized(
+        torch.from_numpy(mult), torch.from_numpy(ext),
+        torch.from_numpy(radius), torch.from_numpy(fall),
+        getattr(port_kernels, kernel)().params,
+        torch.tensor([scale], dtype=torch.float64), torch.from_numpy(u01), K,
+    )]
+    assert port.coalesce_mirror_parameterized.launches == launches
+    np.testing.assert_array_equal(got[0], expected[0])
+    assert got[1].dtype == ext_dtype
+    np.testing.assert_array_equal(got[1], expected[1])
+    for g, e in zip(got[2:], expected[2:]):
+        np.testing.assert_allclose(g, e.sum(dtype=np.float32), rtol=1e-5)
+    assert (got[0] != mult).sum() > n // 50
+
+
+@pytest.mark.parametrize("dtype", (torch.float32, torch.float64))
+def test_parameterized_twin_is_the_rows_route(dtype):
+    """the twin is the row the rows route made, then K1a's twin: the partner
+    gathers, ``Parameterized.pairwise`` in the rows' dtype, times the scale,
+    cast to float32"""
+    n, K = 1000, 333
+    mult, ext, _, u01 = _state(n, K, 2, np.float32, seed=5)
+    radius, fall = (torch.from_numpy(r).to(dtype) for r in _berry_rows(n, 6))
+    scale = torch.tensor([3e5], dtype=dtype)
+    params = port_kernels.Electric().params
+    po = torch.remainder(K - torch.arange(n), n)
+    attrs = {"radius": radius, "relative fall velocity": fall}
+    values = port_kernels.Electric().pairwise(
+        None, attrs, {k: v[po] for k, v in attrs.items()}
+    )
+    want = port.coalesce_mirror_rows(
+        torch.from_numpy(mult), torch.from_numpy(ext),
+        (values * scale[0]).to(torch.float32), torch.from_numpy(u01), K,
+    )
+    got = port.coalesce_mirror_parameterized(
+        torch.from_numpy(mult), torch.from_numpy(ext), radius, fall, params,
+        scale, torch.from_numpy(u01), K,
+    )
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize(
+    "changes, error",
+    (
+        ({"fall": torch.zeros(8, dtype=torch.float32)}, TypeError),
+        ({"scale": torch.zeros(1, dtype=torch.float32)}, TypeError),
+        ({"radius": torch.zeros(8, dtype=torch.int64)}, TypeError),
+        ({"u01": torch.zeros(8, dtype=torch.float64)}, TypeError),
+        ({"params": (1,) * 12}, ValueError),
+        ({"params": (1,) * 11 + (0, 8)}, ValueError),
+        ({"fall": torch.zeros(8, dtype=torch.float64, device="meta")},
+         ValueError),
+    ),
+    ids=("fall dtype", "scale dtype", "radius dtype", "u01", "12 params",
+         "int exponent 0", "fall on meta"),
+)
+def test_parameterized_wrapper_checks_its_inputs(changes, error):
+    args = {
+        "mult": torch.ones(8, dtype=torch.int64),
+        "ext": torch.ones((1, 8), dtype=torch.float32),
+        "radius": torch.full((8,), 1e-5, dtype=torch.float64),
+        "fall": torch.ones(8, dtype=torch.float64),
+        "params": port_kernels.Hydrodynamic().params,
+        "scale": torch.ones(1, dtype=torch.float64),
+        "u01": torch.ones(8, dtype=torch.float32),
+        "K": 3,
+    }
+    args.update(changes)
+    with pytest.raises(error):
+        port.coalesce_mirror_parameterized(**args)
+
+
+def test_int_exponents_are_the_python_ints():
+    """D2, E2, Mf and Mg go to the kernel as ints where ``_power`` squares
+    them (Hydrodynamic's Mf 4 and Mg 8; Electric's Mg 8), else 0 (pow)"""
+    assert port._int_exponents(port_kernels.Hydrodynamic().params) == [0, 0, 4, 8]
+    assert port._int_exponents(port_kernels.Electric().params) == [0, 0, 0, 8]
+
+
+@pytest.mark.parametrize("adaptive", (False, True))
+def test_berry_substep_takes_the_parameterized_form_when_fixed(adaptive,
+                                                               monkeypatch):
+    """Berry 1967's box with Hydrodynamic: the fixed substep takes K1a's
+    Parameterized form and reads no kernel values; the adaptive one, whose
+    substep choice reads them, hands them to K1a as a row"""
+    calls = {"parameterized": 0, "rows": 0, "pairwise": 0}
+
+    def counting(name, fn):
+        def call(*args, **kwargs):
+            calls[name] += 1
+            return fn(*args, **kwargs)
+        return call
+
+    monkeypatch.setattr(port_collision, "coalesce_mirror_parameterized",
+                        counting("parameterized",
+                                 port_collision.coalesce_mirror_parameterized))
+    monkeypatch.setattr(port_collision, "coalesce_mirror_rows",
+                        counting("rows", port_collision.coalesce_mirror_rows))
+    kernel = port_kernels.Hydrodynamic()
+    monkeypatch.setattr(kernel, "pairwise", counting("pairwise", kernel.pairwise))
+    settings = berry_1967.Settings(steps=[0, 3])
+    settings.n_sd = 2**8
+    settings.kernel = kernel
+    settings.adaptive = adaptive
+    _, p = berry_1967.run(settings, backend_class=CPU)
+    dyn = p.dynamics["Collision"]
+    assert dyn.route() == "rows"
+    if adaptive:
+        assert calls["parameterized"] == 0
+        assert calls["rows"] == dyn.substeps_run >= 3
+        assert calls["pairwise"] == calls["rows"]
+    else:
+        assert calls["parameterized"] == dyn.substeps_run == 3
+        assert calls["rows"] == calls["pairwise"] == 0

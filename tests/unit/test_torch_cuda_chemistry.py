@@ -16,7 +16,10 @@ narrowing when lo and hi are neighbouring floats (~1e-6 at |log H| ~ 10).
 The kernel rounds each of the twin's operations on its own (no FMA, IEEE
 division), so with the same exp the two are bit-equal (a g++ build of its
 body against the twin with the same libm exp, 20,000 drops in each dtype).
-Each test prints the count of drops that differ.
+Each test prints the count of drops that differ. The kernel carries a
+drop's bisection on 2^L lanes of a warp (``csrc/chemistry.cu``), so the
+drop counts here also cover a group cut by the end of the rows (17 drops:
+one warp, partly past n).
 """
 
 import os
@@ -35,8 +38,9 @@ from pysdm_tpu_torch.ops.cuda import chemistry as ph  # noqa: E402
 
 pytestmark = pytest.mark.cuda
 
-# the Kreidenweis parcel's drops, and a ragged last block
-N_DROPS = 2**17 + 37
+# a ragged warp, a few blocks, the Kreidenweis parcel's drops, and a ragged
+# last block there
+N_DROPS = (17, 4096, 2**17, 2**17 + 37)
 
 
 @pytest.fixture(name="device")
@@ -50,24 +54,30 @@ def _on(d, dtype, device):
     return {k: torch.from_numpy(v).to(dtype).to(device) for k, v in d.items()}
 
 
-@pytest.mark.parametrize("iters", (0, 1, ph.PH_ITERATIONS))
+@pytest.mark.parametrize("n", N_DROPS)
+@pytest.mark.parametrize("iters", (0, 1, ph.PH_ITERATIONS - 1, ph.PH_ITERATIONS))
 @pytest.mark.parametrize("dtype", (torch.float32, torch.float64))
-def test_kernel_matches_twin(device, dtype, iters):
-    conc, K, host = chip_smoke.ph_solve_inputs(N_DROPS, seed=23)
+def test_kernel_matches_twin(device, dtype, iters, n):
+    """the build's one form (``ph.form()``: its levels a round, its
+    threads a block) against the twin; 47 iterations end on a round of
+    fewer levels where the build takes 2 or more"""
+    conc, K, host = chip_smoke.ph_solve_inputs(n, seed=23)
     c, k = _on(conc, dtype, device), _on(K, dtype, device)
     before = ph.equilibrate_H.launches
     got = ops.equilibrate_H(conc=c, K_drop=k, iters=iters, **host)
     torch.cuda.synchronize()
     assert ph.equilibrate_H.launches == before + 1
     assert got.dtype == dtype and got.device == c["S_VI"].device
-    assert got.shape == (N_DROPS,)
+    assert got.shape == (n,)
     want = ph.equilibrate_H_reference(conc=c, K_drop=k, iters=iters, **host)
     assert torch.isfinite(got).all()
-    width = chip_smoke.ph_parting_bracket(c, k, host, iters)
-    seen = chip_smoke.compare_ph_solves(got, want, width,
-                                        f"{dtype}, {iters} iterations")
-    print(f"{dtype}, {iters} iterations: {seen['differ']} of {seen['drops']}"
-          f" drops differ from the twin, each within its bound: {seen}")
+    seen = chip_smoke.compare_ph_solves(
+        got, want, chip_smoke.ph_parting_width(got, want, c, k, host, iters),
+        f"{dtype}, {iters} iterations",
+    )
+    print(f"{ph.form()}, {dtype}, {iters} iterations: {seen['differ']} of"
+          f" {seen['drops']} drops differ from the twin, each within its"
+          f" bound: {seen}")
     # the same bits from a second launch
     assert torch.equal(got, ops.equilibrate_H(conc=c, K_drop=k, iters=iters,
                                               **host))

@@ -13,7 +13,11 @@ twin round the same products and sums once each); rate sums to rtol 1e-5
 (the kernel sums per pair, warp and block in a fixed order, the twin with
 torch.sum). Launches on the same inputs are bit-equal, rate sums included,
 alone or queued on two streams at once. K1a (``coalesce_mirror_rows``) is
-held to the same bounds, and bit for bit at every K of a small n.
+held to the same bounds, and bit for bit at every K of a small n. K1a's
+Parameterized form (``coalesce_mirror_parameterized``), which evaluates
+the Berry 1967 kernels in its body, is held to its twin bit for bit in
+multiplicities and rows, float32 and float64 rows of either kind, at
+sizes from one ragged warp to 2^20, Berry 1967's 2^13 among them.
 """
 
 import numpy as np
@@ -158,7 +162,7 @@ def _rows_state(n, K, ext_dtype, seed, device):
     )
 
 
-@pytest.mark.parametrize("n", (4096, 2**16 + 3))
+@pytest.mark.parametrize("n", (17, 4096, 2**13, 2**14, 2**16 + 3, 2**20))
 @pytest.mark.parametrize("ext_dtype", (np.float32, np.float64))
 def test_rows_kernel_matches_twin_on_card(device, n, ext_dtype):
     args = _rows_state(n, n // 3 * 2, ext_dtype, n, device)
@@ -184,9 +188,78 @@ def test_rows_kernel_every_K_of_a_small_n_bit_for_bit(device):
             assert torch.equal(got[1], want[1]), (n, K)
 
 
-def test_rows_kernel_launches_are_deterministic(device):
-    n = 2**18 + 3
+@pytest.mark.parametrize("n", (2**13, 2**18 + 3))
+def test_rows_kernel_launches_are_deterministic(device, n):
     inputs = [_rows_state(n, K, np.float32, K, device) for K in (5, 77)]
     chip_smoke.check_deterministic(
         torch, port.coalesce_mirror_rows, inputs, "K1a"
     )
+
+
+def _parameterized_state(n, K, ext_dtype, attr_dtype, seed, device,
+                         kernel="Hydrodynamic"):
+    """the arguments of K1a's Parameterized form on ``device``: a random
+    state as ``_state``'s, radius and fall-velocity rows of cloud and rain
+    drops (2% at radius 0), a scale that gives the median pair ~2
+    collisions at xi ~ 2^39, a u01 row"""
+    from pysdm_tpu_torch.dynamics.collisions import collision_kernels
+    from pysdm_tpu_torch.ops.cuda.breakup import parameterized_kernel
+
+    mult, ext, _ = _state(n, K, ext_dtype, seed)
+    rng = np.random.default_rng(seed + 2)
+    radius = np.exp(rng.uniform(np.log(1e-6), np.log(300e-6), n))
+    radius[rng.uniform(size=n) < 0.02] = 0.0
+    fall = 8e3 * radius * rng.uniform(0.9, 1.1, n)
+    params = getattr(collision_kernels, kernel)().params
+    rows = {"radius": torch.from_numpy(radius),
+            "relative fall velocity": torch.from_numpy(fall)}
+    po = torch.remainder(K - torch.arange(n), n)
+    values = parameterized_kernel(
+        params, rows, {k: v[po] for k, v in rows.items()}
+    ).numpy()
+    positive = values[values > 0]
+    scale = 4.0 / (2**40 * (np.median(positive) if positive.size else 1e-9))
+    u01 = rng.uniform(size=n).astype(np.float32)
+    on = lambda a, dtype=None: torch.from_numpy(  # noqa: E731
+        a if dtype is None else a.astype(dtype)
+    ).to(device)
+    return (
+        on(mult), on(ext), on(radius, attr_dtype), on(fall, attr_dtype),
+        params, on(np.array([scale]), attr_dtype), on(u01), K,
+    )
+
+
+@pytest.mark.parametrize("n", (17, 4096, 2**13, 2**14, 2**20))
+@pytest.mark.parametrize("ext_dtype, attr_dtype", (
+    (np.float32, np.float32), (np.float64, np.float64),
+    (np.float32, np.float64),
+))
+@pytest.mark.parametrize("kernel", ("Hydrodynamic", "Electric"))
+def test_parameterized_kernel_matches_twin_on_card(device, n, ext_dtype,
+                                                   attr_dtype, kernel):
+    args = _parameterized_state(n, n // 3 * 2, ext_dtype, attr_dtype, n,
+                                device, kernel)
+    before = port.coalesce_mirror_parameterized.launches
+    got = port.coalesce_mirror_parameterized(*args)
+    torch.cuda.synchronize()
+    assert port.coalesce_mirror_parameterized.launches == before + 1
+    want = port.coalesce_mirror_parameterized_reference(*args)
+    assert torch.equal(got[0], want[0])
+    assert torch.equal(got[1], want[1])
+    for g, w in zip(got[2:], want[2:]):
+        np.testing.assert_allclose(g.item(), w.item(), rtol=1e-5)
+    if n >= 4096:
+        assert (got[0] != args[0]).float().mean().item() > 0.05
+
+
+@pytest.mark.parametrize("n", (2**13, 2**20))
+def test_parameterized_kernel_launches_are_deterministic(device, n):
+    inputs = [
+        _parameterized_state(n, K, np.float32, np.float32, K, device)
+        for K in (5, 77)
+    ]
+    chip_smoke.check_deterministic(
+        torch, port.coalesce_mirror_parameterized, inputs,
+        f"K1a's Parameterized form, n={n}",
+    )
+

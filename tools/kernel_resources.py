@@ -20,8 +20,19 @@ With ``--k3-parent SRC`` (another ``condensation.cu``, such as the one
 ``chip_smoke.py`` keeps in ``build/k3_parent``), prints ptxas's lines and
 the SASS instructions of the solve's kernels of both sources, side by side.
 
+Then the pH solve's loops (``chemistry.cu``, and with ``--ph-source SRC``,
+which may be given more than once, each other form of the solve beside it:
+a parent's ``chemistry.cu``, ``tools/variants/ph_speculative.cu``): for
+each kernel, each loop of its
+SASS (a backward branch and the instructions from its target to it) with
+its instructions by class, MUFU (exp2, reciprocal), FP32, FP64 and branch
+(BRA, BSSY, BSYNC, CALL, RET, the warp's votes and syncs), and all. The
+bisection's loop is the largest: an iteration of the one-thread form (or
+two, where the compiler unrolls it), a round of the speculative one.
+
 Run from the root of the checkout on a host with the CUDA toolkit:
-``python tools/kernel_resources.py [--out build/resources] [--k3-parent SRC]``
+``python tools/kernel_resources.py [--out build/resources] [--k3-parent SRC]
+[--ph-source SRC ...]``
 """
 
 import argparse
@@ -45,8 +56,8 @@ def _flags(name, extra):
 def ptxas_report(nvcc, source, out_dir, extra=()):
     cubin = os.path.join(out_dir, source.stem + "".join(extra) + ".cubin")
     proc = subprocess.run(
-        [nvcc, *_flags(source.stem, extra), "-Xptxas", "-v", "-cubin", "-o",
-         cubin, str(source)],
+        [nvcc, *_flags(source.stem, extra), "-I", str(_build.CSRC), "-Xptxas",
+         "-v", "-cubin", "-o", cubin, str(source)],
         capture_output=True, text=True,
     )
     if proc.returncode != 0:
@@ -71,6 +82,85 @@ def sass_counts(nvcc, cubin):
         elif name and re.match(r"\s+/\*[0-9a-f]{4}\*/\s+\S", line):
             counts[name] += 1
     return counts
+
+
+SASS_CLASSES = {
+    "MUFU": ("MUFU",),
+    "FP32": ("FADD", "FMUL", "FFMA", "FSETP", "FMNMX", "FSEL", "FCHK",
+             "FRND", "FSET", "FSWZADD"),
+    "FP64": ("DADD", "DMUL", "DFMA", "DSETP", "DMNMX"),
+    "branch": ("BRA", "BSSY", "BSYNC", "CALL", "RET", "VOTE", "WARPSYNC",
+               "BREAK", "EXIT"),
+}
+
+
+def sass_loops(sass):
+    """{function: [(first address, last address, {class: count, "all":
+    count})]} for each backward branch of a cuobjdump SASS listing"""
+    loops, name, body, labels = {}, None, [], {}
+
+    def close():
+        if name is None:
+            return
+        found = []
+        for k, (addr, text) in enumerate(body):
+            target = re.search(r"BRA\s+(?:\S+\s+)?`?\(?(\.L_x_\d+|0x[0-9a-f]+)",
+                               text)
+            if not target:
+                continue
+            label = target.group(1)
+            start = (labels.get(label) if label.startswith(".L")
+                     else int(label, 16))
+            if start is None or start > addr:
+                continue
+            ops = [t.split()[0] for a, t in body if start <= a <= addr]
+            ops = [o for o in ops if not o.startswith("@")] + [
+                t.split()[1] for a, t in body
+                if start <= a <= addr and t.split()[0].startswith("@")
+            ]
+            counts = {cls: sum(o.split(".")[0] in names for o in ops)
+                      for cls, names in SASS_CLASSES.items()}
+            counts["all"] = len(ops)
+            found.append((start, addr, counts))
+        loops[name] = found
+
+    pending = []
+    for line in sass.splitlines():
+        header = re.search(r"Function : (\S+)", line)
+        if header:
+            close()
+            name, body, labels, pending = header.group(1), [], {}, []
+            continue
+        label = re.match(r"\s*(\.L_x_\d+):", line)
+        if label:
+            pending.append(label.group(1))
+            continue
+        inst = re.match(r"\s+/\*([0-9a-f]{4,})\*/\s+(.*?);", line)
+        if inst and name:
+            addr = int(inst.group(1), 16)
+            for p in pending:
+                labels[p] = addr
+            pending = []
+            body.append((addr, inst.group(2).strip()))
+    close()
+    return loops
+
+
+def ph_loop_report(nvcc, source, out_dir, label):
+    """ptxas's lines and the loops of each kernel of a ``chemistry.cu``"""
+    out = os.path.join(out_dir, label)
+    os.makedirs(out, exist_ok=True)
+    cubin, report = ptxas_report(nvcc, source, out)
+    print(f"== the pH solve, {label} ({source}): ptxas; loops by SASS class")
+    for line in report.splitlines():
+        if "Compiling entry" in line or "registers" in line or "spill" in line:
+            print("  " + line.replace("ptxas info    : ", ""))
+    sass_counts(nvcc, cubin)
+    with open(cubin + ".sass") as f:
+        loops = sass_loops(f.read())
+    for name, found in loops.items():
+        for start, end, counts in found:
+            print(f"  {name} loop 0x{start:04x}-0x{end:04x}: {counts}")
 
 
 K5_PROBE = r"""
@@ -122,6 +212,7 @@ def main():
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--out", default="build/resources")
     parser.add_argument("--k3-parent", default=None)
+    parser.add_argument("--ph-source", action="append", default=[])
     args = parser.parse_args()
     os.makedirs(args.out, exist_ok=True)
     nvcc = _build.nvcc_path()
@@ -152,6 +243,9 @@ def main():
                     print("  " + line.replace("ptxas info    : ", ""))
             for name, count in sass_counts(nvcc, cubin).items():
                 print(f"  {count:6d}  {name}")
+    ph_loop_report(nvcc, _build.CSRC / "chemistry.cu", args.out, "ph_this_build")
+    for k, source in enumerate(args.ph_source):
+        ph_loop_report(nvcc, pathlib.Path(source), args.out, f"ph_source_{k}")
     print("== K5's per-pair pieces (collision_breakup.cu probes): SASS"
           " instructions")
     for name, count in k5_probe_counts(nvcc, args.out).items():
