@@ -364,8 +364,8 @@ phase 46's resumed runs and their differences to their twins there,
 ``resume_launches`` and ``resume_max_abs_err``, and K3's on phase 48's
 parcel, ``scipy_parcel_launches``; the pH kernel's, ``equilibrate_H``,
 with its launches in phases 43 and 44, its difference in log H to its
-twin on phase 43's in-cloud solve, its time at 2^20 (``ms_2_20``) and its
-built form (``levels``, ``threads_per_block``, ``min_blocks``); K2's, K3's and K4's launches on phase
+twin on phase 43's in-cloud solve, its time at 2^20 (``ms_2_20``) and the
+threads a block of its source (``threads_per_block``); K2's, K3's and K4's launches on phase
 50's run C by rank, ``distributed_launches``, and their differences to
 their twins there, ``distributed_max_abs_err``), before them one line of
 the float64 paths' and the models' records (phases 31-50), and one of the
@@ -3549,27 +3549,48 @@ def k1a_random_args(torch, n, ext_dtype, seed, device):
     return (mult, ext, kernnorm, u01, K)
 
 
+def _source_constant(source, name):
+    """the value of ``constexpr int <name> = <value>;`` in the
+    ``pysdm_tpu_torch/csrc`` source the kernels were built from"""
+    import re
+
+    from pysdm_tpu_torch.ops.cuda import _build
+
+    text = (_build.CSRC / source).read_text()
+    return int(re.search(rf"constexpr int {name} = (\d+);", text).group(1))
+
+
+def _leaders(n, K):
+    """the count of the mirror croupier's pairs at n slots and offset K,
+    one a leader slot"""
+    from pysdm_tpu_torch.ops.cuda.collision import mirror_pairs
+
+    return mirror_pairs(n, int(K))[0].numel()
+
+
 def k1a_bytes(args):
     """the bytes K1a must move: the multiplicities and the extensive rows
-    read and written, the kernel x norm and u01 rows read"""
-    mult, ext, kernnorm, u01, _ = args
+    read and written, the kernel x norm and u01 rows read at the pairs'
+    leaders only"""
+    mult, ext, kernnorm, u01, K = args
+    leaders = _leaders(mult.numel(), K)
     return (
         2 * mult.numel() * mult.element_size()
         + 2 * ext.numel() * ext.element_size()
-        + kernnorm.numel() * kernnorm.element_size()
-        + u01.numel() * u01.element_size()
+        + leaders * (kernnorm.element_size() + u01.element_size())
     )
 
 
 def k1p_bytes(args):
     """the bytes K1a's Parameterized form must move: the multiplicities and
-    the extensive rows read and written, the radius, fall-velocity and u01
-    rows read"""
-    mult, ext, radius, fall, _, _, u01, _ = args
+    the extensive rows read and written, the radius and fall-velocity rows
+    read at both slots of a pair, the u01 row at the pairs' leaders only"""
+    mult, ext, radius, fall, _, _, u01, K = args
     return (
         2 * mult.numel() * mult.element_size()
         + 2 * ext.numel() * ext.element_size()
-        + sum(t.numel() * t.element_size() for t in (radius, fall, u01))
+        + sum(t.numel() * t.element_size() for t in (radius, fall))
+        + _leaders(mult.numel(), K) * u01.element_size()
     )
 
 
@@ -5775,7 +5796,7 @@ def ph_on_kept_solve(kept, label):
                 )
                 if suffix == "" and dtype != other and n_iter == iters:
                     seen = record
-    seen.update({"checks": checks, "form": ph.form(),
+    seen.update({"checks": checks,
                  "dtype": str(solve["conc"]["S_VI"].dtype)})
     for suffix, wide in widths.items():
         n = wide["conc"]["S_VI"].numel()
@@ -5949,7 +5970,9 @@ def _kreidenweis_on_card(gpu, n_sd=KW_N, window=KW_WINDOW):
     record["k3_vs_twin"] = k3_on_kept_solve(kept[0], "phase 43")
     record["pH_vs_twin"] = ph_on_kept_solve(kept_pH[0], "phase 43")
     pH = record["pH_vs_twin"]
-    print(f"phase 43: the pH kernel ({pH['form']}) on the first solve from"
+    threads = _source_constant("chemistry.cu", "THREADS")
+    print(f"phase 43: the pH kernel ({threads} threads a block) on the first"
+          f" solve from"
           f" t = {window} s (in cloud) against its twin: {pH['differ']} of"
           f" {pH['drops']} drops differ, largest |d log H|"
           f" {pH['max_abs_err_log_H']!r}; at 2^17 and 2^20 drops, float32"
@@ -7575,11 +7598,8 @@ def main():
         "library_ms": None,
         "ms_2_20": pH_solve["ms_2_20"],
         "bound_ms_2_20": pH_solve["bound_ms_2_20"],
-        # one thread a drop, one level of the bisection a step (the
-        # speculative forms of tools/variants/ph_speculative.cu lost)
-        "levels": 1,
-        "threads_per_block": pH_solve["form"]["threads"],
-        "min_blocks": pH_solve["form"]["min_blocks"],
+        # one thread a drop; the block as the built source sets it
+        "threads_per_block": _source_constant("chemistry.cu", "THREADS"),
         "checks": pH_solve["checks"],
     }]}))
     left = _child_pids()

@@ -38,29 +38,25 @@
 // loads and stores in registers, one thread a drop, no shared memory and
 // no synchronisation. An iteration is ~128 SASS instructions in float32
 // (7 MUFU: the exp2 and six reciprocals; ~70 FP32; ~25 branches, most of
-// them the divisions' slow-path checks), each IEEE division a reciprocal
-// and its refinement. What the card waits on, measured on an H100
-// (tools/profile_variant_builds.py, PERF.md §6): the issue of those
-// instructions, not the chain's latency. From 2^17 drops (~31 warps an
-// SM) to 2^20 the time a drop falls by 14% only (26% on an in-cloud
-// solve), and a speculative bisection that gives a drop 2^L lanes of a
-// warp, each evaluating one midpoint that a round of L levels can reach
-// (so each drop's chain is L times shorter and the warps 2^L times more),
-// takes 2.0-2.1x (L = 1, 2) and 2.4-2.6x (L = 3) this form's time, in
-// proportion to the lane evaluations it issues; that form is
-// tools/variants/ph_speculative.cu. Of the THREADS and MIN_BLOCKS timed
-// there, 512 threads was 3% faster at 2^17 and 4% slower at 2^20, and a
-// MIN_BLOCKS that fills an SM doubles the float64 time (its registers
-// spill): 256 and 1 stay.
+// them the divisions' slow-path checks). What the card waits on, measured
+// on an H100 (PERF.md §6): the issue of those instructions, not the
+// chain's latency. From 2^17 drops (~31 warps an SM) to 2^20 the time a
+// drop falls by 14% only, and a bisection that gives a drop 2^L lanes of
+// a warp, each evaluating one midpoint that a round of L levels can reach
+// (a chain L times shorter on 2^L times the warps), took 2.0-2.6x this
+// form's time, in proportion to the evaluations it issues. THREADS = 512:
+// on 2^17 float32 drops, the width and type of the models' solves on the
+// card, 0.0729 ms a solve against 0.0757 with 256 (16 alternating pairs,
+// each pair in the same order); 256 is faster in float64 (by 1%) and at
+// 2^20 drops (by 4%). A __launch_bounds__ minimum of blocks that fills an
+// SM doubles the float64 time (its registers spill), so none is given.
 
 #include <cuda_runtime.h>
 #include <math.h>
 
 namespace {
 
-constexpr int THREADS = 256;
-// the least blocks an SM must hold, given to __launch_bounds__
-constexpr int MIN_BLOCKS = 1;
+constexpr int THREADS = 512;
 // the per-drop rows, in this order: concentrations S_VI, S_IV, C_IV, N_V,
 // N_mIII; equilibrium constants K_NH3, K_HNO3, K_SO2, K_HSO3, K_CO2,
 // K_HCO3, K_HSO4 (ops/cuda/chemistry.py ROWS)
@@ -75,7 +71,7 @@ __device__ __forceinline__ float exp_rn(float x) { return expf(x); }
 __device__ __forceinline__ double exp_rn(double x) { return exp(x); }
 
 template <typename T>
-__global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
+__global__ void __launch_bounds__(THREADS)
 equilibrate_H_kernel(Rows<T> rows, T K_H2O, T lo0, T hi0, int iters,
                      long long n, T* __restrict__ H_out) {
   const long long i = (long long)blockIdx.x * THREADS + threadIdx.x;
@@ -151,13 +147,6 @@ int pysdm_equilibrate_H(const void* const* rows, int dtype, long long n,
     default:
       return (int)cudaErrorInvalidValue;
   }
-}
-
-// the build's form, for the record: threads a block, the least blocks an
-// SM holds
-void pysdm_equilibrate_H_form(int* threads, int* min_blocks) {
-  *threads = THREADS;
-  *min_blocks = MIN_BLOCKS;
 }
 
 const char* pysdm_cuda_error_string(int code) {

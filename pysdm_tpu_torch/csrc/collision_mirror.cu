@@ -15,9 +15,8 @@
 // efficiency, pi (Y r_max)^2 |v_t - v_t'| with Y of the instance's 13
 // parameters (Parameterized, Hydrodynamic, Electric), from the "radius" and
 // "relative fall velocity" rows at both slots of the pair, in the rows'
-// float type and in the order of dynamics/collisions/collision_kernels.py
-// Parameterized.pairwise and ops/cuda/breakup.py
-// berry_1967_linear_collection_efficiency (integer exponents by repeated
+// float type and in the order of ops/cuda/collision.py parameterized_kernel
+// and berry_1967_linear_collection_efficiency (integer exponents by repeated
 // squaring, the others by pow, every operation rounded on its own), then
 // times the scale and rounded to float32, as the rows route's
 // (values * scale[0]).to(float32) does. Without it the non-adaptive Berry
@@ -34,8 +33,11 @@
 // and its u32 limbs are TPU-only: here the partner's index is computed in
 // the thread and the multiplicities are native int64. Bound on the card:
 // bytes; per slot the multiplicity (8 B) and the R extensive rows read and
-// written, the kn and u01 rows (4 B each) read: 24 + 8 R B with float32
-// rows, 40 B with two.
+// written, and at each pair's leader (half the slots) the kn and u01 rows
+// (4 B each) read: 20 + 8 R B a slot with float32 rows, 36 B with two.
+// The Parameterized form reads the radius and fall-velocity rows at both
+// slots and u01 at the leader: 26 + 8 R B a slot with float32 rows, 34 B
+// with Berry 1967's one.
 //
 // K1 replaces the TPU kernel fused_coalesce_mirror_blocks
 // (pysdm_tpu/ops/pallas/collision.py:582, body _mk_mirror_block_kernel :422)
@@ -85,8 +87,8 @@
 //   or second phase, took longer on an H100 at every width from 2^12 to
 //   2^17 slots: at 2^13 K1a 1.35x and its Parameterized form 2.4x (a
 //   thread's pairs one after another, each a chain of loads and, in the
-//   Parameterized form, of Berry's pows; tools/variants/k1a_one_block.cu,
-//   PERF.md §6), so every width takes the grid.
+//   Parameterized form, of Berry's pows; PERF.md §6), so every width
+//   takes the grid.
 // Multiplicities and rows equal, bit for bit, the update computed at each
 // slot from that slot's view of the pair (the twin's form); the rate sums
 // are added in another order than the twin's.

@@ -21,16 +21,13 @@ import numpy as np
 import torch
 from scipy import special
 
-from ...ops.cuda.breakup import (  # noqa: F401 (the reference module's name)
-    berry_1967_linear_collection_efficiency,
-    parameterized_kernel,
-)
 from ...ops.cuda.collision import (
     CONSTANT_K,
     GEOMETRIC,
     GOLOVIN,
     LINEAR,
     SIMPLE_GEOMETRIC,
+    parameterized_kernel,
 )
 
 

@@ -47,7 +47,6 @@ on CUDA). Integer powers are repeated products, as XLA's ``integer_pow``.
 import collections
 import ctypes
 import functools
-import math
 
 import torch
 
@@ -56,6 +55,8 @@ from .collision import (
     _BIG,
     _M32,
     _SCRATCH_ENTRIES,
+    _const,
+    berry_1967_linear_collection_efficiency,
     KERNEL_ROWS,
     MIRROR_KERNELS,
     SIMPLE_GEOMETRIC,
@@ -102,65 +103,6 @@ _SEED_FRAGMENT = 0x3C3C3C3C
 # (device index, stream, n) -> [scratch buffer, launches]: K5's ticket
 # counter and per-block partial sums (``_build.scratch``)
 _SCRATCH = {}
-
-
-def _const(value, like):
-    """a 0-d tensor of ``like``'s dtype and device"""
-    return torch.tensor(value, dtype=like.dtype, device=like.device)
-
-
-def _power(x, exponent):
-    """x**exponent as ``jnp.power`` takes a Python exponent: a positive int
-    by repeated squaring (``jax.lax.integer_pow``), a float by pow"""
-    if not isinstance(exponent, int):
-        return torch.pow(x, _const(exponent, x))
-    acc = None
-    while exponent > 0:
-        if exponent & 1:
-            acc = x if acc is None else acc * x
-        exponent >>= 1
-        if exponent > 0:
-            x = x * x
-    return acc
-
-
-def berry_1967_linear_collection_efficiency(params, r_big, r_small, unit=1e-6):
-    """Berry 1967 'linear collection efficiency' fit Y (dimensionless radius
-    multiplier) over tensors, in the order of
-    ``pysdm_tpu/dynamics/collisions/collision_kernels.py:121-138`` (integer
-    exponents Mf and Mg by repeated squaring, the others by pow)"""
-    A, B, D1, D2, E1, E2, F1, F2, G1, G2, G3, Mf, Mg = params
-    c = functools.partial(_const, like=r_big)
-    r = r_big / c(unit)
-    r_s = r_small / c(unit)
-    p = r_s / torch.where(r > 0, r, c(1.0))
-    G = _power(c(G1) / r, Mg) + c(G2) + c(G3) * r
-    one_minus_p = torch.clamp(c(1.0) - p, 0.0, 1.0)
-    Gp = torch.pow(one_minus_p, G)
-    D = c(D1) / _power(r, D2)
-    E = c(E1) / _power(r, E2)
-    F = _power(c(F1) / r, Mf) + c(F2)
-    inside = (p > 0) & (p < 1)
-    safe_p = torch.where(inside, p, c(0.5))
-    safe_Gp = torch.where(Gp != 0, Gp, c(1.0))
-    Y = c(A) + c(B) * p + D / torch.pow(safe_p, F) + E / safe_Gp
-    Y = torch.where(inside & (Gp != 0), Y, c(0.0))
-    return torch.maximum(Y, c(0.0))
-
-
-def parameterized_kernel(params, attrs_a, attrs_b):
-    """the gravitational kernel with Berry's 1967 efficiency of
-    ``Parameterized`` (``pysdm_tpu/dynamics/collisions/
-    collision_kernels.py:158-166``), pi (Y r_big)^2 |v_t - v_t'|, from the
-    "radius" and "relative fall velocity" rows of both slots; the order K1a's
-    Parameterized form (``csrc/collision_mirror.cu``) rounds it in"""
-    r_big = torch.maximum(attrs_a["radius"], attrs_b["radius"])
-    r_small = torch.minimum(attrs_a["radius"], attrs_b["radius"])
-    Y = berry_1967_linear_collection_efficiency(params, r_big, r_small)
-    dv = torch.abs(
-        attrs_a["relative fall velocity"] - attrs_b["relative fall velocity"]
-    )
-    return math.pi * (Y * r_big) ** 2 * dv
 
 
 def berry_1967_efficiency(radius_a, radius_b):

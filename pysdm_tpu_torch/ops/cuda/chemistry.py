@@ -133,19 +133,9 @@ def library():
         vp,
     ]
     lib.pysdm_equilibrate_H.restype = ctypes.c_int
-    lib.pysdm_equilibrate_H_form.argtypes = [ctypes.POINTER(ctypes.c_int)] * 2
-    lib.pysdm_equilibrate_H_form.restype = None
     lib.pysdm_cuda_error_string.argtypes = [ctypes.c_int]
     lib.pysdm_cuda_error_string.restype = ctypes.c_char_p
     return lib
-
-
-def form():
-    """the built kernel's form: {"threads": threads a block, "min_blocks":
-    the least blocks an SM holds}; one thread a drop"""
-    values = [ctypes.c_int() for _ in range(2)]
-    library().pysdm_equilibrate_H_form(*(ctypes.byref(v) for v in values))
-    return dict(zip(("threads", "min_blocks"), (v.value for v in values)))
 
 
 def _launch(rows, K_H2O, H_min, H_max, iters):

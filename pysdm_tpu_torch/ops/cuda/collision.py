@@ -42,14 +42,16 @@ rows and read at the pair's leader, the smaller slot. It is K1's pair
 update, instantiated without the kernel's evaluation and the PRF, one thread
 per pair and one launch, with an exact int64 gamma and the TPU kernel's
 f32 conversions of xi, so that it is bit-equal to the TPU kernel wherever
-that kernel's quotient walk is exact. Bound on the card: bytes, 24 + 8 R B
-per slot with R float32 extensive rows.
+that kernel's quotient walk is exact. Bound on the card: bytes, 20 + 8 R B
+per slot with R float32 extensive rows (kernnorm and u01 read at the
+leaders, half the slots).
 
 K1a's Parameterized form (``coalesce_mirror_parameterized``) is the same
 pair update with the u01 row given and the kernel x norm value evaluated in
-the body: ``Parameterized``'s Berry 1967 kernel (``ops/cuda/breakup.py``
-``parameterized_kernel``) from the radius and relative fall velocity rows
-at both slots, in their float type, times the scale, rounded to float32.
+the body: ``Parameterized``'s Berry 1967 kernel (``parameterized_kernel``,
+here beside the twin with the efficiency fit that K5's Ec ``Berry1967``
+takes too) from the radius and relative fall velocity rows at both slots,
+in their float type, times the scale, rounded to float32.
 Its twin makes the row eagerly (the partner gathers, the kernel, the
 product and the cast), then runs K1a's twin; on the card the two agree to
 the bit (the same libdevice pow, every operation rounded on its own).
@@ -68,6 +70,7 @@ per slot per substep with three float32 extensive rows.
 
 import ctypes
 import functools
+import math
 
 import torch
 
@@ -89,7 +92,7 @@ MIRROR_KERNELS = tuple(KERNEL_ROWS)
 # the rows K1a's Parameterized form reads, and where the exponents D2, E2,
 # Mf and Mg stand among Parameterized's 13 parameters (A, B, D1, D2, E1, E2,
 # F1, F2, G1, G2, G3, Mf, Mg): a Python int there is taken by repeated
-# squaring (``ops/cuda/breakup.py`` ``_power``)
+# squaring (``_power``)
 PARAMETERIZED_ROWS = ("radius", "relative fall velocity")
 _EXPONENTS = (3, 5, 11, 12)
 
@@ -247,6 +250,65 @@ def coalesce_mirror_rows_reference(mult, ext, kernnorm, u01, K):
     return _mirror_update(mult, ext, K, pair_draws)
 
 
+def _const(value, like):
+    """a 0-d tensor of ``like``'s dtype and device"""
+    return torch.tensor(value, dtype=like.dtype, device=like.device)
+
+
+def _power(x, exponent):
+    """x**exponent as ``jnp.power`` takes a Python exponent: a positive int
+    by repeated squaring (``jax.lax.integer_pow``), a float by pow"""
+    if not isinstance(exponent, int):
+        return torch.pow(x, _const(exponent, x))
+    acc = None
+    while exponent > 0:
+        if exponent & 1:
+            acc = x if acc is None else acc * x
+        exponent >>= 1
+        if exponent > 0:
+            x = x * x
+    return acc
+
+
+def berry_1967_linear_collection_efficiency(params, r_big, r_small, unit=1e-6):
+    """Berry 1967 'linear collection efficiency' fit Y (dimensionless radius
+    multiplier) over tensors, in the order of
+    ``pysdm_tpu/dynamics/collisions/collision_kernels.py:121-138`` (integer
+    exponents Mf and Mg by repeated squaring, the others by pow)"""
+    A, B, D1, D2, E1, E2, F1, F2, G1, G2, G3, Mf, Mg = params
+    c = functools.partial(_const, like=r_big)
+    r = r_big / c(unit)
+    r_s = r_small / c(unit)
+    p = r_s / torch.where(r > 0, r, c(1.0))
+    G = _power(c(G1) / r, Mg) + c(G2) + c(G3) * r
+    one_minus_p = torch.clamp(c(1.0) - p, 0.0, 1.0)
+    Gp = torch.pow(one_minus_p, G)
+    D = c(D1) / _power(r, D2)
+    E = c(E1) / _power(r, E2)
+    F = _power(c(F1) / r, Mf) + c(F2)
+    inside = (p > 0) & (p < 1)
+    safe_p = torch.where(inside, p, c(0.5))
+    safe_Gp = torch.where(Gp != 0, Gp, c(1.0))
+    Y = c(A) + c(B) * p + D / torch.pow(safe_p, F) + E / safe_Gp
+    Y = torch.where(inside & (Gp != 0), Y, c(0.0))
+    return torch.maximum(Y, c(0.0))
+
+
+def parameterized_kernel(params, attrs_a, attrs_b):
+    """the gravitational kernel with Berry's 1967 efficiency of
+    ``Parameterized`` (``pysdm_tpu/dynamics/collisions/
+    collision_kernels.py:158-166``), pi (Y r_big)^2 |v_t - v_t'|, from the
+    "radius" and "relative fall velocity" rows of both slots; the order K1a's
+    Parameterized form (``csrc/collision_mirror.cu``) rounds it in"""
+    r_big = torch.maximum(attrs_a["radius"], attrs_b["radius"])
+    r_small = torch.minimum(attrs_a["radius"], attrs_b["radius"])
+    Y = berry_1967_linear_collection_efficiency(params, r_big, r_small)
+    dv = torch.abs(
+        attrs_a["relative fall velocity"] - attrs_b["relative fall velocity"]
+    )
+    return math.pi * (Y * r_big) ** 2 * dv
+
+
 def coalesce_mirror_parameterized_reference(
     mult, ext, radius, fall, params, scale, u01, K
 ):
@@ -255,8 +317,6 @@ def coalesce_mirror_parameterized_reference(
     rows gathered, ``parameterized_kernel``, times the scale, cast to
     float32), then K1a's twin. Returns (mult_new, ext_new, rate, deficit,
     coal) with the rates as 0-d float32 sums."""
-    from .breakup import parameterized_kernel
-
     n = mult.shape[0]
     o = torch.arange(n, dtype=torch.int64, device=mult.device)
     po = torch.remainder(int(K) - o, n)

@@ -36,6 +36,7 @@ from pysdm_tpu_torch.dynamics.collisions import breakup_fragmentations as port_f
 from pysdm_tpu_torch.dynamics.collisions import coalescence_efficiencies as port_ec
 from pysdm_tpu_torch.dynamics.collisions import collision_kernels as port_kernels
 from pysdm_tpu_torch.ops.cuda import breakup as port
+from pysdm_tpu_torch.ops.cuda import collision as port_collision
 from pysdm_tpu_torch.physics import Formulae as PortFormulae
 
 N = 4096
@@ -497,7 +498,8 @@ def test_wrapper_takes_the_twin_on_the_cpu():
     ids=("hydrodynamic", "electric"),
 )
 def test_berry_1967_fit_matches_jax_package(params):
-    """the fit under its reference name in ``collision_kernels``, float64,
+    """the fit beside K1a's twin in ``ops/cuda/collision.py`` (the one
+    ``Parameterized.pairwise`` and K5's ``Berry1967`` Ec take), float64,
     with Berry's hydrodynamic and electric-field parameters (rtol 1e-13:
     libm ulps in pow)"""
     (attrs_a, attrs_b), _ = _pair_attrs(1)
@@ -506,7 +508,7 @@ def test_berry_1967_fit_matches_jax_package(params):
     expected = jax_kernels.berry_1967_linear_collection_efficiency(
         params, jnp.asarray(r_big), jnp.asarray(r_small)
     )
-    got = port_kernels.berry_1967_linear_collection_efficiency(
+    got = port_collision.berry_1967_linear_collection_efficiency(
         params, torch.from_numpy(r_big), torch.from_numpy(r_small)
     )
     np.testing.assert_allclose(got.numpy(), np.asarray(expected), rtol=1e-13)

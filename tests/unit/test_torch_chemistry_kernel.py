@@ -15,21 +15,11 @@ on the CPU, in float64 against the JAX package.
   after 48 steps that is (log H_max - log H_min) / 2^48 = 1.2e-13 in log
   H, below the tolerance;
 - the wrapper refuses what the kernel does not take: integer rows, rows on
-  the meta device, CPU and meta rows mixed;
-- the speculative bisection (``tools/variants/ph_speculative.cu``, a form
-  of the kernel timed on the card against the one kept: a drop's 2^L lanes
-  each evaluate the residual at one midpoint that the round's L levels can
-  reach, the group keeps the path the signs choose), emulated here in
-  numpy round by round for L = 1, 2 and 3, equals the twin bit for bit in
-  float64 and float32, at 0, 1, 47 and 48 iterations, on the drops above
-  and on drops whose residual is NaN. The residual at each lane's midpoint
-  is the twin's own (``acidity_residual``), so the test holds the path
-  choice: the midpoints from (lo, hi), the sign bits, the new bracket.
+  the meta device, CPU and meta rows mixed.
 
 The kernel against the twin on the card: ``test_torch_cuda_chemistry.py``.
 """
 
-import math
 import os
 import sys
 
@@ -150,76 +140,3 @@ def test_rows_the_kernel_does_not_take_raise(inputs, case):
         error = ValueError
     with pytest.raises(error):
         ops.equilibrate_H(conc=c, K_drop=k, **host)
-
-
-def _with_nan_residuals(conc):
-    """drops whose residual is NaN at every H, so that each step moves lo:
-    every 61st from the fifth holds a NaN of S(VI), every 61st from the
-    seventh infinite N(-III) and N(V) (inf - inf)"""
-    conc = {k: v.copy() for k, v in conc.items()}
-    conc["S_VI"][5::61] = np.nan
-    conc["N_mIII"][7::61] = np.inf
-    conc["N_V"][7::61] = np.inf
-    return conc
-
-
-def _speculative_bisection(conc, K, host, dtype, iters, levels):
-    """the speculative form's rounds emulated lane by lane: a group of 2^levels
-    lanes a drop (axis 0), lane g > 0 walks from the round's (lo, hi) to
-    node g of the levels' tree (the bits of g below its leading one, most
-    significant first: 1 takes hi = mid) by the twin's midpoint rule and
-    takes the residual's sign at the node's midpoint; lane 0 takes none.
-    The group then walks the path the signs choose. A last round of fewer
-    levels takes the rest of ``iters``."""
-    c, k = _torch(conc, dtype), _torch(K, dtype)
-    terms = ph.acidity_terms(c, k)
-    np_dtype = np.float32 if dtype == torch.float32 else np.float64
-    half = np_dtype(0.5)
-    n = c["S_VI"].shape[0]
-    group = 2**levels
-    lo = np.full(n, math.log(host["H_min"]), dtype=np_dtype)
-    hi = np.full(n, math.log(host["H_max"]), dtype=np_dtype)
-    done = 0
-    while done < iters:
-        depth = min(levels, iters - done)
-        signs = np.zeros((group, n), dtype=bool)
-        for g in range(1, 2**depth):
-            node_lo, node_hi = lo.copy(), hi.copy()
-            for bit in range(g.bit_length() - 2, -1, -1):
-                mid = (node_lo + node_hi) * half
-                up = (g >> bit) & 1
-                node_lo, node_hi = (node_lo, mid) if up else (mid, node_hi)
-            mid = torch.from_numpy((node_lo + node_hi) * half)
-            residual = ph.acidity_residual(torch.exp(mid), terms, host["K_H2O"])
-            signs[g] = (residual > 0).numpy()
-        node = np.ones(n, dtype=np.int64)
-        for _ in range(depth):
-            mid = (lo + hi) * half
-            up = signs[node, np.arange(n)]
-            hi = np.where(up, mid, hi)
-            lo = np.where(up, lo, mid)
-            node = 2 * node + up
-        done += depth
-    return torch.exp(torch.from_numpy((lo + hi) * half))
-
-
-@pytest.mark.parametrize("levels", (1, 2, 3))
-@pytest.mark.parametrize("iters", (0, 1, 47, 48))
-@pytest.mark.parametrize("dtype", (torch.float64, torch.float32))
-def test_speculative_bisection_takes_the_twins_path(inputs, levels, iters,
-                                                    dtype):
-    conc, K, host = inputs
-    conc = _with_nan_residuals(conc)
-    want = ph.equilibrate_H_reference(
-        conc=_torch(conc, dtype), K_drop=_torch(K, dtype), iters=iters,
-        **host,
-    )
-    got = _speculative_bisection(conc, K, host, dtype, iters, levels)
-    assert got.dtype == dtype
-    assert torch.equal(got, want)
-    if iters == ph.PH_ITERATIONS:
-        # NaN residuals move lo every step: H_max's end of the bracket
-        stuck = torch.from_numpy(
-            np.isnan(conc["S_VI"]) | np.isinf(conc["N_mIII"])
-        )
-        assert (want[stuck] > 0.5 * host["H_max"]).all()

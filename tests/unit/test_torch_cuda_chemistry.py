@@ -16,10 +16,9 @@ narrowing when lo and hi are neighbouring floats (~1e-6 at |log H| ~ 10).
 The kernel rounds each of the twin's operations on its own (no FMA, IEEE
 division), so with the same exp the two are bit-equal (a g++ build of its
 body against the twin with the same libm exp, 20,000 drops in each dtype).
-Each test prints the count of drops that differ. The kernel carries a
-drop's bisection on 2^L lanes of a warp (``csrc/chemistry.cu``), so the
-drop counts here also cover a group cut by the end of the rows (17 drops:
-one warp, partly past n).
+Each test prints the count of drops that differ. The kernel runs one
+thread a drop (``csrc/chemistry.cu``), so the drop counts here cover a
+warp and a block cut by the end of the rows (17 drops, 2^17 + 37).
 """
 
 import os
@@ -58,9 +57,8 @@ def _on(d, dtype, device):
 @pytest.mark.parametrize("iters", (0, 1, ph.PH_ITERATIONS - 1, ph.PH_ITERATIONS))
 @pytest.mark.parametrize("dtype", (torch.float32, torch.float64))
 def test_kernel_matches_twin(device, dtype, iters, n):
-    """the build's one form (``ph.form()``: its levels a round, its
-    threads a block) against the twin; 47 iterations end on a round of
-    fewer levels where the build takes 2 or more"""
+    """the kernel against the twin at 0, 1, 47 and 48 iterations, from a
+    ragged warp to the Kreidenweis parcel's drops and a ragged last block"""
     conc, K, host = chip_smoke.ph_solve_inputs(n, seed=23)
     c, k = _on(conc, dtype, device), _on(K, dtype, device)
     before = ph.equilibrate_H.launches
@@ -75,7 +73,7 @@ def test_kernel_matches_twin(device, dtype, iters, n):
         got, want, chip_smoke.ph_parting_width(got, want, c, k, host, iters),
         f"{dtype}, {iters} iterations",
     )
-    print(f"{ph.form()}, {dtype}, {iters} iterations: {seen['differ']} of"
+    print(f"{n} drops, {dtype}, {iters} iterations: {seen['differ']} of"
           f" {seen['drops']} drops differ from the twin, each within its"
           f" bound: {seen}")
     # the same bits from a second launch

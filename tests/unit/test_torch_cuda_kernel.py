@@ -203,7 +203,7 @@ def _parameterized_state(n, K, ext_dtype, attr_dtype, seed, device,
     drops (2% at radius 0), a scale that gives the median pair ~2
     collisions at xi ~ 2^39, a u01 row"""
     from pysdm_tpu_torch.dynamics.collisions import collision_kernels
-    from pysdm_tpu_torch.ops.cuda.breakup import parameterized_kernel
+    from pysdm_tpu_torch.ops.cuda.collision import parameterized_kernel
 
     mult, ext, _ = _state(n, K, ext_dtype, seed)
     rng = np.random.default_rng(seed + 2)

@@ -21,14 +21,13 @@ With ``--k3-parent SRC`` (another ``condensation.cu``, such as the one
 the SASS instructions of the solve's kernels of both sources, side by side.
 
 Then the pH solve's loops (``chemistry.cu``, and with ``--ph-source SRC``,
-which may be given more than once, each other form of the solve beside it:
-a parent's ``chemistry.cu``, ``tools/variants/ph_speculative.cu``): for
-each kernel, each loop of its
+which may be given more than once, each other form of the solve beside it,
+such as a parent's ``chemistry.cu``): for each kernel, each loop of its
 SASS (a backward branch and the instructions from its target to it) with
 its instructions by class, MUFU (exp2, reciprocal), FP32, FP64 and branch
 (BRA, BSSY, BSYNC, CALL, RET, the warp's votes and syncs), and all. The
-bisection's loop is the largest: an iteration of the one-thread form (or
-two, where the compiler unrolls it), a round of the speculative one.
+bisection's loop is the largest: an iteration (or two, where the compiler
+unrolls it).
 
 Run from the root of the checkout on a host with the CUDA toolkit:
 ``python tools/kernel_resources.py [--out build/resources] [--k3-parent SRC]
