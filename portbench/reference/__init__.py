@@ -1,0 +1,2 @@
+"""The plain references that decide `correct`: they import nothing of the
+program."""
