@@ -123,7 +123,16 @@
 //   quotients that place the next evaluation inside the bracket are fast
 //   ones too: any point inside keeps the bracket. Kernel and twin agree
 //   on success drop for drop and on the mass to the bound that
-//   chip_smoke.compare_k3 states.
+//   chip_smoke.compare_k3 states;
+// - counts: given a non-null counts pointer (the wrapper passes one to a
+//   sample of the launches while a profiler records), the launch takes the
+//   instantiation that counts: the active drops, those that needed a solve
+//   and their minfun evaluations, summed over the threads of a warp that
+//   reach the end together and added with one atomic add per count, the
+//   warps spread over COUNT_SLOTS slots; and the drops swept, one atomic
+//   add a block. The instantiation without them is this kernel's code
+//   before the counts; masses and success flags are the same bits in both.
+//   The counting one takes ~5% longer, which is why only a sample counts.
 //
 // Measured times, evaluation counts and the earlier design's stand in
 // PERF.md.
@@ -479,7 +488,39 @@ __device__ __forceinline__ float fuchs_sutugin(float D, float r, float lmbd,
 // cells whose state a block keeps in shared memory
 constexpr int CELL_SPAN = 8;
 
-template <int ST, bool FULL>
+// the counts: COUNT_SLOTS slots of COUNT_WIDTH entries (32 bytes, one L2
+// sector each), so that a launch's atomic adds do not queue on three
+// addresses (ops/cuda/condensation.py sums the slots)
+constexpr int COUNT_SLOTS = 256;
+constexpr int COUNT_WIDTH = 4;
+
+// the slot of the calling thread's warp
+__device__ __forceinline__ unsigned long long* count_slot(
+    unsigned long long* counts) {
+  const int warp = blockIdx.x * (THREADS / 32) + threadIdx.x / 32;
+  return counts + (warp % COUNT_SLOTS) * COUNT_WIDTH;
+}
+
+// adds what the active drops of a warp that reach it together count to
+// entries 0..2 of the warp's slot: the drops, those that needed a solve,
+// their minfun evaluations (an inactive drop returns before and adds
+// nothing). One thread of the group adds each sum. (Entry 3: the drops
+// swept, added by each block's first thread.)
+__device__ __forceinline__ void add_warp_counts(unsigned long long* counts,
+                                                bool need_solve,
+                                                int evaluations) {
+  const unsigned group = __activemask();
+  const int solves = __popc(__ballot_sync(group, need_solve));
+  const int total = __reduce_add_sync(group, evaluations);
+  if (threadIdx.x % 32 == __ffs(group) - 1) {
+    unsigned long long* slot = count_slot(counts);
+    atomicAdd(slot, (unsigned long long)__popc(group));
+    if (solves != 0) atomicAdd(slot + 1, (unsigned long long)solves);
+    if (total != 0) atomicAdd(slot + 2, (unsigned long long)total);
+  }
+}
+
+template <int ST, bool FULL, bool COUNT>
 __global__ void masses_new_kernel(
     const float* __restrict__ water_mass, const float* __restrict__ vdry,
     const float* __restrict__ kappa, const int64_t* __restrict__ multiplicity,
@@ -497,12 +538,17 @@ __global__ void masses_new_kernel(
     // forms of the surface tension)
     const float* __restrict__ reynolds, const float* __restrict__ f_org,
     int n, int n_cell, const K3Params c, float* __restrict__ mass_out,
-    uint8_t* __restrict__ success_out) {
+    uint8_t* __restrict__ success_out,
+    // COUNT: where add_warp_counts adds the launch's counts
+    unsigned long long* __restrict__ counts) {
   __shared__ int first_cell;
   __shared__ CellThermo cells[CELL_SPAN];
   __shared__ CellExtra extras[FULL ? CELL_SPAN : 1];
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   const bool valid = i < n;
+  if (COUNT && threadIdx.x == 0)
+    atomicAdd(count_slot(counts) + 3,
+              (unsigned long long)min(THREADS, n - i));
   float wm = 0.0f;
   int cell = 0;
   bool active = false;
@@ -603,6 +649,7 @@ __global__ void masses_new_kernel(
   if (at_equilibrium) dx_old = 0.0f;
   const bool need_solve = dx_old != 0.0f;
 
+  int evaluations = 0;  // of minfun, read by COUNT alone
   bool success = true;
   float x_new = x_old;
   if (need_solve) {
@@ -628,10 +675,12 @@ __global__ void masses_new_kernel(
     const bool converged_at_a = fa == 0.0f;
     float b = nan_max(x_insane, a + dx_step);
     float fb = minfun<ST>(c, b, d, film);
+    evaluations = 2;
     float scale = 2.0f;
     for (int k = 0; k < c.max_iters && fa * fb >= 0.0f; ++k) {
       b = nan_max(x_insane, a + dx_step * scale);
       fb = minfun<ST>(c, b, d, film);
+      ++evaluations;
       scale *= 2.0f;
     }
     const bool bracketed = fa * fb < 0.0f || converged_at_a;
@@ -644,6 +693,7 @@ __global__ void masses_new_kernel(
       bool beyond = false;
       if (xa > c.x_max && xb < c.x_max) {
         const float f_top = minfun<ST>(c, c.x_max, d, film);
+        ++evaluations;
         beyond = f_top > 0.0f;
         xa = c.x_max;
         fxa = f_top;
@@ -670,6 +720,7 @@ __global__ void masses_new_kernel(
         frac = fminf(fmaxf(frac, margin), 1.0f - margin);
         const float xt = xa + frac * (xb - xa);
         const float ft = minfun<ST>(c, xt, d, film);
+        ++evaluations;
         if (ft == 0.0f) {  // xt is the root (see the stopping rule above)
           xa = xb = xt;
           break;
@@ -693,6 +744,7 @@ __global__ void masses_new_kernel(
   const bool finite = isfinite(mass_new);
   mass_out[i] = finite ? mass_new : wm;
   success_out[i] = success && finite;
+  if (COUNT) add_warp_counts(counts, need_solve, evaluations);
 }
 
 }  // namespace
@@ -707,7 +759,7 @@ int pysdm_condensation_masses_new(
     const float* cell_rho_air, const float* cell_mu_air,
     const float* reynolds, const float* f_org, int n, int n_cell,
     const K3Params* params, float* mass_out, uint8_t* success_out,
-    cudaStream_t stream) {
+    unsigned long long* counts, cudaStream_t stream) {
   if (n <= 0) return 0;
   const int blocks = (n + THREADS - 1) / THREADS;
   // the parcel slice's set (FlatauWalkoCotton, Kirchhoff, Constant sigma,
@@ -718,11 +770,17 @@ int pysdm_condensation_masses_new(
                     params->svp_variant != 0 || params->lv_variant != 0 ||
                     params->thermics != 0 || params->ventilation != 0 ||
                     params->kinetics == 2;
-#define PYSDM_K3_LAUNCH(ST, FULL)                                            \
-  masses_new_kernel<ST, FULL><<<blocks, THREADS, 0, stream>>>(               \
+#define PYSDM_K3_KERNEL(ST, FULL, COUNT)                                     \
+  masses_new_kernel<ST, FULL, COUNT><<<blocks, THREADS, 0, stream>>>(        \
       water_mass, vdry, kappa, multiplicity, cell_id, cell_thd, cell_qv,     \
       cell_rhod, cell_dt_sub, cell_active, cell_rho_air, cell_mu_air,        \
-      reynolds, f_org, n, n_cell, *params, mass_out, success_out)
+      reynolds, f_org, n, n_cell, *params, mass_out, success_out, counts)
+#define PYSDM_K3_LAUNCH(ST, FULL)                                            \
+  if (counts != nullptr) {                                                   \
+    PYSDM_K3_KERNEL(ST, FULL, true);                                         \
+  } else {                                                                   \
+    PYSDM_K3_KERNEL(ST, FULL, false);                                        \
+  }
   switch (params->surface_tension) {
     case OVADNEVAITE: PYSDM_K3_LAUNCH(OVADNEVAITE, true); break;
     case SZYSZKOWSKI: PYSDM_K3_LAUNCH(SZYSZKOWSKI, true); break;
@@ -735,6 +793,7 @@ int pysdm_condensation_masses_new(
       }
   }
 #undef PYSDM_K3_LAUNCH
+#undef PYSDM_K3_KERNEL
   return (int)cudaGetLastError();
 }
 

@@ -51,6 +51,19 @@ whose loop reads one boolean from the device after each of its first 32
 iterations and then about every 32 (``ops/breakup.py``;
 ``breakup_iterations`` counts the iterations). The adaptive loop ``while dt_left > 0`` reads one boolean per
 substep. ``host_reads`` counts both.
+
+Spans (while a profiler records, ``utils/profiling.py``): a step's
+reading of its state is ``Collision.prepare``, its handing on of the
+state ``Collision.commit``, each substep ``Collision.substep``; inside it,
+on either croupier ``Collision.draws`` (its random numbers) and
+``Collision.gamma`` (the kernel's values, the probabilities, the mirror
+croupier's adaptive scale, where a substep computes them); on the sort
+croupier ``Collision.sort``,
+``Collision.pairs``, ``Collision.cell_min`` (the per-cell adaptive
+substep) and ``Collision.coalescence`` (K2 and the per-cell rates); on the
+mirror croupier ``Collision.pairing`` (with the attributes) and
+``Collision.kernel`` (K1, K1a, K5 or the float64 update); each read is
+``Collision.read``.
 """
 
 from collections import namedtuple
@@ -82,6 +95,7 @@ from ...ops.cuda.collision import (
     coalesce_mirror_rows,
 )
 from ...ops.pairing import AdjacentPairing, MirrorPairing
+from ...utils.profiling import span
 from .breakup_efficiencies import ConstEb
 from .breakup_fragmentations import AlwaysN
 from .coalescence_efficiencies import ConstEc
@@ -118,6 +132,8 @@ class Collision:
     # the sort croupier leaves the state cell-sorted, which a following
     # Condensation can use (the builder's shared-sort analysis)
     restores_cell_sort = True
+    # the host counters ``Particulator.counts`` gives
+    COUNTERS = ("host_reads", "substeps_run", "breakup_iterations")
 
     def __init__(
         self,
@@ -285,7 +301,8 @@ class Collision:
     def _read(self, tensor):
         """a device value the host branches on (counted)"""
         self.host_reads += 1
-        return tensor.item()
+        with span("Collision.read"):
+            return tensor.item()
 
     def _tally(self, iterations):
         self.breakup_iterations += iterations
@@ -453,11 +470,10 @@ class Collision:
         def attributes(particles):
             return {name: resolver.get(particles, name) for name in attr_names}
 
-        def substep(particles, counters, dt_left):
-            """one substep; ``dt_left`` None: the fixed substep"""
-            draws = self._draw_mirror(n_sd, n_rows)
-            pairing = MirrorPairing(draws[0], n_sd, particles.alive)
-            attrs = attributes(particles)
+        def gamma(particles, counters, dt_left, pairing, attrs):
+            """the kernel's values at the pairs where a substep needs them,
+            the probabilities, and the substep's scale: (dt_left, scale,
+            attrs_b, values, prob)"""
             values = attrs_b = prob = None
             if dt_left is not None or route == "float64" or (
                 route == "rows" and not in_body
@@ -486,23 +502,39 @@ class Collision:
                 )
                 scale = norm * (dt_todo / dt)
                 prob = prob * dt_todo[0] / dt
-            if route == "float64":
-                particles = self._float64_update(
-                    particles, counters, pairing, attrs, attrs_b, prob,
-                    draws[2], None, 1,
-                )
-            else:
-                particles = kernel_launch(
-                    particles, counters, draws, scale, attrs, values
-                )
-            return particles, dt_left
+            return dt_left, scale, attrs_b, values, prob
+
+        def substep(particles, counters, dt_left):
+            """one substep; ``dt_left`` None: the fixed substep"""
+            with span("Collision.substep"):
+                with span("Collision.draws"):
+                    draws = self._draw_mirror(n_sd, n_rows)
+                with span("Collision.pairing"):
+                    pairing = MirrorPairing(draws[0], n_sd, particles.alive)
+                    attrs = attributes(particles)
+                with span("Collision.gamma"):
+                    dt_left, scale, attrs_b, values, prob = gamma(
+                        particles, counters, dt_left, pairing, attrs
+                    )
+                with span("Collision.kernel"):
+                    if route == "float64":
+                        particles = self._float64_update(
+                            particles, counters, pairing, attrs, attrs_b,
+                            prob, draws[2], None, 1,
+                        )
+                    else:
+                        particles = kernel_launch(
+                            particles, counters, draws, scale, attrs, values
+                        )
+                return particles, dt_left
 
         def step(sim):
             # spin-up gate (reference Arabas-2015 SpinUp flips enable)
             if not sim["flags"]["collision_enable"]:
                 return sim
-            particles = sim["particles"]
-            counters = dict(sim["counters"])
+            with span("Collision.prepare"):
+                particles = sim["particles"]
+                counters = dict(sim["counters"])
             if not self.adaptive:
                 for _ in range(self.substeps):
                     particles, _ = substep(particles, counters, None)
@@ -510,7 +542,8 @@ class Collision:
                 particles = self._adaptive_loop(
                     particles, counters, 1, substep
                 )
-            return {**sim, "particles": particles, "counters": counters}
+            with span("Collision.commit"):
+                return {**sim, "particles": particles, "counters": counters}
 
         return step
 
@@ -530,69 +563,91 @@ class Collision:
         n_rows = self._u01_rows(route)
 
         def substep(particles, counters, dt_left, shuffle, rows):
-            (
-                particles, sorted_cell, cell_start, is_first,
-            ) = seg_ops.bucket_shuffle_state(particles, shuffle, n_cell, mesh)
-            pairing = AdjacentPairing(is_first)
-            attrs_a = {name: resolver.get(particles, name) for name in attr_names}
-            attrs_b = {name: seg_ops.pair_roll(v) for name, v in attrs_a.items()}
-            kernel_values = kernel.pairwise(formulae, attrs_a, attrs_b).to(ftype)
-            norm = coll_ops.normalization_factor(cell_start, dt, mesh.dv, ftype)
-            prob = None
-            if self.adaptive or route == "float64":
-                prob = coll_ops.collision_probability(
-                    kernel_values, particles.multiplicity, norm, pairing,
-                    sorted_cell,
-                )
-            if self.adaptive:
+            with span("Collision.sort"):
                 (
-                    dt_left, counters["collision_n_substep"], dt_todo,
-                ) = coll_ops.scale_prob_adaptive(
-                    prob=prob,
-                    mult_s=particles.multiplicity,
-                    dt_left=dt_left,
-                    dt=dt,
-                    dt_range=dt_range,
-                    stats_n_substep=counters["collision_n_substep"],
-                    pairing=pairing,
-                    sorted_cell=sorted_cell,
-                    n_cell=n_cell,
+                    particles, sorted_cell, cell_start, is_first,
+                ) = seg_ops.bucket_shuffle_state(particles, shuffle, n_cell, mesh)
+            with span("Collision.pairs"):
+                pairing = AdjacentPairing(is_first)
+                attrs_a = {
+                    name: resolver.get(particles, name) for name in attr_names
+                }
+                attrs_b = {
+                    name: seg_ops.pair_roll(v) for name, v in attrs_a.items()
+                }
+            with span("Collision.gamma"):
+                kernel_values = kernel.pairwise(
+                    formulae, attrs_a, attrs_b
+                ).to(ftype)
+                norm = coll_ops.normalization_factor(
+                    cell_start, dt, mesh.dv, ftype
                 )
-                cell_scale = norm * (dt_todo / dt)
-                if prob is not None:
-                    prob = prob * coll_ops.at_slots(dt_todo, sorted_cell) / dt
+                prob = None
+                if self.adaptive or route == "float64":
+                    prob = coll_ops.collision_probability(
+                        kernel_values, particles.multiplicity, norm, pairing,
+                        sorted_cell,
+                    )
+            if self.adaptive:
+                with span("Collision.cell_min"):
+                    (
+                        dt_left, counters["collision_n_substep"], dt_todo,
+                    ) = coll_ops.scale_prob_adaptive(
+                        prob=prob,
+                        mult_s=particles.multiplicity,
+                        dt_left=dt_left,
+                        dt=dt,
+                        dt_range=dt_range,
+                        stats_n_substep=counters["collision_n_substep"],
+                        pairing=pairing,
+                        sorted_cell=sorted_cell,
+                        n_cell=n_cell,
+                    )
+                    cell_scale = norm * (dt_todo / dt)
+                    if prob is not None:
+                        prob = (
+                            prob * coll_ops.at_slots(dt_todo, sorted_cell) / dt
+                        )
             else:
                 cell_scale = norm * prob_scale
                 if prob is not None:
                     prob = prob * prob_scale
-            if route == "float64":
-                particles = self._float64_update(
-                    particles, counters, pairing, attrs_a, attrs_b, prob,
-                    rows, cell_start, n_cell,
+            with span("Collision.coalescence"):
+                if route == "float64":
+                    particles = self._float64_update(
+                        particles, counters, pairing, attrs_a, attrs_b, prob,
+                        rows, cell_start, n_cell,
+                    )
+                    return particles, dt_left
+                kernnorm = kernel_values * coll_ops.at_slots(
+                    cell_scale, sorted_cell
                 )
-                return particles, dt_left
-            kernnorm = kernel_values * coll_ops.at_slots(cell_scale, sorted_cell)
-            self.substeps_run += 1
-            mult, ext, rate, deficit, _ = coalesce_adjacent(
-                particles.multiplicity, particles.extensive, kernnorm, rows[0],
-                is_first,
-            )
-            # the coalescence rate equals the collision rate in a
-            # coalescence-only substep: one per-cell sum serves both, and
-            # one scan both rows
-            rate_c, deficit_c = coll_ops.per_cell_rates(
-                torch.stack([rate, deficit]), cell_start, n_cell
-            )
-            for name, total in zip(_RATE_COUNTERS, (rate_c, deficit_c, rate_c)):
-                counters[name] = coll_ops.accumulate_counter(
-                    counters[name], total, counters
+                self.substeps_run += 1
+                mult, ext, rate, deficit, _ = coalesce_adjacent(
+                    particles.multiplicity, particles.extensive, kernnorm,
+                    rows[0], is_first,
                 )
-            return particles.replace(multiplicity=mult, extensive=ext), dt_left
+                # the coalescence rate equals the collision rate in a
+                # coalescence-only substep: one per-cell sum serves both,
+                # and one scan both rows
+                rate_c, deficit_c = coll_ops.per_cell_rates(
+                    torch.stack([rate, deficit]), cell_start, n_cell
+                )
+                totals = (rate_c, deficit_c, rate_c)
+                for name, total in zip(_RATE_COUNTERS, totals):
+                    counters[name] = coll_ops.accumulate_counter(
+                        counters[name], total, counters
+                    )
+                particles = particles.replace(multiplicity=mult, extensive=ext)
+            return particles, dt_left
+
+        def draws(sim):
+            with span("Collision.draws"):
+                return self._draw_sorted(sim, n_rows)
 
         def adaptive_substep(particles, counters, dt_left):
-            return substep(
-                particles, counters, dt_left, *self._draw_sorted(None, n_rows)
-            )
+            with span("Collision.substep"):
+                return substep(particles, counters, dt_left, *draws(None))
 
         def step(sim):
             if not sim["flags"]["collision_enable"]:
@@ -600,23 +655,26 @@ class Collision:
                 # Condensation) relies on the sorted state: sort, no physics
                 if not sort_when_disabled or n_cell == 1:
                     return sim
-                particles, _, _ = seg_ops.sort_state_by_cell(
-                    sim["particles"], n_cell, mesh
-                )
+                with span("Collision.sort"):
+                    particles, _, _ = seg_ops.sort_state_by_cell(
+                        sim["particles"], n_cell, mesh
+                    )
                 return {**sim, "particles": particles}
-            particles = sim["particles"]
-            counters = dict(sim["counters"])
+            with span("Collision.prepare"):
+                particles = sim["particles"]
+                counters = dict(sim["counters"])
             if not self.adaptive:
                 for _ in range(self.substeps):
-                    particles, _ = substep(
-                        particles, counters, None,
-                        *self._draw_sorted(sim, n_rows),
-                    )
+                    with span("Collision.substep"):
+                        particles, _ = substep(
+                            particles, counters, None, *draws(sim)
+                        )
             else:
                 particles = self._adaptive_loop(
                     particles, counters, n_cell, adaptive_substep
                 )
-            return {**sim, "particles": particles, "counters": counters}
+            with span("Collision.commit"):
+                return {**sim, "particles": particles, "counters": counters}
 
         return step
 

@@ -12,6 +12,14 @@ are; with many, the step sorts the state (stable, by cell) unless the
 builder's shared-sort analysis has shown that it enters the step sorted
 (``_assume_sorted``: the previous step's collision shuffle sorted it), and
 then it only finds the segment starts.
+
+Spans (while a profiler records): ``Condensation.prepare`` (the segment
+starts, the attributes, the solver's predicted rates and entry liquid),
+``Condensation.adapt_substeps``, ``Condensation.substep`` (each lockstep
+substep) with ``Condensation.solve`` (the per-drop solve, K3) and
+``Condensation.coupling`` (the per-cell trapezoidal coupling) inside every
+substep, fake or real, ``Condensation.read`` and ``Condensation.commit``
+(the new masses, the predicted thermodynamics, the counters).
 """
 
 from collections import namedtuple
@@ -22,6 +30,7 @@ import torch
 from ..environments.impl.moist import recalc_thermo
 from ..ops.condensation import CondensationSolver
 from ..ops.segments import cell_start_of_sorted, sort_state_by_cell
+from ..utils.profiling import span
 
 DEFAULTS = namedtuple("_", ("rtol_x", "rtol_thd", "cond_range", "schedule"))(
     rtol_x=1e-6,
@@ -119,26 +128,27 @@ class Condensation:
         assume_sorted = self._assume_sorted
 
         def step(sim):
-            particles = sim["particles"]
-            cell_start = None
-            if n_cell > 1 and assume_sorted:
-                cell_start = cell_start_of_sorted(particles.cell_id, n_cell)
-            elif n_cell > 1:
-                particles, _, cell_start = sort_state_by_cell(
-                    particles, n_cell, mesh
-                )
-            env = dict(sim["env"])
-            counters = dict(sim["counters"])
-            attrs = {
-                "water_mass": particles.ext("signed water mass"),
-                "vdry": particles.ext("dry volume"),
-                "kappa": resolver.get(particles, "kappa"),
-                "f_org": resolver.get(particles, "dry volume organic fraction"),
-                "reynolds_number": resolver.get(
-                    particles, "Reynolds number", env=env
-                ),
-                "v_cr": resolver.get(particles, "critical volume", env=env),
-            }
+            with span("Condensation.prepare"):
+                particles = sim["particles"]
+                cell_start = None
+                if n_cell > 1 and assume_sorted:
+                    cell_start = cell_start_of_sorted(particles.cell_id, n_cell)
+                elif n_cell > 1:
+                    particles, _, cell_start = sort_state_by_cell(
+                        particles, n_cell, mesh
+                    )
+                env = dict(sim["env"])
+                counters = dict(sim["counters"])
+                attrs = {
+                    "water_mass": particles.ext("signed water mass"),
+                    "vdry": particles.ext("dry volume"),
+                    "kappa": resolver.get(particles, "kappa"),
+                    "f_org": resolver.get(particles, "dry volume organic fraction"),
+                    "reynolds_number": resolver.get(
+                        particles, "Reynolds number", env=env
+                    ),
+                    "v_cr": resolver.get(particles, "critical volume", env=env),
+                }
             water_mass, pthd, pqv, n_substeps, RH_max, success, events = solver(
                 attrs=attrs,
                 multiplicity=particles.multiplicity,
@@ -152,25 +162,26 @@ class Condensation:
                 air_density=env["air_density"],
                 air_viscosity=env["air_viscosity"],
             )
-            particles = particles.set_ext("signed water mass", water_mass)
-            if update_thd:
-                env["pred_thd"] = pthd
-            env["pred_qv"] = pqv
-            # update_TpRH (reference particulator mediator): predicted T/p/RH
-            # from the post-condensation predicted triplet
-            (env["T"], env["p"], env["RH"], env["air_density"],
-             env["air_viscosity"]) = recalc_thermo(
-                formulae, env["pred_thd"], env["pred_qv"], env["pred_rhod"]
-            )
-            counters["condensation_n_substeps"] = n_substeps
-            counters["condensation_success"] = (
-                counters["condensation_success"] & success
-            )
-            counters["condensation_RH_max"] = torch.maximum(
-                counters["condensation_RH_max"], RH_max
-            )
-            for name, ev in zip(_EVENT_COUNTERS, events):
-                counters[name] = counters[name] + ev
+            with span("Condensation.commit"):
+                particles = particles.set_ext("signed water mass", water_mass)
+                if update_thd:
+                    env["pred_thd"] = pthd
+                env["pred_qv"] = pqv
+                # update_TpRH (reference particulator mediator): predicted
+                # T/p/RH from the post-condensation predicted triplet
+                (env["T"], env["p"], env["RH"], env["air_density"],
+                 env["air_viscosity"]) = recalc_thermo(
+                    formulae, env["pred_thd"], env["pred_qv"], env["pred_rhod"]
+                )
+                counters["condensation_n_substeps"] = n_substeps
+                counters["condensation_success"] = (
+                    counters["condensation_success"] & success
+                )
+                counters["condensation_RH_max"] = torch.maximum(
+                    counters["condensation_RH_max"], RH_max
+                )
+                for name, ev in zip(_EVENT_COUNTERS, events):
+                    counters[name] = counters[name] + ev
             return {**sim, "particles": particles, "env": env,
                     "counters": counters}
 

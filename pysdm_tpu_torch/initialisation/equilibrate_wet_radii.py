@@ -3,15 +3,19 @@
 ``PySDM/initialisation/equilibrate_wet_radii.py``).
 
 Host-side, NumPy: a vectorized bisection over all particles at once between
-the dry and the critical radius.
+the dry and the critical radius. Its host seconds add to the set-up phase
+``setup.equilibrate`` of ``utils/profiling.py`` (``totals``).
 """
 
 import numpy as np
+
+from ..utils.profiling import timed
 
 default_rtol = 1e-5
 default_max_iters = 64
 
 
+@timed("setup.equilibrate")
 def equilibrate_wet_radii(
     *,
     r_dry: np.ndarray,

@@ -25,12 +25,17 @@ Host syncs: eager PyTorch decides each loop on the host. One step reads
 ``max(n_substeps)`` once (the lockstep loop's trip count); the adaptive
 step reads one boolean per iteration of each of its two adaptation loops,
 at least three reads in all. ``CondensationSolver.host_reads`` counts them.
+
+Spans (while a profiler records, ``utils/profiling.py``): each read is
+``Condensation.read``; the solver's parts are named as the dynamic's
+(``dynamics/condensation.py``).
 """
 
 from collections import namedtuple
 
 import torch
 
+from ..utils.profiling import span
 from .cuda import condensation as k3
 from .segments import sorted_segment_sum
 
@@ -362,6 +367,9 @@ class CondensationSolver:
     real; on CUDA tensors one K3 launch each), ``host_reads`` the values
     read back from the device to steer a loop."""
 
+    # the host counters ``Particulator.counts`` gives (under the dynamic)
+    COUNTERS = ("substep_solves", "host_reads")
+
     def __init__(
         self,
         formulae,
@@ -424,7 +432,8 @@ class CondensationSolver:
     def _read(self, tensor):
         """a device value the host branches on (counted)"""
         self.host_reads += 1
-        return tensor.item()
+        with span("Condensation.read"):
+            return tensor.item()
 
     def substep(
         self, *, attrs, multiplicity, cell_of_drop, cell_start, cell_active,
@@ -434,96 +443,105 @@ class CondensationSolver:
         """one trapezoidal substep (reference ``step_impl`` 256-356) on the
         cells where ``cell_active``; with many cells the drops are sorted by
         cell, with segment starts ``cell_start``"""
-        f = self.formulae
-        act = cell_active
-        dt_sub = dt_sub_cell
-        thd0, qv0, rhod0 = thd, qv, rhod  # rollback state on failure
-        thd = torch.where(act, thd + dt_sub * dthd_dt_pred / 2, thd)
-        qv = torch.where(act, qv + dt_sub * dqv_dt_pred / 2, qv)
-        rhod = torch.where(act, rhod + dt_sub * drhod_dt / 2, rhod)
+        with span("Condensation.coupling"):
+            f = self.formulae
+            act = cell_active
+            dt_sub = dt_sub_cell
+            thd0, qv0, rhod0 = thd, qv, rhod  # rollback state on failure
+            thd = torch.where(act, thd + dt_sub * dthd_dt_pred / 2, thd)
+            qv = torch.where(act, qv + dt_sub * dqv_dt_pred / 2, qv)
+            rhod = torch.where(act, rhod + dt_sub * drhod_dt / 2, rhod)
 
-        T, p, RH, lv, pvs, DTp, KTp, Sc = thermo(
-            f, thd, qv, rhod, air_density, air_viscosity
-        )
-        # dead drops (multiplicity 0) are inert
-        act_d = act[cell_of_drop] & (multiplicity > 0)
-        water_mass = attrs["water_mass"]
-        self.substep_solves += 1
-        if water_mass.device.type == "cpu":
-            T_d, p_d, RH_d, lv_d, pvs_d, DTp_d, KTp_d, Sc_d = thermo(
-                f, thd[cell_of_drop], qv[cell_of_drop], rhod[cell_of_drop],
-                air_density[cell_of_drop], air_viscosity[cell_of_drop],
+            T, p, RH, lv, pvs, DTp, KTp, Sc = thermo(
+                f, thd, qv, rhod, air_density, air_viscosity
             )
-            mass_new, success_drop = drop_solve(
-                f, self.settings, water_mass=water_mass, vdry=attrs["vdry"],
-                kappa=attrs["kappa"], f_org=attrs["f_org"],
-                reynolds=attrs["reynolds_number"], active_drop=act_d,
-                dt_sub=dt_sub[cell_of_drop], T=T_d, p=p_d, RH=RH_d, lv=lv_d,
-                pvs=pvs_d, DTp=DTp_d, KTp=KTp_d, Sc=Sc_d, per_drop=False,
+        with span("Condensation.solve"):
+            # dead drops (multiplicity 0) are inert
+            act_d = act[cell_of_drop] & (multiplicity > 0)
+            water_mass = attrs["water_mass"]
+            self.substep_solves += 1
+            if water_mass.device.type == "cpu":
+                T_d, p_d, RH_d, lv_d, pvs_d, DTp_d, KTp_d, Sc_d = thermo(
+                    f, thd[cell_of_drop], qv[cell_of_drop], rhod[cell_of_drop],
+                    air_density[cell_of_drop], air_viscosity[cell_of_drop],
+                )
+                mass_new, success_drop = drop_solve(
+                    f, self.settings, water_mass=water_mass, vdry=attrs["vdry"],
+                    kappa=attrs["kappa"], f_org=attrs["f_org"],
+                    reynolds=attrs["reynolds_number"], active_drop=act_d,
+                    dt_sub=dt_sub[cell_of_drop], T=T_d, p=p_d, RH=RH_d, lv=lv_d,
+                    pvs=pvs_d, DTp=DTp_d, KTp=KTp_d, Sc=Sc_d, per_drop=False,
+                )
+            else:
+                mass_new, success_drop = k3.masses_new(
+                    f, self.settings, water_mass, attrs["vdry"], attrs["kappa"],
+                    multiplicity, cell_of_drop, thd, qv, rhod, dt_sub, act,
+                    air_density, air_viscosity, **self._k3_rows(attrs),
+                )
+        with span("Condensation.coupling"):
+            mult_f = multiplicity.to(water_mass.dtype)
+            # the liquid and the failed solves depend on the solve alone: both
+            # rows go through one prefix sum (the 0/1 failures sum exactly in
+            # any float type)
+            zero = self._zero(water_mass)
+            rows = water_mass.new_empty((2,) + water_mass.shape)
+            torch.where(mass_new > 0, mult_f * mass_new, zero, out=rows[0])
+            rows[1] = ~success_drop
+            ml_new, fails = self._percell_sum(rows, cell_start)
+            dml_dt = (ml_new - ml_old) / torch.where(dt_sub > 0, dt_sub, 1.0)
+            dqv_dt_corr = -dml_dt / m_d
+            dthd_dt_corr = f.state_variable_triplet.dthd_dt(
+                rhod=rhod, thd=thd, T=T,
+                d_water_vapour_mixing_ratio__dt=dqv_dt_corr, lv=lv,
             )
-        else:
-            mass_new, success_drop = k3.masses_new(
-                f, self.settings, water_mass, attrs["vdry"], attrs["kappa"],
-                multiplicity, cell_of_drop, thd, qv, rhod, dt_sub, act,
-                air_density, air_viscosity, **self._k3_rows(attrs),
+            thd = torch.where(
+                act, thd + dt_sub * (dthd_dt_pred / 2 + dthd_dt_corr), thd
             )
-        mult_f = multiplicity.to(water_mass.dtype)
-        # the liquid and the failed solves depend on the solve alone: both
-        # rows go through one prefix sum (the 0/1 failures sum exactly in
-        # any float type)
-        zero = self._zero(water_mass)
-        rows = water_mass.new_empty((2,) + water_mass.shape)
-        torch.where(mass_new > 0, mult_f * mass_new, zero, out=rows[0])
-        rows[1] = ~success_drop
-        ml_new, fails = self._percell_sum(rows, cell_start)
-        dml_dt = (ml_new - ml_old) / torch.where(dt_sub > 0, dt_sub, 1.0)
-        dqv_dt_corr = -dml_dt / m_d
-        dthd_dt_corr = f.state_variable_triplet.dthd_dt(
-            rhod=rhod, thd=thd, T=T,
-            d_water_vapour_mixing_ratio__dt=dqv_dt_corr, lv=lv,
-        )
-        thd = torch.where(act, thd + dt_sub * (dthd_dt_pred / 2 + dthd_dt_corr), thd)
-        qv = torch.where(act, qv + dt_sub * (dqv_dt_pred / 2 + dqv_dt_corr), qv)
-        rhod = torch.where(act, rhod + dt_sub * drhod_dt / 2, rhod)
+            qv = torch.where(
+                act, qv + dt_sub * (dqv_dt_pred / 2 + dqv_dt_corr), qv
+            )
+            rhod = torch.where(act, rhod + dt_sub * drhod_dt / 2, rhod)
 
-        # a non-finite thd/qv (the trapezoidal correction on a numerical
-        # cliff) rolls the cell back to its substep-entry state, in full:
-        # its drops keep their substep-entry masses too
-        finite_cell = torch.isfinite(thd) & torch.isfinite(qv) & torch.isfinite(rhod)
-        thd = torch.where(finite_cell, thd, thd0)
-        qv = torch.where(finite_cell, qv, qv0)
-        rhod = torch.where(finite_cell, rhod, rhod0)
-        success_cell = ((fails == 0) & finite_cell) | ~act
-
-        zeros_cell = torch.zeros_like(thd)
-        if fake:
-            attrs_out = attrs
-            events = (zeros_cell, zeros_cell, zeros_cell)
-        else:
-            committed = act_d & finite_cell[cell_of_drop]
-            attrs_out = {
-                **attrs,
-                "water_mass": torch.where(committed, mass_new, water_mass),
-            }
-            # activation events (reference ``calculate_ml_new``,
-            # condensation_methods.py:149-161): multiplicity-weighted counts
-            # of drops crossing the critical mass in this substep
-            mass_cr = f.particle_shape_and_density.volume_to_mass(attrs["v_cr"])
-            weight = torch.where(committed, mult_f, 0.0)
-            # the three counts wait for ``finite_cell``, so they form a
-            # second group of rows under one prefix sum
-            crossings = (
-                (mass_new > mass_cr) & (mass_cr > water_mass),
-                (mass_new < mass_cr) & (mass_cr < water_mass),
-                (mass_new > mass_cr) & (mass_new > water_mass),
+            # a non-finite thd/qv (the trapezoidal correction on a numerical
+            # cliff) rolls the cell back to its substep-entry state, in full:
+            # its drops keep their substep-entry masses too
+            finite_cell = (
+                torch.isfinite(thd) & torch.isfinite(qv) & torch.isfinite(rhod)
             )
-            rows = water_mass.new_empty((3,) + water_mass.shape)
-            for row, crossed in zip(rows, crossings):
-                torch.where(crossed, weight, zero, out=row)
-            n_act, n_deact, n_act_growing = self._percell_sum(rows, cell_start)
-            n_ripen = torch.where(n_deact > 0, n_act_growing, zeros_cell)
-            events = (n_act, n_deact, n_ripen)
-        ml_out = torch.where(act & finite_cell, ml_new, ml_old)
+            thd = torch.where(finite_cell, thd, thd0)
+            qv = torch.where(finite_cell, qv, qv0)
+            rhod = torch.where(finite_cell, rhod, rhod0)
+            success_cell = ((fails == 0) & finite_cell) | ~act
+
+            zeros_cell = torch.zeros_like(thd)
+            if fake:
+                attrs_out = attrs
+                events = (zeros_cell, zeros_cell, zeros_cell)
+            else:
+                committed = act_d & finite_cell[cell_of_drop]
+                attrs_out = {
+                    **attrs,
+                    "water_mass": torch.where(committed, mass_new, water_mass),
+                }
+                # activation events (reference ``calculate_ml_new``,
+                # condensation_methods.py:149-161): multiplicity-weighted counts
+                # of drops crossing the critical mass in this substep
+                mass_cr = f.particle_shape_and_density.volume_to_mass(attrs["v_cr"])
+                weight = torch.where(committed, mult_f, 0.0)
+                # the three counts wait for ``finite_cell``, so they form a
+                # second group of rows under one prefix sum
+                crossings = (
+                    (mass_new > mass_cr) & (mass_cr > water_mass),
+                    (mass_new < mass_cr) & (mass_cr < water_mass),
+                    (mass_new > mass_cr) & (mass_new > water_mass),
+                )
+                rows = water_mass.new_empty((3,) + water_mass.shape)
+                for row, crossed in zip(rows, crossings):
+                    torch.where(crossed, weight, zero, out=row)
+                n_act, n_deact, n_act_growing = self._percell_sum(rows, cell_start)
+                n_ripen = torch.where(n_deact > 0, n_act_growing, zeros_cell)
+                events = (n_act, n_deact, n_ripen)
+            ml_out = torch.where(act & finite_cell, ml_new, ml_old)
         return attrs_out, thd, qv, rhod, ml_out, RH, success_cell, events
 
     def _liquid(self, attrs, multiplicity, cell_start):
@@ -539,27 +557,33 @@ class CondensationSolver:
         """advance every cell through its own n_substeps (JAX lockstep loop,
         spent cells masked; the trip count is read on the host); ``ml_old``
         is the liquid per cell at the step's entry"""
-        dt_sub_cell = self.dt / n_substeps.to(thd.dtype)
-        water_mass = attrs["water_mass"]
-        qv, rhod = kwargs.pop("qv"), kwargs.pop("rhod")
-        RH_max = torch.zeros_like(thd)
-        success = torch.ones_like(thd, dtype=torch.bool)
-        events = (RH_max, RH_max, RH_max)
+        with span("Condensation.prepare"):
+            dt_sub_cell = self.dt / n_substeps.to(thd.dtype)
+            water_mass = attrs["water_mass"]
+            qv, rhod = kwargs.pop("qv"), kwargs.pop("rhod")
+            RH_max = torch.zeros_like(thd)
+            success = torch.ones_like(thd, dtype=torch.bool)
+            events = (RH_max, RH_max, RH_max)
         for s in range(int(self._read(n_substeps.max()))):
-            cell_active = s < n_substeps
-            (attrs_s, thd, qv, rhod, ml_old, RH, success_cell, ev) = self.substep(
-                attrs={**attrs, "water_mass": water_mass},
-                multiplicity=multiplicity, cell_active=cell_active,
-                dt_sub_cell=dt_sub_cell, thd=thd, qv=qv, rhod=rhod,
-                ml_old=ml_old, fake=False, **kwargs,
-            )
-            water_mass = attrs_s["water_mass"]
-            RH_max = torch.where(cell_active, torch.maximum(RH_max, RH), RH_max)
-            success = success & success_cell
-            events = tuple(
-                torch.where(cell_active, acc + e, acc)
-                for acc, e in zip(events, ev)
-            )
+            with span("Condensation.substep"):
+                cell_active = s < n_substeps
+                (
+                    attrs_s, thd, qv, rhod, ml_old, RH, success_cell, ev,
+                ) = self.substep(
+                    attrs={**attrs, "water_mass": water_mass},
+                    multiplicity=multiplicity, cell_active=cell_active,
+                    dt_sub_cell=dt_sub_cell, thd=thd, qv=qv, rhod=rhod,
+                    ml_old=ml_old, fake=False, **kwargs,
+                )
+                water_mass = attrs_s["water_mass"]
+                RH_max = torch.where(
+                    cell_active, torch.maximum(RH_max, RH), RH_max
+                )
+                success = success & success_cell
+                events = tuple(
+                    torch.where(cell_active, acc + e, acc)
+                    for acc, e in zip(events, ev)
+                )
         return water_mass, thd, qv, rhod, RH_max, success, events
 
     def step_fake(self, *, attrs, multiplicity, n_substeps, thd, cell_mask, **kwargs):
@@ -647,22 +671,24 @@ class CondensationSolver:
         ``cell_start``: the segment starts of the cell-sorted drops (None
         for one cell)"""
         dt = self.dt
-        kwargs = dict(
-            multiplicity=multiplicity, cell_of_drop=cell_of_drop,
-            cell_start=cell_start,
-            qv=qv, rhod=rhod,
-            dthd_dt_pred=(pthd - thd) / dt, dqv_dt_pred=(pqv - qv) / dt,
-            drhod_dt=(prhod - rhod) / dt, m_d=m_d,
-            air_density=air_density, air_viscosity=air_viscosity,
-        )
-        # the liquid at the step's entry: every fake substep and the first
-        # real one start from it
-        kwargs["ml_old"] = self._liquid(attrs, multiplicity, cell_start)
-        if self.adaptive:
-            n_substeps = self.adapt_substeps(
-                n_substeps_prev=n_substeps, thd=thd,
-                fake_kwargs={"attrs": attrs, **kwargs},
+        with span("Condensation.prepare"):
+            kwargs = dict(
+                multiplicity=multiplicity, cell_of_drop=cell_of_drop,
+                cell_start=cell_start,
+                qv=qv, rhod=rhod,
+                dthd_dt_pred=(pthd - thd) / dt, dqv_dt_pred=(pqv - qv) / dt,
+                drhod_dt=(prhod - rhod) / dt, m_d=m_d,
+                air_density=air_density, air_viscosity=air_viscosity,
             )
+            # the liquid at the step's entry: every fake substep and the
+            # first real one start from it
+            kwargs["ml_old"] = self._liquid(attrs, multiplicity, cell_start)
+        if self.adaptive:
+            with span("Condensation.adapt_substeps"):
+                n_substeps = self.adapt_substeps(
+                    n_substeps_prev=n_substeps, thd=thd,
+                    fake_kwargs={"attrs": attrs, **kwargs},
+                )
         water_mass, thd_new, qv_new, _, RH_max, success, events = (
             self.run_substeps(attrs=attrs, n_substeps=n_substeps, thd=thd, **kwargs)
         )

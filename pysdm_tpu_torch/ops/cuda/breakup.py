@@ -50,6 +50,7 @@ import functools
 
 import torch
 
+from ...utils import profiling
 from . import _build
 from .collision import (
     _BIG,
@@ -384,6 +385,7 @@ def coalesce_breakup_mirror(
 
 
 coalesce_breakup_mirror.launches = 0
+profiling.counters(coalesce_breakup_mirror, "launches")
 
 
 class _Functions(ctypes.Structure):

@@ -25,6 +25,7 @@ import math
 
 import torch
 
+from ...utils import profiling
 from . import _build
 
 # the bisection's iteration count (``pysdm_tpu/ops/chemistry.py:74``)
@@ -121,6 +122,7 @@ def equilibrate_H(*, conc, K_drop, K_H2O, H_min, H_max, iters=PH_ITERATIONS):
 
 # launches of the kernel
 equilibrate_H.launches = 0
+profiling.counters(equilibrate_H, "launches")
 
 
 @functools.cache

@@ -74,6 +74,7 @@ import math
 
 import torch
 
+from ...utils import profiling
 from . import _build
 
 # collision kernels K1 and K5 (``ops/cuda/breakup.py``) evaluate in their
@@ -384,6 +385,7 @@ def coalesce_mirror(mult, ext, attr, kernel_id, params, scale, K, seed):
 
 
 coalesce_mirror.launches = 0
+profiling.counters(coalesce_mirror, "launches")
 
 
 @functools.cache
@@ -498,6 +500,7 @@ def coalesce_mirror_rows(mult, ext, kernnorm, u01, K):
 
 
 coalesce_mirror_rows.launches = 0
+profiling.counters(coalesce_mirror_rows, "launches")
 
 
 def _int_exponents(params):
@@ -571,6 +574,7 @@ def coalesce_mirror_parameterized(mult, ext, radius, fall, params, scale, u01,
 
 
 coalesce_mirror_parameterized.launches = 0
+profiling.counters(coalesce_mirror_parameterized, "launches")
 
 
 def coalesce_adjacent_reference(mult, ext, kernnorm, rand, is_first):
@@ -660,6 +664,7 @@ def coalesce_adjacent(mult, ext, kernnorm, rand, is_first):
 
 
 coalesce_adjacent.launches = 0
+profiling.counters(coalesce_adjacent, "launches")
 
 
 @functools.cache

@@ -33,6 +33,17 @@ On the card the kernel is bound by its arithmetic (a serial chain of minfun
 evaluations per drop), not by its ~29 bytes per drop (33 or 37 with the
 Reynolds number and the organic fraction); the source's note says what the
 design does about the cost and the number of the evaluations.
+
+Counts: ``masses_new.launches`` on the host. While a profiler records
+(``utils/profiling.py``), one launch in ``COUNT_EVERY``, the first among
+them, takes the kernel's counting instantiation, which adds the drops it
+found active, those that needed a solve, its minfun evaluations and the
+drops it swept (``COUNTS``) into int64 counts on the device. That
+instantiation takes ~5% longer (``PERF.md``), so a traced K3 is, but for
+the sample, the kernel a step nobody profiles runs. The wrapper asks for
+the counts at every launch, so the first launch allocates them, and
+passes a null pointer to every other launch: the kernel without the
+counts runs.
 """
 
 import ctypes
@@ -41,7 +52,17 @@ import math
 
 import torch
 
+from ...utils import profiling
 from . import _build
+
+# what the kernel counts, in the order of a slot, and its counts:
+# COUNT_SLOTS slots of COUNT_WIDTH entries, over which the warps spread
+# their atomic adds (``csrc/condensation.cu``); one launch in COUNT_EVERY
+# counts while a profiler records (the warm rain's 60-step episode: 7 of
+# its 420)
+COUNTS = ("active", "need_solve", "evaluations", "swept")
+COUNT_SLOTS, COUNT_WIDTH = 256, 4
+COUNT_EVERY = 64
 
 # formula variants the kernel evaluates, per family; the order of each
 # tuple gives the variant's number in K3Params
@@ -329,21 +350,28 @@ def masses_new(
 
 
 masses_new.launches = 0
+profiling.counters(masses_new, "launches")
 
 
-@functools.cache
-def library():
-    """the built library with its entry points' C signatures declared"""
-    lib = _build.load("condensation")
+def declare(lib):
+    """declares the C signatures of ``csrc/condensation.cu``'s entry points
+    on ``lib``, a library built from it; returns ``lib``"""
     vp = ctypes.c_void_p
+    # 14 rows, n, n_cell, the parameters, mass, success, counts, stream
     lib.pysdm_condensation_masses_new.argtypes = [
         *([vp] * 14), ctypes.c_int, ctypes.c_int,
-        ctypes.POINTER(K3Params), vp, vp, vp,
+        ctypes.POINTER(K3Params), vp, vp, vp, vp,
     ]
     lib.pysdm_condensation_masses_new.restype = ctypes.c_int
     lib.pysdm_condensation_error_string.argtypes = [ctypes.c_int]
     lib.pysdm_condensation_error_string.restype = ctypes.c_char_p
     return lib
+
+
+@functools.cache
+def library():
+    """the built library with its entry points' C signatures declared"""
+    return declare(_build.load("condensation"))
 
 
 def _launch(params, water_mass, vdry, kappa, multiplicity, cell_id, cells,
@@ -362,11 +390,16 @@ def _launch(params, water_mass, vdry, kappa, multiplicity, cell_id, cells,
     ]
     mass_out = torch.empty_like(water_mass)
     success = torch.empty(n, dtype=torch.bool, device=water_mass.device)
+    counts = profiling.device_counts(
+        "masses_new", COUNTS, water_mass.device, COUNT_SLOTS, COUNT_WIDTH
+    )
     with torch.cuda.device(water_mass.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.pysdm_condensation_masses_new(
             *(t.data_ptr() for t in ins), n, cells[0].shape[0],
             ctypes.byref(params), mass_out.data_ptr(), success.data_ptr(),
+            counts.data_ptr()
+            if profiling.sample("masses_new", COUNT_EVERY) else None,
             stream,
         )
     if err != 0:

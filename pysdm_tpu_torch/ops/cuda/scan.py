@@ -28,6 +28,7 @@ import functools
 
 import torch
 
+from ...utils import profiling
 from . import _build
 
 _DTYPES = {torch.float32: 0, torch.int32: 1, torch.int64: 2}
@@ -60,9 +61,19 @@ def cumsum(x):
     return _launch(x)
 
 
-# launches of the kernel, and the rows they scanned
+# launches of the kernel, the rows they scanned, and the bytes their work
+# needs: each element read once and written once, 2 x itemsize x rows x n
+# a launch (``k4_bytes``)
 cumsum.launches = 0
 cumsum.rows = 0
+cumsum.bytes = 0
+profiling.counters(cumsum, "launches", "rows", "bytes")
+
+
+def k4_bytes(x):
+    """the bytes a launch on ``x`` needs: each element read once and its
+    prefix written once, in the input's dtype"""
+    return 2 * x.element_size() * x.numel()
 
 
 @functools.cache
@@ -111,4 +122,5 @@ def _launch(x):
         raise RuntimeError(f"scan launch failed: {msg} ({err})")
     cumsum.launches += 1
     cumsum.rows += rows
+    cumsum.bytes += k4_bytes(x)
     return out

@@ -16,9 +16,16 @@ The fields are small (625 cells in the 2D warm rain), so the step is a few
 hundred elementwise launches and no kernel of its own. A decomposed axis
 takes a ``("shard", group)`` boundary condition: its pads are halo
 exchanges between the ranks of ``group`` (``parallel/halo.py``).
+
+Spans (while a profiler records, ``utils/profiling.py``), named for the
+dynamic that runs the step: ``EulerianAdvection.upwind`` (the upwind
+pass), ``EulerianAdvection.antidiffusive`` (each corrective iteration) and,
+inside it, ``EulerianAdvection.fct`` (the nonoscillatory limiter).
 """
 
 import torch
+
+from ..utils.profiling import span
 
 PERIODIC = "periodic"
 EXTRAPOLATED = "extrapolated"  # constant (zero-gradient) scalar extrapolation
@@ -326,21 +333,27 @@ def mpdata_step(
         raise ValueError("one advector component and one bc per axis")
     psi0 = psi
 
-    psi_p = _pad_all(psi, bcs)
-    div = _flux_divergence(_upwind_fluxes(psi_p, gc), psi.shape)
-    psi = psi - (div / g if g is not None else div)
+    with span("EulerianAdvection.upwind"):
+        psi_p = _pad_all(psi, bcs)
+        div = _flux_divergence(_upwind_fluxes(psi_p, gc), psi.shape)
+        psi = psi - (div / g if g is not None else div)
 
     for _ in range(n_iters - 1):
-        gc_corr = _antidiffusive_gc(
-            psi, gc, g, bcs, infinite_gauge, third_order_terms=third_order_terms,
-        )
-        if nonoscillatory:
-            gc_corr = _fct_limit(psi, psi0, gc_corr, g, bcs, infinite_gauge)
-        if infinite_gauge:
-            fluxes = gc_corr  # donor-cell flux of the constant gauge field
-        else:
-            fluxes = _upwind_fluxes(_pad_all(psi, bcs), gc_corr)
-        div = _flux_divergence(fluxes, psi.shape)
-        psi = psi - (div / g if g is not None else div)
-        gc = gc_corr
+        with span("EulerianAdvection.antidiffusive"):
+            gc_corr = _antidiffusive_gc(
+                psi, gc, g, bcs, infinite_gauge,
+                third_order_terms=third_order_terms,
+            )
+            if nonoscillatory:
+                with span("EulerianAdvection.fct"):
+                    gc_corr = _fct_limit(
+                        psi, psi0, gc_corr, g, bcs, infinite_gauge
+                    )
+            if infinite_gauge:
+                fluxes = gc_corr  # donor-cell flux of the constant gauge field
+            else:
+                fluxes = _upwind_fluxes(_pad_all(psi, bcs), gc_corr)
+            div = _flux_divergence(fluxes, psi.shape)
+            psi = psi - (div / g if g is not None else div)
+            gc = gc_corr
     return psi

@@ -9,6 +9,11 @@ step. ``enable_per_dynamic_timing`` runs the dynamics one by one and waits
 for the device after each, so that ``timers`` (read by
 ``DynamicWallTime``) hold each dynamic's wall time; without it a step waits
 for nothing.
+
+While a ``torch.profiler`` records (``utils/profiling.py``), the composed
+step puts each dynamic under a span of its name, and ``run`` adds the
+deltas of the host counters (``counts``) over the call to the recorded
+totals; otherwise each costs one flag check, a step or a call.
 """
 
 import time
@@ -18,6 +23,7 @@ import torch
 
 from .impl.attributes import AttributeResolver
 from .ops import moments as moments_ops
+from .utils import profiling
 
 
 class _AttributeView:
@@ -70,8 +76,11 @@ class Particulator:
 
     def run(self, steps):
         """advance ``steps`` time steps, the observers notified after each;
-        ``timers["total"]`` adds the host's time of the call"""
+        ``timers["total"]`` adds the host's time of the call. While a
+        profiler records, the deltas of ``counts()`` over the call and its
+        steps go to the recorded totals (``utils/profiling.py``)"""
         t0 = time.perf_counter()
+        counts0 = self.counts() if profiling.recording() else None
         for _ in range(steps):
             if self.per_dynamic_timing:
                 self._timed_step()
@@ -80,18 +89,35 @@ class Particulator:
             self.n_steps += 1
             for observer in self.observers:
                 observer.notify()
+        if counts0 is not None:
+            profiling.record(
+                {k: v - counts0.get(k, 0) for k, v in self.counts().items()},
+                steps,
+            )
         self.timers["total"] = self.timers.get("total", 0.0) + (
             time.perf_counter() - t0
         )
 
+    def counts(self):
+        """the program's host counters as one flat dict: those each dynamic,
+        and its solver, name in ``COUNTERS``, as ``<dynamic>.<counter>``,
+        and the CUDA wrappers' (``profiling.host_counts``)"""
+        out = profiling.host_counts()
+        for name, dynamic in self.dynamics.items():
+            for owner in (dynamic, getattr(dynamic, "solver", None)):
+                for counter in getattr(owner, "COUNTERS", ()):
+                    key = f"{name}.{counter}"
+                    out[key] = out.get(key, 0) + getattr(owner, counter)
+        return out
+
     def _timed_step(self, timers=None):
-        """one step, dynamic by dynamic, each under a profiler scope of its
-        name and timed up to the end of its device work into ``timers``
+        """one step, dynamic by dynamic, each under a span of its name and
+        timed up to the end of its device work into ``timers``
         (``self.timers`` by default)"""
         timers = self.timers if timers is None else timers
         sim = self.sim_state
         for name, fn in self._named_step_fns:
-            with torch.profiler.record_function(name):
+            with profiling.span(name, self.n_steps):
                 t0 = time.perf_counter()
                 sim = fn(sim)
                 self.block_until_ready()
@@ -101,12 +127,21 @@ class Particulator:
         self.sim_state = sim
 
     def _compose(self):
-        """the composed step from ``_named_step_fns``"""
-        step_fns = [fn for _, fn in self._named_step_fns]
+        """the composed step from ``_named_step_fns``; while a profiler
+        records, each step function runs under a span of its name with the
+        step's number"""
+        named_step_fns = self._named_step_fns
+        step_fns = [fn for _, fn in named_step_fns]
 
         def full_step(sim):
-            for fn in step_fns:
-                sim = fn(sim)
+            if not profiling.recording():
+                for fn in step_fns:
+                    sim = fn(sim)
+                return sim
+            step = self.n_steps
+            for name, fn in named_step_fns:
+                with profiling.span(name, step):
+                    sim = fn(sim)
             return sim
 
         self._step_fn = full_step

@@ -73,16 +73,7 @@ def build(label, replacements):
         [_build.nvcc_path(), *_build.flags("condensation"), "-o", lib_path,
          source], check=True, capture_output=True,
     )
-    lib = ctypes.CDLL(os.path.abspath(lib_path))
-    vp = ctypes.c_void_p
-    lib.pysdm_condensation_masses_new.argtypes = [
-        *([vp] * 14), ctypes.c_int, ctypes.c_int,
-        ctypes.POINTER(k3.K3Params), vp, vp, vp,
-    ]
-    lib.pysdm_condensation_masses_new.restype = ctypes.c_int
-    lib.pysdm_condensation_error_string.argtypes = [ctypes.c_int]
-    lib.pysdm_condensation_error_string.restype = ctypes.c_char_p
-    return lib
+    return k3.declare(ctypes.CDLL(os.path.abspath(lib_path)))
 
 
 def main():

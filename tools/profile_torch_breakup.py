@@ -26,7 +26,7 @@ import torch  # noqa: E402
 from torch.profiler import ProfilerActivity, profile  # noqa: E402
 
 import chip_smoke  # noqa: E402
-from profile_torch_box import busy_us, kernel_events  # noqa: E402
+from trace_events import busy_us, kernel_events  # noqa: E402
 
 
 def main():

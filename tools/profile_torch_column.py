@@ -32,7 +32,7 @@ import torch  # noqa: E402
 from torch.profiler import ProfilerActivity, profile  # noqa: E402
 
 import chip_smoke  # noqa: E402
-from profile_torch_box import busy_us, kernel_events  # noqa: E402
+from trace_events import busy_us, kernel_events  # noqa: E402
 
 # the entry points of K2, K3 and K4, printed whatever their rank
 PORT_KERNELS = ("coalesce_adjacent_kernel", "masses_new_kernel", "scan_kernel")

@@ -50,7 +50,7 @@ from torch.profiler import ProfilerActivity, profile
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import chip_smoke  # noqa: E402
-from profile_torch_box import kernel_events  # noqa: E402
+from trace_events import kernel_events  # noqa: E402
 from pysdm_tpu_torch.ops.cuda import _build  # noqa: E402
 from pysdm_tpu_torch.ops.cuda import breakup as k5  # noqa: E402
 
