@@ -3,8 +3,12 @@
 
 Two croupiers, chosen as the JAX package chooses them:
 - one cell (box, parcel), not injected, ``croupier`` not "sort": the mirror
-  croupier (``ops/pairing.py`` ``MirrorPairing``); a substep draws K, pairs
-  slot o with (K - o) mod N and needs no sort;
+  croupier; a substep draws K, pairs slot o with (K - o) mod N and needs no
+  sort. Only the substeps that read partner values build that matching as
+  ``ops/pairing.py`` ``MirrorPairing``: the adaptive ones, the float64
+  path and K1a with the kernel's values given. K1, K5 and K1a's
+  Parameterized form on a fixed substep pair the slots in their body and
+  take K alone (``pairings_built`` counts the pairings built);
 - many cells, u01 injection, or ``croupier="sort"``: a substep sorts the
   whole state by (cell, random bits) (``ops/segments.py``
   ``bucket_shuffle_state``) and pairs neighbouring slots of a cell
@@ -61,9 +65,10 @@ croupier's adaptive scale, where a substep computes them); on the sort
 croupier ``Collision.sort``,
 ``Collision.pairs``, ``Collision.cell_min`` (the per-cell adaptive
 substep) and ``Collision.coalescence`` (K2 and the per-cell rates); on the
-mirror croupier ``Collision.pairing`` (with the attributes) and
-``Collision.kernel`` (K1, K1a, K5 or the float64 update); each read is
-``Collision.read``.
+mirror croupier ``Collision.pairing`` (the ``MirrorPairing`` where the
+substep builds one, and the attributes; on a fixed K1, K5 or in-body K1a
+substep the attributes alone) and ``Collision.kernel`` (K1, K1a, K5 or the
+float64 update); each read is ``Collision.read``.
 """
 
 from collections import namedtuple
@@ -133,7 +138,9 @@ class Collision:
     # Condensation can use (the builder's shared-sort analysis)
     restores_cell_sort = True
     # the host counters ``Particulator.counts`` gives
-    COUNTERS = ("host_reads", "substeps_run", "breakup_iterations")
+    COUNTERS = (
+        "host_reads", "substeps_run", "breakup_iterations", "pairings_built",
+    )
 
     def __init__(
         self,
@@ -177,6 +184,9 @@ class Collision:
         self.host_reads = 0
         self.substeps_run = 0
         self.breakup_iterations = 0
+        # the ``MirrorPairing``s the mirror substeps built (none on a fixed
+        # substep whose kernel pairs the slots itself)
+        self.pairings_built = 0
 
     def _uses_mirror(self):
         return (
@@ -324,6 +334,17 @@ class Collision:
             particles, dt_left = substep(particles, counters, dt_left)
         return particles
 
+    def _needs_pairing(self, route, in_body):
+        """whether a mirror substep of ``route`` reads a ``MirrorPairing``:
+        the adaptive substep choice, the float64 update and K1a with the
+        kernel's values given do; K1, K5 and K1a's Parameterized form
+        (``in_body``) on a fixed substep pair slot o with (K - o) mod N in
+        their body"""
+        return (
+            self.adaptive or route == "float64"
+            or (route == "rows" and not in_body)
+        )
+
     def _attr_names(self):
         """the attributes a substep reads: the collision kernel's, and with
         breakup those of Ec, Eb and the fragmentation function"""
@@ -403,6 +424,7 @@ class Collision:
             route == "rows" and not self.adaptive
             and isinstance(kernel, Parameterized)
         )
+        needs_pairing = self._needs_pairing(route, in_body)
         norm = coll_ops.mirror_normalization_factor(
             dt, particulator.mesh.dv, n_sd, ftype, particulator.device
         )
@@ -456,9 +478,15 @@ class Collision:
                         functions, scale32, K, seed, self.max_multiplicity,
                     )
                 else:
+                    # one row (Golovin, ConstantK, Linear) as a view, not
+                    # a copy
+                    attr = (
+                        rows32[row_names[0]].unsqueeze(0)
+                        if len(row_names) == 1
+                        else torch.stack([rows32[name] for name in row_names])
+                    )
                     mult, ext, *rates = coalesce_mirror(
-                        particles.multiplicity, particles.extensive,
-                        torch.stack([rows32[name] for name in row_names]),
+                        particles.multiplicity, particles.extensive, attr,
                         kernel.kernel_id, kernel.cuda_params, scale32, K, seed,
                     )
             for name, total in zip(counter_names, rates):
@@ -471,13 +499,11 @@ class Collision:
             return {name: resolver.get(particles, name) for name in attr_names}
 
         def gamma(particles, counters, dt_left, pairing, attrs):
-            """the kernel's values at the pairs where a substep needs them,
-            the probabilities, and the substep's scale: (dt_left, scale,
-            attrs_b, values, prob)"""
+            """the kernel's values at the pairs where the substep built a
+            pairing to read them, the probabilities, and the substep's
+            scale: (dt_left, scale, attrs_b, values, prob)"""
             values = attrs_b = prob = None
-            if dt_left is not None or route == "float64" or (
-                route == "rows" and not in_body
-            ):
+            if pairing is not None:
                 attrs_b = {name: pairing.partner(v) for name, v in attrs.items()}
                 values = kernel.pairwise(formulae, attrs, attrs_b).to(ftype)
             if dt_left is not None or route == "float64":
@@ -510,7 +536,10 @@ class Collision:
                 with span("Collision.draws"):
                     draws = self._draw_mirror(n_sd, n_rows)
                 with span("Collision.pairing"):
-                    pairing = MirrorPairing(draws[0], n_sd, particles.alive)
+                    pairing = None
+                    if needs_pairing:
+                        pairing = MirrorPairing(draws[0], n_sd, particles.alive)
+                        self.pairings_built += 1
                     attrs = attributes(particles)
                 with span("Collision.gamma"):
                     dt_left, scale, attrs_b, values, prob = gamma(

@@ -11,7 +11,11 @@ floor(n/2) / (n(n-1)/2) (``ops.collisions.normalization_factor``).
 construction; every unordered pair is a candidate with probability exactly
 1/N, hence the normalization factor dt/dv * N
 (``ops.collisions.mirror_normalization_factor``). Fixed points 2o = K (mod N)
-and dead slots (multiplicity 0) are masked out of ``is_first``.
+and dead slots (multiplicity 0) are masked out of ``is_first``. The mirror
+substeps that read partner values build one (the adaptive substep choice,
+the float64 path, K1a with the kernel's values given); K1, K5 and K1a's
+Parameterized form on a fixed substep compute the same matching in their
+body from K and build none (``dynamics/collisions/collision.py``).
 
 The JAX package reads the partner as ``roll(flip(x), K + 1)``; here the
 partner index is computed directly and read with a gather.
